@@ -1,0 +1,290 @@
+"""Relative attention over (events x channels) codemap grids.
+
+Port of ``interactive_spectrogram_inpainting_tpu/models/prior/attention.py``.
+A sequence position ``i`` sits on the grid at event ``e_i = i // C`` and
+channel ``c_i = i % C``; the learned bias is
+
+    bias[h, i, j] = table[h, c_i, c_j, clip(e_i - e_j + (E_k - 1))]
+
+Layers are pre-LN. LayerNorm epsilon is flax's 1e-6 (PyTorch's default is
+1e-5). Projections are ``nn.Linear`` over the flattened ``H * Dh`` head
+axis; ``utils/weights.py`` maps the flax ``DenseGeneral`` kernels onto
+them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+NEG_INF = -1e9
+LN_EPS = 1e-6
+
+
+def grid_coords(length: int, num_channels: int,
+                device: Optional[torch.device] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    idx = torch.arange(length, device=device)
+    return idx // num_channels, idx % num_channels  # events, channels
+
+
+def layer_norm(d_model: int) -> nn.LayerNorm:
+    return nn.LayerNorm(d_model, eps=LN_EPS)
+
+
+class RelativeAttentionBias(nn.Module):
+    """Learned bias table indexed by (head, q-channel, k-channel, rel event)."""
+
+    def __init__(self, num_heads: int, num_channels_q: int,
+                 num_events_q: int, num_channels_k: int, num_events_k: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.num_channels_q = num_channels_q
+        self.num_events_q = num_events_q
+        self.num_channels_k = num_channels_k
+        self.num_events_k = num_events_k
+        max_rel = num_events_q + num_events_k - 1
+        self.rel_bias = nn.Parameter(0.02 * torch.randn(
+            num_heads, num_channels_q, num_channels_k, max_rel))
+
+    def full(self, len_q: int, len_k: int) -> torch.Tensor:
+        """[H, len_q, len_k] dense bias."""
+        dev = self.rel_bias.device
+        e_q, c_q = grid_coords(len_q, self.num_channels_q, dev)
+        e_k, c_k = grid_coords(len_k, self.num_channels_k, dev)
+        max_rel = self.rel_bias.shape[-1]
+        # clamp: padded positions produce out-of-range offsets
+        rel = torch.clamp(e_q[:, None] - e_k[None, :]
+                          + (self.num_events_k - 1), 0, max_rel - 1)
+        flat_idx = ((c_q[:, None] * self.num_channels_k + c_k[None, :])
+                    * max_rel + rel)
+        flat_table = self.rel_bias.reshape(self.num_heads, -1)
+        flat_idx = torch.clamp(flat_idx, 0, flat_table.shape[1] - 1)
+        return flat_table[:, flat_idx]
+
+    def row(self, pos: int, len_k: int) -> torch.Tensor:
+        """[H, len_k] bias for a single query position ``pos``."""
+        dev = self.rel_bias.device
+        e_q = pos // self.num_channels_q
+        c_q = min(max(pos % self.num_channels_q, 0),
+                  self.num_channels_q - 1)
+        e_k, c_k = grid_coords(len_k, self.num_channels_k, dev)
+        max_rel = self.rel_bias.shape[-1]
+        rel = torch.clamp(e_q - e_k + (self.num_events_k - 1),
+                          0, max_rel - 1)
+        t = self.rel_bias[:, c_q][:, c_k, :]  # [H, len_k, max_rel]
+        index = rel[None, :, None].expand(self.num_heads, -1, 1)
+        return torch.gather(t, -1, index)[..., 0]
+
+
+class MultiHeadAttention(nn.Module):
+    """MHA with additive bias/mask and a cached single-query step."""
+
+    def __init__(self, d_model: int, num_heads: int):
+        super().__init__()
+        assert d_model % num_heads == 0
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.head_dim = d_model // num_heads
+        self.q = nn.Linear(d_model, d_model)
+        self.k = nn.Linear(d_model, d_model)
+        self.v = nn.Linear(d_model, d_model)
+        self.o = nn.Linear(d_model, d_model)
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(x.shape[:-1] + (self.num_heads, self.head_dim))
+
+    def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
+                bias: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """q_in [B, Lq, d], kv_in [B, Lk, d]; bias [H, Lq, Lk];
+        mask additive [Lq, Lk] (0 = keep, NEG_INF = drop)."""
+        q = self._heads(self.q(q_in))
+        k = self._heads(self.k(kv_in))
+        v = self._heads(self.v(kv_in))
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        logits = logits / math.sqrt(float(self.head_dim))
+        if bias is not None:
+            logits = logits + bias[None].to(logits.dtype)
+        if mask is not None:
+            logits = logits + mask[None, None].to(logits.dtype)
+        weights = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
+        return self.o(out.reshape(out.shape[:2] + (self.d_model,)))
+
+    def project_kv(self, kv_in: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K/V for caching ([B, Lk, H, Dh] each)."""
+        return self._heads(self.k(kv_in)), self._heads(self.v(kv_in))
+
+    def step(self, q_in: torch.Tensor, k_cache: torch.Tensor,
+             v_cache: torch.Tensor,
+             bias_row: Optional[torch.Tensor] = None,
+             mask_row: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """q_in [B, d]; k_cache/v_cache [B, Lk, H, Dh];
+        bias_row [H, Lk]; mask_row additive [Lk]. -> [B, d]"""
+        q = self._heads(self.q(q_in))  # [B, H, Dh]
+        logits = torch.einsum("bhd,bkhd->bhk", q.float(), k_cache.float())
+        logits = logits / math.sqrt(float(self.head_dim))
+        if bias_row is not None:
+            logits = logits + bias_row[None].to(logits.dtype)
+        if mask_row is not None:
+            logits = logits + mask_row[None, None].to(logits.dtype)
+        weights = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhk,bkhd->bhd", weights.to(v_cache.dtype),
+                           v_cache)
+        return self.o(out.reshape(out.shape[0], self.d_model))
+
+
+class FeedForward(nn.Module):
+    def __init__(self, d_model: int, d_ff: int):
+        super().__init__()
+        self.fc1 = nn.Linear(d_model, d_ff)
+        self.fc2 = nn.Linear(d_ff, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.relu(self.fc1(x)))
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, d_model: int, num_heads: int, d_ff: int,
+                 num_channels: int, num_events: int):
+        super().__init__()
+        self.self_bias = RelativeAttentionBias(
+            num_heads, num_channels, num_events, num_channels, num_events)
+        self.self_attn = MultiHeadAttention(d_model, num_heads)
+        self.ln1 = layer_norm(d_model)
+        self.ln2 = layer_norm(d_model)
+        self.mlp = FeedForward(d_model, d_ff)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        length = x.shape[1]
+        bias = self.self_bias.full(length, length)
+        h = self.ln1(x)
+        x = x + self.self_attn(h, h, bias=bias, mask=mask)
+        return x + self.mlp(self.ln2(x))
+
+
+class DecoderLayer(nn.Module):
+    """Pre-LN decoder layer with relative self bias and configurable cross
+    bias; ``aligned=True`` restricts cross attention to the source token
+    whose patch contains the query."""
+
+    def __init__(self, d_model: int, num_heads: int, d_ff: int,
+                 num_channels_encoder: int, num_events_encoder: int,
+                 num_channels_decoder: int, num_events_decoder: int,
+                 cross_bias_type: str = "relative_attention_target_source",
+                 aligned: bool = False):
+        super().__init__()
+        self.num_channels_decoder = num_channels_decoder
+        self.aligned = aligned
+        self.self_bias = RelativeAttentionBias(
+            num_heads, num_channels_decoder, num_events_decoder,
+            num_channels_decoder, num_events_decoder)
+        if cross_bias_type == "relative_attention_target_source":
+            self.cross_bias = RelativeAttentionBias(
+                num_heads, num_channels_decoder, num_events_decoder,
+                num_channels_encoder, num_events_encoder)
+        elif cross_bias_type == "no_bias":
+            self.cross_bias = None
+        else:
+            raise ValueError(cross_bias_type)
+        self.self_attn = MultiHeadAttention(d_model, num_heads)
+        self.cross_attn = MultiHeadAttention(d_model, num_heads)
+        self.ln1 = layer_norm(d_model)
+        self.ln2 = layer_norm(d_model)
+        self.ln3 = layer_norm(d_model)
+        self.mlp = FeedForward(d_model, d_ff)
+
+    def _aligned_mask(self, len_q: int, len_k: int) -> torch.Tensor:
+        """Target event e sees only source position e."""
+        dev = self.ln1.weight.device
+        e_q, _ = grid_coords(len_q, self.num_channels_decoder, dev)
+        j = torch.arange(len_k, device=dev)
+        allowed = e_q[:, None] == j[None, :]
+        return torch.where(allowed, 0.0, NEG_INF)
+
+    def forward(self, x: torch.Tensor, memory: torch.Tensor,
+                tgt_mask: Optional[torch.Tensor] = None,
+                memory_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        len_q = x.shape[1]
+        len_k = memory.shape[1]
+        self_bias = self.self_bias.full(len_q, len_q)
+        h = self.ln1(x)
+        x = x + self.self_attn(h, h, bias=self_bias, mask=tgt_mask)
+        cross_bias = (self.cross_bias.full(len_q, len_k)
+                      if self.cross_bias is not None else None)
+        cross_mask = memory_mask
+        if self.aligned:
+            aligned = self._aligned_mask(len_q, len_k)
+            cross_mask = aligned if cross_mask is None else (
+                cross_mask + aligned)
+        x = x + self.cross_attn(self.ln2(x), memory, bias=cross_bias,
+                                mask=cross_mask)
+        return x + self.mlp(self.ln3(x))
+
+    # -- KV-cached decode ---------------------------------------------------
+    def init_memory_kv(self, memory: torch.Tensor):
+        return self.cross_attn.project_kv(memory)
+
+    def project_self_kv(self, x: torch.Tensor):
+        """K/V of the (pre-LN'd) input for priming the self cache."""
+        return self.self_attn.project_kv(self.ln1(x))
+
+    def step(self, x_i: torch.Tensor, pos: int, k_self: torch.Tensor,
+             v_self: torch.Tensor, mem_k: torch.Tensor, mem_v: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One query position against caches [B, L, H, Dh].
+
+        Writes this position's fresh K/V into ``k_self``/``v_self`` in
+        place (entries > pos are ignored through the causal mask) and
+        returns (out_i [B, d], k_self, v_self)."""
+        l_tgt = k_self.shape[1]
+        l_src = mem_k.shape[1]
+        h = self.ln1(x_i)
+        k_self[:, pos] = self.self_attn._heads(
+            self.self_attn.k(h)).to(k_self.dtype)
+        v_self[:, pos] = self.self_attn._heads(
+            self.self_attn.v(h)).to(v_self.dtype)
+        dev = x_i.device
+        causal_row = torch.where(torch.arange(l_tgt, device=dev) <= pos,
+                                 0.0, NEG_INF)
+        a = self.self_attn.step(h, k_self, v_self,
+                                bias_row=self.self_bias.row(pos, l_tgt),
+                                mask_row=causal_row)
+        x_i = x_i + a
+        cross_bias_row = (self.cross_bias.row(pos, l_src)
+                          if self.cross_bias is not None else None)
+        cross_mask_row = None
+        if self.aligned:
+            e_q = pos // self.num_channels_decoder
+            cross_mask_row = torch.where(
+                torch.arange(l_src, device=dev) == e_q, 0.0, NEG_INF)
+        c = self.cross_attn.step(self.ln2(x_i), mem_k, mem_v,
+                                 bias_row=cross_bias_row,
+                                 mask_row=cross_mask_row)
+        x_i = x_i + c
+        x_i = x_i + self.mlp(self.ln3(x_i))
+        return x_i, k_self, v_self
+
+
+def causal_mask(length: int, device=None) -> torch.Tensor:
+    """Additive [L, L] mask allowing j <= i."""
+    i = torch.arange(length, device=device)
+    return torch.where(i[:, None] >= i[None, :], 0.0, NEG_INF)
+
+
+def anti_causal_mask(length: int, device=None) -> torch.Tensor:
+    """Transpose of the causal mask: position i sees j >= i."""
+    i = torch.arange(length, device=device)
+    return torch.where(i[:, None] <= i[None, :], 0.0, NEG_INF)
+
+
+def identity_mask(length: int, device=None) -> torch.Tensor:
+    i = torch.arange(length, device=device)
+    return torch.where(i[:, None] == i[None, :], 0.0, NEG_INF)

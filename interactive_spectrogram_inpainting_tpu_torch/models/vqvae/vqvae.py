@@ -1,0 +1,145 @@
+"""Two-level hierarchical VQ-VAE-2 (top/bottom codemaps), decode side.
+
+Port of the decode path of
+``interactive_spectrogram_inpainting_tpu/models/vqvae/vqvae.py``: the top
+quantized map is upsampled to the bottom resolution, concatenated with the
+bottom quantized map and decoded to a ``[B, C, F, T]`` spectrogram, then
+post-processed (denormalized, optionally phase-masked). ``VQVAEConfig``
+reads and writes the JAX package's JSON keys. The encoder, the codebook
+lookup and training are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from ...signal.normalizer import DataNormalizer
+from ...signal.spectrogram import make_masked_phase_transform
+from .bottleneck import QuantizedBottleneck
+from .encoder_decoder import Decoder, UpsampleStack
+
+
+def _log2_int(x: int) -> int:
+    n = int(x)
+    if n <= 0 or n & (n - 1):
+        raise ValueError(f"resolution factor {x} must be a power of two")
+    return n.bit_length() - 1
+
+
+@dataclasses.dataclass
+class VQVAEConfig:
+    """Constructor kwargs, JSON-compatible with the JAX package's config."""
+
+    in_channel: int = 2
+    num_hidden_channels: int = 128
+    n_res_block: int = 2
+    num_residual_channels: int = 32
+    embed_dim: int = 64
+    num_embeddings: Union[int, List[int]] = 512
+    decay: float = 0.99
+    groups: int = 1
+    use_local_kernels: bool = False
+    output_spectrogram_min_magnitude: Optional[float] = None
+    resolution_factors: Mapping[str, int] = dataclasses.field(
+        default_factory=lambda: {"bottom": 4, "top": 2})
+    embeddings_initial_variance: float = 1.0
+    normalizer_statistics: Optional[Mapping[str, float]] = None
+    corruption_weights: Mapping[str, Optional[List[float]]] = (
+        dataclasses.field(default_factory=lambda: {"top": None,
+                                                   "bottom": None}))
+    adapt_quantized_durations: bool = True
+    disable_quantization: bool = False
+    restarts_usage_threshold: float = 1.0
+    use_resnet: bool = False
+    resnet_layers_per_downsampling_block: int = 4
+    resnet_expansion: int = 1
+    use_pallas_lookup: bool = False
+
+    @property
+    def n_embed_t(self) -> int:
+        n = self.num_embeddings
+        return int(n if isinstance(n, int) else n[0])
+
+    @property
+    def n_embed_b(self) -> int:
+        n = self.num_embeddings
+        return int(n if isinstance(n, int) else n[1])
+
+    @property
+    def total_resolution_factor(self) -> int:
+        return (int(self.resolution_factors["bottom"])
+                * int(self.resolution_factors["top"]))
+
+    def codemap_shapes(self, spec_shape: Tuple[int, int]
+                       ) -> Dict[str, Tuple[int, int]]:
+        """(F, T) spectrogram -> {'top': (f, t), 'bottom': (f, t)}."""
+        f, t = spec_shape
+        rb = int(self.resolution_factors["bottom"])
+        rt = int(self.resolution_factors["top"])
+        return {"bottom": (f // rb, t // rb),
+                "top": (f // (rb * rt), t // (rb * rt))}
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=4)
+
+    @classmethod
+    def from_json(cls, blob: Union[str, Mapping[str, Any]]) -> "VQVAEConfig":
+        d = dict(json.loads(blob) if isinstance(blob, str) else blob)
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+class VQVAE(nn.Module):
+    """Decode side: ``decode_code(code_t, code_b)`` and ``decode``."""
+
+    def __init__(self, config: VQVAEConfig):
+        super().__init__()
+        cfg = self.config = config
+        if cfg.use_resnet or cfg.disable_quantization:
+            raise NotImplementedError(
+                "the ResNet decoders and the unquantized ablation are not "
+                "ported")
+        self.quantize_t = QuantizedBottleneck(
+            cfg.embed_dim, cfg.n_embed_t, cfg.embeddings_initial_variance)
+        self.quantize_b = QuantizedBottleneck(
+            cfg.embed_dim, cfg.n_embed_b, cfg.embeddings_initial_variance)
+        self.upsample_top_to_bottom = UpsampleStack(
+            cfg.embed_dim, _log2_int(int(cfg.resolution_factors["top"])),
+            use_local_kernels=cfg.use_local_kernels)
+        self.dec = Decoder(
+            in_channel=2 * cfg.embed_dim, out_channel=cfg.in_channel,
+            channel=cfg.num_hidden_channels, n_res_block=cfg.n_res_block,
+            res_channel=cfg.num_residual_channels,
+            resolution_factor=int(cfg.resolution_factors["bottom"]),
+            groups=cfg.groups, use_local_kernels=cfg.use_local_kernels)
+        self.normalizer = (DataNormalizer(cfg.normalizer_statistics)
+                           if cfg.normalizer_statistics else None)
+        self.output_transform = (
+            make_masked_phase_transform(cfg.output_spectrogram_min_magnitude)
+            if cfg.output_spectrogram_min_magnitude is not None else None)
+
+    def decode(self, quant_t: torch.Tensor, quant_b: torch.Tensor
+               ) -> torch.Tensor:
+        """Channel-first quantized maps -> [B, C, F, T] spectrogram."""
+        upsampled = self.upsample_top_to_bottom(quant_t)
+        dec = self.dec(torch.cat([upsampled, quant_b], dim=1))
+        return self.post_process(dec)
+
+    def decode_code(self, code_t: torch.Tensor, code_b: torch.Tensor
+                    ) -> torch.Tensor:
+        """Integer codemaps [B, f, t] -> decoded spectrogram [B, C, F, T]."""
+        quant_t = self.quantize_t.embed_code(code_t).permute(0, 3, 1, 2)
+        quant_b = self.quantize_b.embed_code(code_b).permute(0, 3, 1, 2)
+        return self.decode(quant_t, quant_b)
+
+    def post_process(self, dec: torch.Tensor) -> torch.Tensor:
+        if self.normalizer is not None:
+            dec = self.normalizer.denormalize(dec)
+        if self.output_transform is not None:
+            dec = self.output_transform(dec)
+        return dec

@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface and loaded with ``ctypes``; nothing
+includes PyTorch's headers, so a build takes seconds. Libraries are built at
+first use into ``build/torch_kernels/`` beside the package (override with
+``ISI_TORCH_KERNEL_DIR``), named by a hash of their sources, so an edited
+source is rebuilt and an unchanged one is reused. ``build()`` starts one
+``nvcc`` per source, all at once.
+
+Set ``ISI_PTXAS_VERBOSE=1`` to print each kernel's registers, shared memory
+and spills (``-Xptxas -v``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from typing import Dict, Iterable, Optional
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCES = ("decode_scan", "prefix_prime")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> pathlib.Path:
+    env = os.environ.get("ISI_TORCH_KERNEL_DIR")
+    if env:
+        return pathlib.Path(env)
+    return CSRC.parents[2] / "build" / "torch_kernels"
+
+
+def nvcc_path() -> str:
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(pathlib.Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(pathlib.Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.exists():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def _library_path(name: str) -> pathlib.Path:
+    digest = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        digest.update(src.read_bytes())
+    digest.update(" ".join(ARCH_FLAGS).encode())
+    return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile the named kernels (all by default) that are not built yet,
+    in parallel. Returns the wall seconds each build took (0.0 when the
+    library was already there); raises with nvcc's output on failure."""
+    names = list(names or SOURCES)
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    verbose = os.environ.get("ISI_PTXAS_VERBOSE") == "1"
+    procs = {}
+    seconds = {}
+    for name in names:
+        target = _library_path(name)
+        if target.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", "-lineinfo", "-I", str(CSRC),
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        if verbose:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT),
+                       tmp, target, time.perf_counter())
+    errors = []
+    for name, (proc, tmp, target, t0) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        if verbose and log:
+            print(log)
+        os.replace(tmp, target)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of kernel library ``name``, built if needed."""
+    if name not in _LIBS:
+        build([name])
+        _LIBS[name] = ctypes.CDLL(str(_library_path(name)))
+    return _LIBS[name]

@@ -1,0 +1,215 @@
+"""Flax parameter trees -> PyTorch ``state_dict``s, and flax-like init.
+
+``from_flax_params`` takes a JAX package variables tree whose leaves are
+numpy arrays (``jax.tree_util.tree_map(np.asarray, variables)``) and returns
+the ``state_dict`` of the matching port module, so both packages compute
+the same function:
+
+- Dense kernels ``[in, out]`` become ``nn.Linear`` weights ``[out, in]``;
+  ``DenseGeneral`` q/k/v kernels ``[d, H, Dh]`` and o kernels ``[H, Dh, d]``
+  flatten the head axes first;
+- Conv kernels HWIO become OIHW;
+- ConvTranspose kernels ``[kH, kW, I, O]`` (flax, ``padding='SAME'``)
+  become ``nn.ConvTranspose2d`` weights ``[I, O, kH, kW]`` with both
+  spatial axes flipped (flax's transposed conv correlates, PyTorch's
+  convolves);
+- the VQ-VAE codebooks come from the ``codebook`` collection.
+
+Only the decode side of the VQ-VAE is ported; encoder weights in the tree
+are ignored. Reading the JAX package's msgpack checkpoint files is not
+part of this module.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def _dense(sd: Dict, prefix: str, node: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(node["kernel"]).T)
+    sd[f"{prefix}.bias"] = _t(node["bias"])
+
+
+def _dense_heads_in(sd: Dict, prefix: str, node: Mapping) -> None:
+    """DenseGeneral d -> (H, Dh)."""
+    kernel = np.asarray(node["kernel"])
+    d = kernel.shape[0]
+    sd[f"{prefix}.weight"] = _t(kernel.reshape(d, -1).T)
+    sd[f"{prefix}.bias"] = _t(np.asarray(node["bias"]).reshape(-1))
+
+
+def _dense_heads_out(sd: Dict, prefix: str, node: Mapping) -> None:
+    """DenseGeneral (H, Dh) -> d."""
+    kernel = np.asarray(node["kernel"])
+    d = kernel.shape[-1]
+    sd[f"{prefix}.weight"] = _t(kernel.reshape(-1, d).T)
+    sd[f"{prefix}.bias"] = _t(node["bias"])
+
+
+def _ln(sd: Dict, prefix: str, node: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(node["scale"])
+    sd[f"{prefix}.bias"] = _t(node["bias"])
+
+
+def _mha(sd: Dict, prefix: str, node: Mapping) -> None:
+    for name in ("q", "k", "v"):
+        _dense_heads_in(sd, f"{prefix}.{name}", node[name])
+    _dense_heads_out(sd, f"{prefix}.o", node["o"])
+
+
+def _mlp(sd: Dict, prefix: str, node: Mapping) -> None:
+    _dense(sd, f"{prefix}.fc1", node["Dense_0"])
+    _dense(sd, f"{prefix}.fc2", node["Dense_1"])
+
+
+def _prior_state_dict(p: Mapping) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("source_embed", "target_embed"):
+        sd[f"{name}.weight"] = _t(p[name]["embedding"])
+    for name in ("source_embeddings_linear", "target_embeddings_linear",
+                 "project_logits"):
+        _dense(sd, name, p[name])
+    for name in ("source_pos_frequency", "target_pos_frequency",
+                 "target_pos_patch", "source_start_symbol",
+                 "target_start_symbol"):
+        sd[name] = _t(p[name])
+    for key, node in p.items():
+        if key.startswith("class_conditioning_"):
+            modality = key[len("class_conditioning_"):]
+            sd[f"class_embeds.{modality}.weight"] = _t(node["embedding"])
+    i = 0
+    while f"encoder_layer_{i}" in p:
+        node = p[f"encoder_layer_{i}"]
+        pre = f"encoder_layers.{i}"
+        sd[f"{pre}.self_bias.rel_bias"] = _t(node["self_bias"]["rel_bias"])
+        _mha(sd, f"{pre}.self_attn", node["self_attn"])
+        _ln(sd, f"{pre}.ln1", node["ln1"])
+        _ln(sd, f"{pre}.ln2", node["ln2"])
+        _mlp(sd, f"{pre}.mlp", node["mlp"])
+        i += 1
+    _ln(sd, "encoder_norm", p["encoder_norm"])
+    i = 0
+    while f"decoder_layer_{i}" in p:
+        node = p[f"decoder_layer_{i}"]
+        pre = f"decoder_layers.{i}"
+        sd[f"{pre}.self_bias.rel_bias"] = _t(node["self_bias"]["rel_bias"])
+        if "cross_bias" in node:
+            sd[f"{pre}.cross_bias.rel_bias"] = _t(
+                node["cross_bias"]["rel_bias"])
+        _mha(sd, f"{pre}.self_attn", node["self_attn"])
+        _mha(sd, f"{pre}.cross_attn", node["cross_attn"])
+        for ln in ("ln1", "ln2", "ln3"):
+            _ln(sd, f"{pre}.{ln}", node[ln])
+        _mlp(sd, f"{pre}.mlp", node["mlp"])
+        i += 1
+    _ln(sd, "decoder_norm", p["decoder_norm"])
+    return sd
+
+
+def conv_from_flax(kernel) -> torch.Tensor:
+    """flax Conv kernel [kH, kW, I/g, O] -> torch Conv2d weight [O, I/g, kH, kW]."""
+    return _t(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
+
+
+def conv_transpose_from_flax(kernel) -> torch.Tensor:
+    """flax ConvTranspose kernel [kH, kW, I, O] -> torch ConvTranspose2d
+    weight [I, O, kH, kW], spatially flipped."""
+    w = np.transpose(np.asarray(kernel), (2, 3, 0, 1))
+    return _t(w[:, :, ::-1, ::-1])
+
+
+def _conv(sd: Dict, prefix: str, node: Mapping, transpose: bool = False):
+    sd[f"{prefix}.weight"] = (conv_transpose_from_flax(node["kernel"])
+                              if transpose else conv_from_flax(node["kernel"]))
+    sd[f"{prefix}.bias"] = _t(node["bias"])
+
+
+def _decoder_state_dict(sd: Dict, prefix: str, node: Mapping) -> None:
+    _conv(sd, f"{prefix}.conv_in", node["Conv_0"])
+    r = 0
+    while f"ResBlock_{r}" in node:
+        res = node[f"ResBlock_{r}"]
+        _conv(sd, f"{prefix}.res_blocks.{r}.conv1", res["Conv_0"])
+        _conv(sd, f"{prefix}.res_blocks.{r}.conv2", res["Conv_1"])
+        r += 1
+    i = 0
+    while f"ConvTranspose_{i}" in node:
+        _conv(sd, f"{prefix}.upsample.{i}", node[f"ConvTranspose_{i}"],
+              transpose=True)
+        i += 1
+
+
+def _vqvae_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    _decoder_state_dict(sd, "dec", p["dec"])
+    ups = p["upsample_top_to_bottom"]
+    i = 0
+    while f"ConvTranspose_{i}" in ups:
+        _conv(sd, f"upsample_top_to_bottom.layers.{i}",
+              ups[f"ConvTranspose_{i}"], transpose=True)
+        i += 1
+    for level in ("quantize_t", "quantize_b"):
+        sd[f"{level}.embed"] = _t(variables["codebook"][level]["embed"])
+    return sd
+
+
+def from_flax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX package variables (numpy leaves) -> port ``state_dict``.
+
+    Accepts a prior's or the VQ-VAE's variables (``{'params': ...}``, plus
+    ``'codebook'`` for the VQ-VAE) or a prior's bare params tree."""
+    if "codebook" in tree:
+        return _vqvae_state_dict(tree)
+    params = tree["params"] if "params" in tree else tree
+    if "decoder_layer_0" not in params:
+        raise ValueError("not a prior or VQ-VAE parameter tree")
+    return _prior_state_dict(params)
+
+
+# -- flax-like random initialization ------------------------------------------
+
+def init_like_flax(module: nn.Module,
+                   generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Re-draw a port module's parameters with the JAX package's flax
+    initializers' scales (lecun-normal kernels, zero biases, unit-variance
+    embeddings and positional tables, 0.02 relative-bias tables), so
+    randomly initialized test models see realistic activations."""
+    from ..models.prior.attention import RelativeAttentionBias
+
+    def normal_(t: torch.Tensor, std: float) -> None:
+        with torch.no_grad():
+            t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+    for name, sub in module.named_modules():
+        if isinstance(sub, nn.Linear):
+            normal_(sub.weight, 1.0 / math.sqrt(sub.in_features))
+            nn.init.zeros_(sub.bias)
+        elif isinstance(sub, nn.Embedding):
+            normal_(sub.weight, 1.0 / math.sqrt(sub.embedding_dim))
+        elif isinstance(sub, nn.LayerNorm):
+            nn.init.ones_(sub.weight)
+            nn.init.zeros_(sub.bias)
+        elif isinstance(sub, nn.ConvTranspose2d):
+            i, _, kh, kw = sub.weight.shape
+            normal_(sub.weight, 1.0 / math.sqrt(i * kh * kw))
+            nn.init.zeros_(sub.bias)
+        elif isinstance(sub, nn.Conv2d):
+            _, i, kh, kw = sub.weight.shape
+            normal_(sub.weight, 1.0 / math.sqrt(i * kh * kw))
+            nn.init.zeros_(sub.bias)
+        elif isinstance(sub, RelativeAttentionBias):
+            normal_(sub.rel_bias, 0.02)
+    for name, param in module.named_parameters(recurse=True):
+        if name.endswith(("_pos_frequency", "pos_patch", "start_symbol")):
+            normal_(param, 1.0)
+    return module
