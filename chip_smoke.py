@@ -14,15 +14,31 @@ Phases, each failing the run with a nonzero exit:
    teacher-forced (mask all False: the final caches agree, the tokens are
    unchanged), greedy top prior in float32 (the token streams are equal),
    and bfloat16 with Gumbel noise (tokens in range, unmasked unchanged);
-4. server: the port's server with the full-width test models on the card,
+4. decode-step: ``fused_decode_step`` at batch 2 (bottom and top prior) and
+   ``fused_decode_step_batched`` at batch 16 (bottom prior) against their
+   plain versions over 32 consecutive positions from a primed cache:
+   teacher-forced caches in bfloat16 and float32, greedy float32 tokens
+   equal; ``flash_decode_attention`` against ``reference_decode_attention``
+   at batch 1 and 16 with ``pos`` in the first, a middle and the last
+   chunk;
+5. server: the port's server with the full-width test models on the card,
    on localhost: three ``/timerange-change`` (``layer=top``, the last two
    of the four top columns masked, so both priors are primed), then three
-   ``/get-audio``; both kernels' launch counters must grow; the first
-   request of each kind is cold (it builds the decode tables, plans the
-   FFT and picks the convolution algorithms);
-5. a ``{"kernels": [...]}`` line: each kernel's main-path launches, its
+   ``/get-audio`` (prefix-prime and decode-scan counters must grow); one
+   ``/generate`` and two ``/top-conditioned-sample`` of 10 pitches (batch
+   bucket 16: the batched step kernel runs 515 steps per request); then
+   ``sample_model`` at batch 2 on the bottom prior (half mask, primed) and
+   on the top prior (the small-batch step kernel), and the dense sampler
+   with ``top_p=0.9, use_flash=True`` at batch 2 (the flash attention
+   kernel). Every path is driven with its kernels' counters set to 0 just
+   before and read just after; the first request of each kind is cold (it
+   builds the decode tables, plans the FFT and picks the convolution
+   algorithms);
+6. a ``{"kernels": [...]}`` line: each kernel's main-path launches, its
    error against the plain version, its time and the plain version's time
-   on the requests' shapes, and its bound on this card.
+   on the main path's shapes, its bound on this card and, for the flash
+   attention, the time of ``F.scaled_dot_product_attention`` on the same
+   inputs.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -37,6 +53,7 @@ import subprocess
 import sys
 import time
 import urllib.request
+import zipfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "interactive_spectrogram_inpainting_tpu_torch"
@@ -49,7 +66,18 @@ KERNEL_SOURCES = {
     "fused_decode_scan": (
         f"{PKG}/ops/csrc/decode_scan.cu",
         "interactive_spectrogram_inpainting_tpu/ops/decode_scan_kernel.py:349"),
+    "fused_decode_step": (
+        f"{PKG}/ops/csrc/decode_step.cu",
+        "interactive_spectrogram_inpainting_tpu/ops/decode_step_kernel.py:534"),
+    "fused_decode_step_batched": (
+        f"{PKG}/ops/csrc/decode_step_batched.cu",
+        "interactive_spectrogram_inpainting_tpu/ops/decode_step_batched.py:351"),
+    "flash_decode_attention": (
+        f"{PKG}/ops/csrc/decode_attention.cu",
+        "interactive_spectrogram_inpainting_tpu/ops/decode_attention.py:174"),
 }
+STEPS_CHECKED = 32   # consecutive positions a step kernel is checked over
+STEPS_TIMED = 32     # captured steps (evenly spaced) a step kernel is timed on
 
 
 def fail(msg: str) -> None:
@@ -93,7 +121,11 @@ def request_codes(state, seed=0):
 
 def scan_inputs(torch, model, decode_state, codemap, condition, mask,
                 scan_from, scan_until, dtype):
-    """The kernels' inputs for one prior, as sample_model builds them."""
+    """The kernels' inputs for one prior, as sample_model builds them.
+    ``codemap`` [F, T] and ``condition`` give the one-sequence forms of the
+    whole-scan kernel; with a leading batch dimension ([B, F, T]) they give
+    the batched forms of the step kernels (tokens [B, L], memory
+    [n_layers, B, E_pad, d], cache [n_layers, 2, B, l_pad, d])."""
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
         decode_step_kernel as tables)
     from interactive_spectrogram_inpainting_tpu_torch.sampling.sample import (
@@ -104,40 +136,49 @@ def scan_inputs(torch, model, decode_state, codemap, condition, mask,
     c = cfg.target_num_channels
     helper = cfg.target_codemaps_helper()
     src_helper = cfg.source_codemaps_helper()
+    batched = codemap.ndim == 3
     with torch.no_grad():
-        codemap_t = torch.as_tensor(codemap, device=dev)[None]
-        cond_t = torch.as_tensor(condition, device=dev)[None]
+        codemap_t = torch.as_tensor(codemap, device=dev)
+        cond_t = torch.as_tensor(condition, device=dev)
+        if not batched:
+            codemap_t, cond_t = codemap_t[None], cond_t[None]
+        batch = codemap_t.shape[0]
         mask_t = torch.as_tensor(mask, device=dev)
-        src_mask = (mask_t[None] if cfg.self_conditional_model else None)
+        src_mask = (mask_t[None].expand(batch, -1, -1)
+                    if cfg.self_conditional_model else None)
         src = model.prepare_sequence(
             src_helper.to_sequence(cond_t), "source",
             mask=None if src_mask is None else src_helper.to_sequence(
                 src_mask))
         memory = model.encode_source(src)
-        tokens = helper.to_sequence(codemap_t)[0].to(torch.int32)
+        tokens = helper.to_sequence(codemap_t).to(torch.int32)
         mask_seq = helper.to_sequence(mask_t[None])[0].contiguous()
         params = decode_state["params"]
         posfull = tables.precompute_position_features(
-            model, model._start_block("target", {}, 1),
+            model, model._start_block("target", {}, batch),
             model._positional_sequence("target"), dtype=dtype)
         mem_k, mem_v = tables.precompute_mem_values(model, memory.to(dtype))
         e_src = mem_v.shape[2]
         e_pad = tables._round_up(e_src, 128)
-        mem = (F.pad(mem_k[:, 0], (0, 0, 0, e_pad - e_src)),
-               F.pad(mem_v[:, 0], (0, 0, 0, e_pad - e_src)))
+        mem = (F.pad(mem_k, (0, 0, 0, e_pad - e_src)),
+               F.pad(mem_v, (0, 0, 0, e_pad - e_src)))
         p0, steps = scan_range(model, scan_from, scan_until)
-        with_start = torch.cat([torch.full((c,), cfg.n_class, device=dev,
-                                           dtype=torch.long),
-                                tokens.long()])
-        x_prefix = (params["emb_padded"][with_start[:p0]].float()
+        with_start = torch.cat([torch.full((batch, c), cfg.n_class,
+                                           device=dev, dtype=torch.long),
+                                tokens.long()], dim=1)
+        x_prefix = (params["emb_padded"][with_start[:, :p0]].float()
                     + posfull[:p0].float()).to(dtype)
+        kv_shape = (cfg.conditional_model_num_decoder_layers, 2, batch,
+                    decode_state["bias_hm"].shape[3], cfg.d_model)
+        if not batched:
+            mem = (mem[0][:, 0], mem[1][:, 0])
+            tokens, x_prefix = tokens[0], x_prefix[0]
+            kv_shape = kv_shape[:2] + kv_shape[3:]
     return dict(params=params, bias_hm=decode_state["bias_hm"],
                 cross_hm=decode_state["cross_hm"], posfull=posfull, mem=mem,
                 e_src=e_src, tokens=tokens, mask=mask_seq, p0=p0,
                 steps=steps, x_prefix=x_prefix, c=c,
-                n_class=cfg.n_class_target,
-                kv_shape=(cfg.conditional_model_num_decoder_layers, 2,
-                          decode_state["bias_hm"].shape[3], cfg.d_model))
+                n_class=cfg.n_class_target, kv_shape=kv_shape)
 
 
 def run_prime(torch, fn, inp, dtype):
@@ -153,6 +194,58 @@ def run_scan(torch, fn, inp, kv, mask, gumbel, temperature=1.0):
               gumbel, temperature, p0=inp["p0"], steps=inp["steps"],
               n_class=inp["n_class"], channels=inp["c"],
               cross_hm=inp["cross_hm"], e_src_real=inp["e_src"])
+
+
+def run_steps(torch, fn, inp, kv, gumbel, temperature, n, mask=None):
+    """``n`` positions from ``p0`` of the batch samplers' token loop
+    through step function ``fn`` (a wrapper or a plain version), from a
+    copy of the primed cache ``kv``. -> (tokens [B, L], cache)."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        decode_step_batched as dsb)
+    from interactive_spectrogram_inpainting_tpu_torch.sampling.sample import (
+        step_loop)
+    kv = kv.clone()
+    tokens_t = inp["tokens"].t().contiguous()
+    mask = inp["mask"] if mask is None else mask
+    common = dict(n_class=inp["n_class"], channels=inp["c"])
+    if fn in (dsb.fused_decode_step_batched, dsb.decode_step_batched_plain):
+        mem = inp["mem"][1]
+    else:
+        mem = inp["mem"]
+        common.update(cross_hm=inp["cross_hm"], e_src_real=inp["e_src"])
+
+    def step(token_in, cur, p, i, is_masked, noise):
+        fn(inp["params"], inp["bias_hm"], inp["posfull"], mem, kv, token_in,
+           cur, p, i, is_masked, noise, temperature, out=cur, **common)
+
+    with torch.no_grad():
+        step_loop(step, tokens_t, mask.cpu().tolist(), gumbel, inp["p0"],
+                  inp["p0"] + n, inp["c"], inp["n_class"])
+    return tokens_t.t().contiguous(), kv
+
+
+def batch_setup(torch, state, name, batch, dtype, seed=3):
+    """Step-kernel inputs of prior ``name`` for ``batch`` different
+    sequences under the server request's mask, in ``dtype``."""
+    import numpy as np
+    from interactive_spectrogram_inpainting_tpu_torch.sampling.sample import (
+        precompute_decode_state)
+    _, _, mask = request_codes(state)
+    cfg_t, cfg_b = state.top.config, state.bottom.config
+    rng = np.random.default_rng(seed)
+    tops = rng.integers(0, cfg_t.n_class, (batch,) + tuple(cfg_t.shape))
+    if name == "top":
+        model, codemaps, m = state.top, tops, mask
+    else:
+        model = state.bottom
+        codemaps = rng.integers(0, cfg_b.n_class,
+                                (batch,) + tuple(cfg_b.shape))
+        m = np.repeat(np.repeat(mask, cfg_b.shape[0] // cfg_t.shape[0], 0),
+                      cfg_b.shape[1] // cfg_t.shape[1], 1)
+    sf, su = state.mask_scan_bounds(name, m)
+    ds = (state.decode_state(name) if dtype == torch.bfloat16
+          else precompute_decode_state(model, compute_dtype=dtype))
+    return scan_inputs(torch, model, ds, codemaps, tops, m, sf, su, dtype)
 
 
 def prior_setups(torch, state, dtype):
@@ -290,6 +383,99 @@ def phase_scan(torch, state, results):
                     fail("decode_scan greedy float32 token streams differ")
 
 
+def phase_step(torch, state, results):
+    """The two step kernels against their plain versions, over
+    STEPS_CHECKED consecutive positions from a primed cache."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        decode_step_batched as dsb, decode_step_kernel as dsk)
+    from interactive_spectrogram_inpainting_tpu_torch.ops.prefix_prime_kernel \
+        import fused_prefix_prime
+    tol = {torch.float32: (3e-4, 1e-3), torch.bfloat16: (5e-2, 5e-2)}
+    n = STEPS_CHECKED
+    for kernel, fn, plain, prior, batch in (
+            ("fused_decode_step", dsk.fused_decode_step,
+             dsk.decode_step_plain, "bottom", 2),
+            ("fused_decode_step", dsk.fused_decode_step,
+             dsk.decode_step_plain, "top", 2),
+            ("fused_decode_step_batched", dsb.fused_decode_step_batched,
+             dsb.decode_step_batched_plain, "bottom", 16)):
+        for dtype in (torch.bfloat16, torch.float32):
+            inp = batch_setup(torch, state, prior, batch, dtype)
+            dev = inp["tokens"].device
+            kv0 = run_prime(torch, fused_prefix_prime, inp, dtype)
+            rows = slice(inp["p0"], inp["p0"] + n)
+            tag = (f"{kernel} {prior} B={batch} {str(dtype)[6:]} steps "
+                   f"[{rows.start}, {rows.stop})")
+            zeros = torch.zeros(n, batch, inp["n_class"], device=dev)
+            # teacher-forced: nothing masked, the new cache rows must agree
+            none = torch.zeros_like(inp["mask"])
+            tk, kvk = run_steps(torch, fn, inp, kv0, zeros, 1.0, n, none)
+            tp, kvp = run_steps(torch, plain, inp, kv0, zeros, 1.0, n, none)
+            torch.cuda.synchronize()
+            err = max_err(kvk[:, :, :, rows], kvp[:, :, :, rows])
+            atol, rtol = tol[dtype]
+            ok = torch.allclose(kvk.float(), kvp.float(), atol=atol,
+                                rtol=rtol)
+            same = bool((tk == inp["tokens"]).all()
+                        and (tp == inp["tokens"]).all())
+            log(f"{tag} teacher-forced: cache max_abs_err {err:.3e} (atol "
+                f"{atol}, rtol {rtol}), tokens unchanged {same}")
+            if not (ok and same and torch.isfinite(kvk.float()).all()):
+                fail(f"{tag}: teacher-forced run disagrees with the plain "
+                     "version")
+            if dtype == torch.bfloat16:
+                results.setdefault(kernel, []).append(err)
+            else:
+                # greedy float32: the token streams must be equal
+                every = torch.ones_like(inp["mask"])
+                tk, _ = run_steps(torch, fn, inp, kv0, zeros, 1.0, n, every)
+                tp, _ = run_steps(torch, plain, inp, kv0, zeros, 1.0, n,
+                                  every)
+                torch.cuda.synchronize()
+                diff = int((tk != tp).sum())
+                changed = int((tk != inp["tokens"]).sum())
+                log(f"{tag} greedy: {diff} tokens differ, {changed} cells "
+                    "changed")
+                if diff or not changed:
+                    fail(f"{tag}: greedy token streams differ")
+
+
+def phase_flash(torch, results):
+    """flash_decode_attention against reference_decode_attention at the
+    bottom prior's cache shape, ``pos`` in the first, a middle and the last
+    128-row chunk."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops.decode_attention \
+        import flash_decode_attention, reference_decode_attention
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    heads, head_dim, length = 8, 64, 640
+    tol = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (3e-2, 3e-2)}
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch in (1, 16):
+            q = torch.randn(batch, heads, head_dim, generator=gen,
+                            device="cuda").to(dtype)
+            k = torch.randn(batch, length, heads, head_dim, generator=gen,
+                            device="cuda").to(dtype)
+            v = torch.randn(batch, length, heads, head_dim, generator=gen,
+                            device="cuda").to(dtype)
+            bias = torch.randn(heads, length, generator=gen, device="cuda")
+            for pos in (5, 300, 639):
+                out = flash_decode_attention(q, k, v, pos, bias)
+                ref = reference_decode_attention(q, k, v, pos, bias)
+                torch.cuda.synchronize()
+                err = max_err(out, ref)
+                atol, rtol = tol[dtype]
+                log(f"flash_decode_attention B={batch} {str(dtype)[6:]} "
+                    f"pos={pos}: max_abs_err {err:.3e} (atol {atol}, rtol "
+                    f"{rtol})")
+                if not torch.allclose(out.float(), ref.float(), atol=atol,
+                                      rtol=rtol):
+                    fail("flash_decode_attention disagrees with the "
+                         "reference")
+                if dtype == torch.bfloat16:
+                    results.setdefault("flash_decode_attention",
+                                       []).append(err)
+
+
 def post(url, body):
     req = urllib.request.Request(
         url, data=json.dumps(body).encode(),
@@ -304,8 +490,12 @@ def post(url, body):
 def phase_server(torch, state, captured):
     import numpy as np
     from interactive_spectrogram_inpainting_tpu_torch.data.wav import read_wav
+    from interactive_spectrogram_inpainting_tpu_torch.models.prior import (
+        attention)
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
-        decode_scan_kernel as dsk, prefix_prime_kernel as ppk)
+        decode_attention as dat, decode_scan_kernel as dsk,
+        decode_step_batched as dsb, decode_step_kernel as dst,
+        prefix_prime_kernel as ppk)
     from interactive_spectrogram_inpainting_tpu_torch.sampling import sample
     from interactive_spectrogram_inpainting_tpu_torch.serve import server
 
@@ -315,11 +505,23 @@ def phase_server(torch, state, captured):
             return fn(*args, **kwargs)
         return wrapped
 
-    # record the main path's kernel calls to time them on the same inputs
-    sample.fused_prefix_prime = capture("fused_prefix_prime",
-                                        ppk.fused_prefix_prime)
-    sample.fused_decode_scan = capture("fused_decode_scan",
-                                       dsk.fused_decode_scan)
+    # record the main paths' kernel calls to time them on the same inputs
+    wrappers = {
+        "fused_prefix_prime": (sample, ppk.fused_prefix_prime),
+        "fused_decode_scan": (sample, dsk.fused_decode_scan),
+        "fused_decode_step": (sample, dst.fused_decode_step),
+        "fused_decode_step_batched": (sample, dsb.fused_decode_step_batched),
+        "flash_decode_attention": (attention, dat.flash_decode_attention)}
+    for name, (module, fn) in wrappers.items():
+        setattr(module, name, capture(name, fn))
+
+    def reset(*names):
+        for name in names:
+            wrappers[name][1].launches = 0
+
+    def read(*names):
+        return {name: wrappers[name][1].launches for name in names}
+
     server.STATE = state
     http = server.app.run(host="127.0.0.1", port=0, background=True)
     base = f"http://127.0.0.1:{http.server_address[1]}"
@@ -332,8 +534,7 @@ def phase_server(torch, state, captured):
     query = ("/timerange-change?layer=top&temperature=1.0&start_index_top=0"
              "&pitch=60&instrument_family_str=keyboard")
     latencies = []
-    ppk.fused_prefix_prime.launches = 0
-    dsk.fused_decode_scan.launches = 0
+    reset("fused_prefix_prime", "fused_decode_scan")
     try:
         for _ in range(3):
             status, _, data, ms = post(base + query, body)
@@ -353,8 +554,7 @@ def phase_server(torch, state, captured):
                     and (new_bottom >= 0).all()
                     and (new_bottom < cfg_b.n_class).all()):
                 fail("/timerange-change returned out-of-range codes")
-        launches = {"fused_prefix_prime": ppk.fused_prefix_prime.launches,
-                    "fused_decode_scan": dsk.fused_decode_scan.launches}
+        launches = read("fused_prefix_prime", "fused_decode_scan")
         for _ in range(3):
             status, ctype, wav_bytes, ms = post(
                 base + "/get-audio", {"top_code": new_top.tolist(),
@@ -362,11 +562,13 @@ def phase_server(torch, state, captured):
             latencies.append(ms)
             if status != 200 or ctype != "audio/wav":
                 fail(f"/get-audio returned {status} {ctype}")
+        launches.update(serve_generation(
+            torch, state, base, reset, read, new_top, latencies))
     finally:
         http.shutdown()
         http.server_close()
-        sample.fused_prefix_prime = ppk.fused_prefix_prime
-        sample.fused_decode_scan = dsk.fused_decode_scan
+        for name, (module, fn) in wrappers.items():
+            setattr(module, name, fn)
     audio, sr = read_wav(io.BytesIO(wav_bytes))
     expected = state.helper.num_samples(
         cfg_t.shape[1] * state.vqvae.config.total_resolution_factor)
@@ -376,10 +578,108 @@ def phase_server(torch, state, captured):
              f"(expected {expected})")
     log("server latency ms: " + json.dumps({
         "timerange_change": [round(x, 3) for x in latencies[:3]],
-        "get_audio": [round(x, 3) for x in latencies[3:]]}))
-    log(f"server launches per 3 requests: {json.dumps(launches)}")
+        "get_audio": [round(x, 3) for x in latencies[3:6]],
+        "generate": [round(x, 3) for x in latencies[6:7]],
+        "top_conditioned_sample": [round(x, 3) for x in latencies[7:]]}))
+    log(f"main-path launches: {json.dumps(launches)}")
     if min(launches.values()) <= 0:
         fail(f"a kernel of the main path was not launched: {launches}")
+    return launches
+
+
+def serve_generation(torch, state, base, reset, read, top_code, latencies):
+    """The generation paths: ``/generate`` and ``/top-conditioned-sample``
+    over HTTP, then the batch-2 fused and the dense flash sampler through
+    ``sample_model``. -> the launches of the kernels each path must run."""
+    import numpy as np
+    from interactive_spectrogram_inpainting_tpu_torch.data.wav import read_wav
+    from interactive_spectrogram_inpainting_tpu_torch.sampling.sample import (
+        sample_model)
+    cfg_t, cfg_b = state.top.config, state.bottom.config
+    steps_b = cfg_b.target_sequence_length + cfg_b.target_num_channels - 1
+    launches = {}
+
+    status, _, data, ms = post(
+        base + "/generate?pitch=60&instrument_family_str=keyboard", {})
+    latencies.append(ms)
+    out = json.loads(data) if status == 200 else {}
+    gen_top = np.asarray(out.get("top_code", []))
+    gen_bottom = np.asarray(out.get("bottom_code", []))
+    if status != 200 or gen_top.shape != tuple(cfg_t.shape) \
+            or gen_bottom.shape != tuple(cfg_b.shape) \
+            or not ((gen_top >= 0).all() and (gen_top < cfg_t.n_class).all()
+                    and (gen_bottom >= 0).all()
+                    and (gen_bottom < cfg_b.n_class).all()):
+        fail(f"/generate returned {status} or malformed codemaps")
+
+    expected = state.helper.num_samples(
+        cfg_t.shape[1] * state.vqvae.config.total_resolution_factor)
+    for _ in range(2):
+        reset("fused_decode_step_batched")
+        status, ctype, blob, ms = post(
+            base + "/top-conditioned-sample?instrument_family_str=keyboard"
+            "&min_pitch=60&max_pitch=70&temperature=1.0",
+            {"top_code": top_code.tolist(),
+             "bottom_code": gen_bottom.tolist()})
+        latencies.append(ms)
+        if status != 200 or ctype != "application/zip":
+            fail(f"/top-conditioned-sample returned {status} {ctype}")
+        with zipfile.ZipFile(io.BytesIO(blob)) as zf:
+            names = zf.namelist()
+            if names != [f"keyboard-{p}.wav" for p in range(60, 70)]:
+                fail(f"/top-conditioned-sample zip holds {names}")
+            for name in names:
+                audio, sr = read_wav(io.BytesIO(zf.read(name)))
+                if sr != state.fs_hz or audio.shape[-1] != expected \
+                        or not np.isfinite(audio).all():
+                    fail(f"/top-conditioned-sample {name}: rate {sr}, "
+                         f"{audio.shape[-1]} samples (expected {expected})")
+        count = read("fused_decode_step_batched")
+        if count["fused_decode_step_batched"] < steps_b:
+            fail(f"/top-conditioned-sample ran {count} batched steps, "
+                 f"expected at least {steps_b}")
+        launches.update(count)
+
+    # batch 2 through sample_model: bottom prior primed by a half mask,
+    # then the top prior (relative-bias cross attention)
+    rng = np.random.default_rng(5)
+    gen = state.next_rng()
+    half = np.zeros(cfg_b.shape, bool)
+    half[:, cfg_b.shape[1] // 2:] = True
+    bottoms = rng.integers(0, cfg_b.n_class, (2,) + tuple(cfg_b.shape))
+    tops = rng.integers(0, cfg_t.n_class, (2,) + tuple(cfg_t.shape))
+    reset("fused_decode_step", "fused_prefix_prime")
+    out_b = sample_model(
+        state.bottom, gen, 2, condition=tops, initial_code=bottoms,
+        mask=half, compute_dtype=torch.bfloat16,
+        decode_state=state.decode_state("bottom")).cpu().numpy()
+    out_t = sample_model(
+        state.top, gen, 2, compute_dtype=torch.bfloat16,
+        decode_state=state.decode_state("top")).cpu().numpy()
+    launches.update(read("fused_decode_step"))
+    if read("fused_prefix_prime")["fused_prefix_prime"] < 1:
+        fail("the batch-2 inpaint was not primed by the kernel")
+    if not (np.array_equal(out_b[:, ~half], bottoms[:, ~half])
+            and not np.array_equal(out_b[:, half], bottoms[:, half])
+            and (out_b >= 0).all() and (out_b < cfg_b.n_class).all()
+            and out_t.shape == (2,) + tuple(cfg_t.shape)
+            and (out_t >= 0).all() and (out_t < cfg_t.n_class).all()
+            and not np.array_equal(out_t[0], out_t[1])):
+        fail("the batch-2 fused samplers returned wrong codemaps")
+
+    # the dense sampler with nucleus filtering and the flash attention
+    reset("flash_decode_attention")
+    out_d = sample_model(
+        state.bottom, gen, 2, condition=tops, top_p_sampling_p=0.9,
+        use_flash=True, use_fused_step=False,
+        compute_dtype=torch.bfloat16).cpu().numpy()
+    launches.update(read("flash_decode_attention"))
+    n_layers = cfg_b.conditional_model_num_decoder_layers
+    if launches["flash_decode_attention"] != steps_b * n_layers \
+            or not ((out_d >= 0).all() and (out_d < cfg_b.n_class).all()):
+        fail("the dense flash sampler ran "
+             f"{launches['flash_decode_attention']} attention calls "
+             f"(expected {steps_b * n_layers}) or returned bad codes")
     return launches
 
 
@@ -400,6 +700,21 @@ def time_calls(torch, fn, calls, reps):
     return start.elapsed_time(end) / reps
 
 
+def host_ms(torch, fn, calls):
+    """ms the host takes to enqueue every call once: its clock around each
+    call, started on an idle card and stopped before any synchronize (one
+    call's launches fit the launch queue, so the host never waits for the
+    card). A sum near the calls' device time says the host sets the pace."""
+    total = 0.0
+    for args, kwargs in calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total * 1e3
+
+
 def nbytes(t):
     return 0 if t is None else t.numel() * t.element_size()
 
@@ -411,23 +726,24 @@ def prime_bound(args, kwargs):
     p0, c = kwargs["p0"], kwargs["channels"]
     cross = kwargs["cross_hm"]
     e_src = kwargs["e_src_real"]
-    n, _, l_pad, d = kv.shape
+    n, l_pad, d = kv.shape[0], kv.shape[-2], kv.shape[-1]
+    batch = kv.shape[2] if kv.dim() == 5 else 1
     nh = bias_hm.shape[2]
     d_ff = params["b1"].shape[-1]
     es = params["wqkv"].element_size()
     keys = ("wqkv", "bqkv", "wo", "bo", "wo_c", "bo_c", "w1", "b1", "w2",
             "b2", "ln") + (("wq_c", "bq_c") if cross is not None else ())
     pairs = p0 * (p0 + 1) // 2
-    b = sum(nbytes(params[k]) for k in keys) + p0 * d * es
+    b = sum(nbytes(params[k]) for k in keys) + batch * p0 * d * es
     b += n * nh * pairs * 4                        # causal bias entries
-    b += n * 2 * min(((p0 + 127) // 128) * 128, l_pad) * d * es  # cache out
+    b += batch * n * 2 * min(((p0 + 127) // 128) * 128, l_pad) * d * es
     ops = n * (2 * p0 * d * (3 * d + d + d + 2 * d_ff) + 4 * d * pairs)
     if cross is None:
-        b += n * ((p0 - 1) // c + 1) * d * es      # mem_v rows gathered
+        b += batch * n * ((p0 - 1) // c + 1) * d * es  # mem_v rows gathered
     else:
-        b += n * (2 * e_src * d * es + nh * p0 * e_src * 4)
+        b += n * (batch * 2 * e_src * d * es + nh * p0 * e_src * 4)
         ops += n * (2 * p0 * d * d + 4 * p0 * e_src * d)
-    return b, ops
+    return b, batch * ops
 
 
 def scan_bound(args, kwargs):
@@ -464,32 +780,131 @@ def scan_bound(args, kwargs):
     return b, ops, s * w_bytes
 
 
-def phase_kernels(torch, card, captured, launches, errors):
+def step_bound(args, kwargs):
+    """(bytes, ops) one decode-step call needs: the weights and the bias
+    row entries read once, the cache rows < pos of every sequence read
+    once, the new K/V rows and tokens written once, and the step's
+    arithmetic. Serves both step kernels (the batched one passes mem_v
+    alone and has no cross tables)."""
+    params, bias_hm, posfull, mem, kv, token_in, cur, pos = args[:8]
+    gumbel = args[10]
+    cross = kwargs.get("cross_hm")
+    n, _, batch, l_pad, d = kv.shape
+    nh = bias_hm.shape[2]
+    d_ff = params["b1"].shape[-1]
+    n_class = params["w_logits"].shape[0]
+    es = params["wqkv"].element_size()
+    keys = ("wqkv", "bqkv", "wo", "bo", "wo_c", "bo_c", "w1", "b1", "w2",
+            "b2", "ln", "w_logits", "b_logits", "ln_final") + (
+        ("wq_c", "bq_c") if cross is not None else ())
+    b = sum(nbytes(params[k]) for k in keys)
+    b += (batch + 1) * d * es                       # emb rows + posfull row
+    b += n * nh * (pos + 1) * 4                     # bias entries used
+    b += n * 2 * batch * (pos + 1) * d * es         # cache in (pos) + out (1)
+    b += nbytes(gumbel) + 3 * batch * 4             # noise, tokens in/cur/out
+    ops = batch * (2 * (n * d * (3 * d + d + d + 2 * d_ff) + d * n_class)
+                   + n * 4 * d * (pos + 1))
+    if cross is None:
+        b += n * batch * d * es                     # one mem_v row each
+    else:
+        e_src = kwargs["e_src_real"]
+        b += n * (batch * 2 * e_src * d * es + nh * e_src * 4)
+        ops += batch * n * (2 * d * d + 4 * e_src * d)
+    return b, ops
+
+
+def flash_bound(args, kwargs):
+    """(bytes, ops) one flash-decode call needs: q and the output, the
+    pos + 1 K and V rows of every sequence, the bias entries used."""
+    q, k_cache, v_cache, pos, bias_row = args
+    batch, nh, dh = q.shape
+    es = q.element_size()
+    b = 2 * batch * nh * dh * es + 2 * batch * (pos + 1) * nh * dh * es
+    if bias_row is not None:
+        b += nh * (pos + 1) * 4
+    return b, 4 * batch * nh * dh * (pos + 1)
+
+
+def sdpa_decode_attention(q, k_cache, v_cache, pos, bias_row):
+    """The same function as one library call (timed as ``library_ms``; the
+    port never calls it)."""
+    import torch.nn.functional as F
+    n = pos + 1
+    mask = (None if bias_row is None
+            else bias_row[:, :n][None, :, None, :].to(q.dtype))
+    return F.scaled_dot_product_attention(
+        q[:, :, None, :], k_cache[:, :n].transpose(1, 2),
+        v_cache[:, :n].transpose(1, 2), attn_mask=mask)[:, :, 0]
+
+
+def spaced(calls, n):
+    """``n`` calls evenly spaced over ``calls`` (all when there are fewer)."""
+    if len(calls) <= n:
+        return list(calls)
+    return [calls[(k * len(calls)) // n] for k in range(n)]
+
+
+def phase_kernels(torch, card, captured, launches, errors, state):
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
-        decode_scan_kernel as dsk, prefix_prime_kernel as ppk)
-    # one /timerange-change: its top and bottom call of each kernel
+        decode_attention as dat, decode_scan_kernel as dsk,
+        decode_step_batched as dsb, decode_step_kernel as dst,
+        prefix_prime_kernel as ppk)
+    cfg_b = state.bottom.config
+    steps_b = cfg_b.target_sequence_length + cfg_b.target_num_channels - 1
     kernels = []
     detail = {}
-    for name, fn, plain, bound in (
+    # prime and scan: one /timerange-change, its top and bottom call of each
+    # kernel. Step kernels: STEPS_TIMED steps evenly spaced over one
+    # /top-conditioned-sample generation (batched) and over the two batch-2
+    # sample_model calls. Flash attention: 64 calls evenly spaced over the
+    # dense sample_model call.
+    for name, fn, plain, bound, calls, library in (
             ("fused_prefix_prime", ppk.fused_prefix_prime,
-             ppk.prefix_prime_plain, prime_bound),
+             ppk.prefix_prime_plain, prime_bound,
+             captured["fused_prefix_prime"][:6][-2:], None),
             ("fused_decode_scan", dsk.fused_decode_scan,
-             dsk.decode_scan_plain, scan_bound)):
-        calls = captured[name][-2:]
+             dsk.decode_scan_plain, scan_bound,
+             captured["fused_decode_scan"][:6][-2:], None),
+            ("fused_decode_step", dst.fused_decode_step,
+             dst.decode_step_plain, step_bound,
+             spaced(captured["fused_decode_step"], STEPS_TIMED), None),
+            ("fused_decode_step_batched", dsb.fused_decode_step_batched,
+             dsb.decode_step_batched_plain, step_bound,
+             spaced(captured["fused_decode_step_batched"][-steps_b:],
+                    STEPS_TIMED), None),
+            ("flash_decode_attention", dat.flash_decode_attention,
+             dat.reference_decode_attention, flash_bound,
+             spaced(captured["flash_decode_attention"], 64),
+             sdpa_decode_attention)):
         ms = time_calls(torch, fn, calls, reps=10)
         plain_ms = time_calls(torch, plain, calls, reps=1)
-        per_call = [time_calls(torch, fn, [call], reps=10) for call in calls]
         bounds = [bound(*call) for call in calls]
         b = sum(x[0] for x in bounds)
         ops = sum(x[1] for x in bounds)
         t_bytes, t_ops = b / PEAK_BYTES_PER_S * 1e3, ops / PEAK_BF16_OPS * 1e3
-        detail[name] = {
-            "per_call_ms": [round(x, 4) for x in per_call],
-            "p0_steps": [[kw.get("p0"), kw.get("steps")] for _, kw in calls],
-            "bytes": b, "ops": ops}
+        detail[name] = {"calls_timed": len(calls), "bytes": b, "ops": ops,
+                        "host_enqueue_ms": round(host_ms(torch, fn, calls),
+                                                 4)}
+        if name in ("fused_prefix_prime", "fused_decode_scan"):
+            detail[name]["per_call_ms"] = [
+                round(time_calls(torch, fn, [call], reps=10), 4)
+                for call in calls]
+            detail[name]["p0_steps"] = [[kw.get("p0"), kw.get("steps")]
+                                        for _, kw in calls]
         if name == "fused_decode_scan":
             stream = sum(x[2] for x in bounds) / PEAK_BYTES_PER_S * 1e3
             detail[name]["weights_streamed_per_step_ms"] = round(stream, 4)
+        if name == "fused_decode_step_batched":
+            # one whole generation: every step of the last request
+            whole = captured[name][-steps_b:]
+            detail[name]["generation_steps"] = len(whole)
+            detail[name]["generation_ms"] = round(
+                time_calls(torch, fn, whole, reps=2), 4)
+            detail[name]["generation_bound_ms"] = round(
+                sum(step_bound(*call)[0] for call in whole)
+                / PEAK_BYTES_PER_S * 1e3, 4)
+        if name == "fused_decode_step":
+            detail[name]["positions"] = [call[0][7] for call in calls]
         source, replaces = KERNEL_SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -498,9 +913,9 @@ def phase_kernels(torch, card, captured, launches, errors):
             "plain_ms": round(plain_ms, 4),
             "bound_ms": round(max(t_bytes, t_ops), 6),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
-    log("kernel detail (one /timerange-change, top then bottom call; "
-        f"{card}): " + json.dumps(detail))
+            "library_ms": (None if library is None else round(
+                time_calls(torch, library, calls, reps=10), 4))})
+    log(f"kernel detail ({card}): " + json.dumps(detail))
     log(json.dumps({"kernels": kernels}))
 
 
@@ -517,9 +932,11 @@ def main():
     errors = {}
     phase_prime(torch, state, errors)
     phase_scan(torch, state, errors)
+    phase_step(torch, state, errors)
+    phase_flash(torch, errors)
     captured = {}
     launches = phase_server(torch, state, captured)
-    phase_kernels(torch, card, captured, launches, errors)
+    phase_kernels(torch, card, captured, launches, errors, state)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

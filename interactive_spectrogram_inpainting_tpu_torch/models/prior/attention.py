@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.decode_attention import flash_decode_attention
+
 NEG_INF = -1e9
 LN_EPS = 1e-6
 
@@ -237,13 +239,18 @@ class DecoderLayer(nn.Module):
         return self.self_attn.project_kv(self.ln1(x))
 
     def step(self, x_i: torch.Tensor, pos: int, k_self: torch.Tensor,
-             v_self: torch.Tensor, mem_k: torch.Tensor, mem_v: torch.Tensor
+             v_self: torch.Tensor, mem_k: torch.Tensor, mem_v: torch.Tensor,
+             use_flash: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """One query position against caches [B, L, H, Dh].
+        """One query position against caches [B, L, H, Dh] (the port keeps
+        this one cache layout; the JAX package's L-minor layout serves its
+        TPU tiling).
 
         Writes this position's fresh K/V into ``k_self``/``v_self`` in
         place (entries > pos are ignored through the causal mask) and
-        returns (out_i [B, d], k_self, v_self)."""
+        returns (out_i [B, d], k_self, v_self). ``use_flash`` runs the self
+        attention through ``ops/decode_attention.py`` (the cache length must
+        then be a multiple of 128)."""
         l_tgt = k_self.shape[1]
         l_src = mem_k.shape[1]
         h = self.ln1(x_i)
@@ -252,11 +259,18 @@ class DecoderLayer(nn.Module):
         v_self[:, pos] = self.self_attn._heads(
             self.self_attn.v(h)).to(v_self.dtype)
         dev = x_i.device
-        causal_row = torch.where(torch.arange(l_tgt, device=dev) <= pos,
-                                 0.0, NEG_INF)
-        a = self.self_attn.step(h, k_self, v_self,
-                                bias_row=self.self_bias.row(pos, l_tgt),
-                                mask_row=causal_row)
+        self_bias_row = self.self_bias.row(pos, l_tgt)
+        if use_flash:
+            attn = self.self_attn
+            q = attn._heads(attn.q(h)).contiguous()  # [B, H, Dh]
+            a = flash_decode_attention(q, k_self, v_self, pos, self_bias_row)
+            a = attn.o(a.reshape(a.shape[0], attn.d_model))
+        else:
+            causal_row = torch.where(torch.arange(l_tgt, device=dev) <= pos,
+                                     0.0, NEG_INF)
+            a = self.self_attn.step(h, k_self, v_self,
+                                    bias_row=self_bias_row,
+                                    mask_row=causal_row)
         x_i = x_i + a
         cross_bias_row = (self.cross_bias.row(pos, l_src)
                           if self.cross_bias is not None else None)

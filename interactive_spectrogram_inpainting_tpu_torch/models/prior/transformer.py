@@ -269,7 +269,9 @@ class VQNSynthTransformer(nn.Module):
                 parts.append(self.class_embeds[name](labels))
             else:
                 dim = cfg.class_conditioning_embedding_dim_per_modality[name]
-                parts.append(torch.zeros(batch, dim, device=self.device))
+                parts.append(torch.zeros(
+                    batch, dim, device=self.device,
+                    dtype=self.project_logits.weight.dtype))
         return torch.cat(parts, dim=-1)
 
     def _positional_sequence(self, kind: str,
@@ -421,7 +423,8 @@ class VQNSynthTransformer(nn.Module):
     def init_decode_caches(self, memory: torch.Tensor, batch: int,
                            pad_multiple: int = 1) -> Dict[str, List]:
         """Per-layer memory K/V plus zeroed self caches [B, L, H, Dh]
-        (dtype follows ``memory``)."""
+        (dtype follows ``memory``). ``pad_multiple`` rounds the cache length
+        up (the flash decode attention reads 128-row chunks)."""
         cfg = self.config
         l_tgt = cfg.target_sequence_length + cfg.target_num_channels
         l_tgt = ((l_tgt + pad_multiple - 1) // pad_multiple) * pad_multiple
@@ -438,14 +441,15 @@ class VQNSynthTransformer(nn.Module):
         return {"mem": mem_kv, "self": self_kv}
 
     def decode_step(self, x_p: torch.Tensor, pos: int,
-                    caches: Dict[str, List]
+                    caches: Dict[str, List], use_flash: bool = False
                     ) -> Tuple[torch.Tensor, Dict[str, List]]:
         """Input embedding at with-start position ``pos`` -> (logits for the
         token predicted at this position, caches updated in place)."""
         h = x_p
         for layer, (k_s, v_s), (m_k, m_v) in zip(
                 self.decoder_layers, caches["self"], caches["mem"]):
-            h, _, _ = layer.step(h, pos, k_s, v_s, m_k, m_v)
+            h, _, _ = layer.step(h, pos, k_s, v_s, m_k, m_v,
+                                 use_flash=use_flash)
         h = self.decoder_norm(h)
         return self.project_logits(h), caches
 

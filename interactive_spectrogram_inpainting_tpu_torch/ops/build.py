@@ -24,7 +24,8 @@ import time
 from typing import Dict, Iterable, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode_scan", "prefix_prime")
+SOURCES = ("decode_scan", "prefix_prime", "decode_step",
+           "decode_step_batched", "decode_attention")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

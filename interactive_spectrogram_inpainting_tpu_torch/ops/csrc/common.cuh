@@ -8,9 +8,24 @@
 #include <math.h>
 #include <stdint.h>
 
+// return the error of the launches enqueued so far from a host function
+// that returns cudaError_t
+#define ISI_CHECK()                            \
+  do {                                         \
+    cudaError_t e_ = cudaGetLastError();       \
+    if (e_ != cudaSuccess) return e_;          \
+  } while (0)
+
 namespace isi {
 
 constexpr int kWarp = 32;
+
+// epilogues of the weight-product kernels, with C = in . W^T + bias:
+//   kOutF32:    out_f32 = C
+//   kResidual:  out_f32 = out_f32 + C
+//   kReluT:     out_t = T(relu(C))
+//   kScaledF32: out_f32 = C * out_scale
+enum { kOutF32 = 0, kResidual = 1, kReluT = 2, kScaledF32 = 3 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -115,6 +130,24 @@ __device__ void block_layer_norm(const float* x, const float* scale,
   for (int i = threadIdx.x; i < d; i += blockDim.x)
     out[i] = round_to<T>((x[i] - mu) * rs * scale[i] + bias[i]);
   __syncthreads();
+}
+
+// the same LayerNorm of one row by one warp (no block barrier)
+template <typename T>
+__device__ void warp_layer_norm(const float* x, const float* scale,
+                                const float* bias, int d, float* out) {
+  const int lane = threadIdx.x % kWarp;
+  float s = 0.f;
+  for (int i = lane; i < d; i += kWarp) s += x[i];
+  const float mu = warp_sum(s) / d;
+  float v = 0.f;
+  for (int i = lane; i < d; i += kWarp) {
+    const float dv = x[i] - mu;
+    v += dv * dv;
+  }
+  const float rs = rsqrtf(warp_sum(v) / d + 1e-6f);
+  for (int i = lane; i < d; i += kWarp)
+    out[i] = round_to<T>((x[i] - mu) * rs * scale[i] + bias[i]);
 }
 
 }  // namespace isi

@@ -18,15 +18,17 @@
 //   the cross-bias table and the e < E_src mask) -> GEMM + residual ->
 //   LayerNorm -> GEMM + ReLU -> GEMM + residual.
 //
-// The GEMM tiles 64 x 64 outputs (32 x 32 when the larger tiles would
-// leave SMs idle) over 32-deep slices of K in shared memory, prefetching
-// the next slice into registers, with float32 accumulation, and fuses
-// bias, ReLU and the residual into its epilogue. The attention kernel is one block per (query tile of
-// 32 rows, head) with an online float32 softmax over key tiles of 32.
+// The GEMM (gemm.cuh) tiles 64 x 64 outputs (32 x 32 when the larger tiles
+// would leave SMs idle) over 32-deep slices of K in shared memory,
+// prefetching the next slice into registers, with float32 accumulation,
+// and fuses bias, ReLU and the residual into its epilogue. The attention
+// kernel is one block per (query tile of 32 rows, head) with an online
+// float32 softmax over key tiles of 32. A batch of sequences is primed
+// row by row: the same sequence of launches per batch row, on one stream.
 // Only rows [0, p0) are computed: a causal prefix row never sees a later
 // row, so the padded rows the TPU kernel carried are not needed; cache
 // rows [p0, p_pad) are written as zeros, as the TPU kernel does.
-#include "common.cuh"
+#include "gemm.cuh"
 
 using namespace isi;
 
@@ -44,13 +46,13 @@ struct PrimeParams {
   const void* w2;
   const void* b2;
   const float* ln;        // [n_layers, 6, d]
-  const void* x_prefix;   // [m, d], T
-  const void* mem_k;      // [n_layers, e_pad, d], T
-  const void* mem_v;      // [n_layers, e_pad, d], T
+  const void* x_prefix;   // [batch, x_rows, d], T (rows [0, m) are read)
+  const void* mem_k;      // [n_layers, batch, e_pad, d], T
+  const void* mem_v;      // [n_layers, batch, e_pad, d], T
   const float* bias_hm;   // [n_layers, steps_pad, H, l_pad]
   const float* cross_hm;  // [n_layers, steps_pad, H, e_pad] or null
-  void* kv;               // [n_layers, 2, l_pad, d], T, updated in place
-  // scratch
+  void* kv;  // [n_layers, 2, batch, l_pad, d], T, updated in place
+  // scratch (one batch row at a time)
   float* x;    // [m, d]
   void* h;     // [m, d], T
   float* qkv;  // [m, 3d]
@@ -58,126 +60,9 @@ struct PrimeParams {
   void* a;     // [m, d], T
   void* mid;   // [m, d_ff], T
   int n_layers, d, d_ff, n_heads, m, p_pad, l_pad, e_pad, steps_pad;
-  int channels, e_src, aligned;
+  int channels, e_src, aligned, batch, x_rows;
   float scale;
 };
-
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void to_f32_kernel(const T* in, float* out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = to_f(in[i]);
-}
-
-// one block per row: out = round_to<T>(LayerNorm(x))
-template <typename T>
-__global__ void ln_rows_kernel(const float* x, int d, const float* scale,
-                               const float* bias, T* out) {
-  extern __shared__ float sm[];
-  float* buf = sm;
-  float* red = sm + d;
-  const size_t row = blockIdx.x;
-  block_layer_norm<T>(x + row * d, scale, bias, d, buf, red);
-  for (int t = threadIdx.x; t < d; t += blockDim.x)
-    out[row * d + t] = from_f<T>(buf[t]);
-}
-
-// ---------------------------------------------------------------------------
-enum { kOutF32 = 0, kResidual = 1, kReluT = 2 };
-constexpr int BK = 32, kGemmThreads = 256;
-
-// C[M, N] = A[M, K] . W[N, K]^T + bias[N], float32 accumulation, one
-// TILE x TILE output tile per block (TILE / 16 squared outputs a thread).
-// The next K-slice is loaded into registers while the current one is
-// multiplied out of shared memory.
-//   kOutF32:   out_f32 = C
-//   kResidual: out_f32 = out_f32 + C
-//   kReluT:    out_t = T(relu(C))
-template <typename T, int MODE, int TILE>
-__global__ void __launch_bounds__(kGemmThreads)
-    gemm_nt_kernel(const T* __restrict__ A, const T* __restrict__ W,
-                   const T* __restrict__ bias, int M, int N, int K,
-                   float* out_f32, T* out_t) {
-  constexpr int TM = TILE / 16;
-  constexpr int LOADS = TILE * BK / kGemmThreads;
-  __shared__ float As[BK][TILE + 4];
-  __shared__ float Ws[BK][TILE + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.y * TILE, col0 = blockIdx.x * TILE;
-  float acc[TM][TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
-  float ra[LOADS], rw[LOADS];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int e = tid + u * kGemmThreads;
-      const int r = e / BK, gk = k0 + e % BK;
-      ra[u] = (row0 + r < M && gk < K)
-                  ? to_f(A[(size_t)(row0 + r) * K + gk]) : 0.f;
-      rw[u] = (col0 + r < N && gk < K)
-                  ? to_f(W[(size_t)(col0 + r) * K + gk]) : 0.f;
-    }
-  };
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int e = tid + u * kGemmThreads;
-      As[e % BK][e / BK] = ra[u];
-      Ws[e % BK][e / BK] = rw[u];
-    }
-    __syncthreads();
-    if (k0 + BK < K) load(k0 + BK);
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], wv[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TM; ++j) wv[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TM; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (c >= N) continue;
-      const float v = acc[i][j] + to_f(bias[c]);
-      const size_t o = (size_t)r * N + c;
-      if (MODE == kOutF32) out_f32[o] = v;
-      if (MODE == kResidual) out_f32[o] = out_f32[o] + v;
-      if (MODE == kReluT) out_t[o] = from_f<T>(fmaxf(v, 0.f));
-    }
-  }
-}
-
-// 64 x 64 tiles when they fill the card, else 32 x 32 (four times as many
-// blocks for the short prefixes)
-template <typename T, int MODE>
-static void gemm(const T* A, const T* W, const T* bias, int M, int N, int K,
-                 float* out_f32, T* out_t, int sms, cudaStream_t s) {
-  if (((M + 63) / 64) * ((N + 63) / 64) >= sms) {
-    dim3 grid((N + 63) / 64, (M + 63) / 64);
-    gemm_nt_kernel<T, MODE, 64><<<grid, kGemmThreads, 0, s>>>(
-        A, W, bias, M, N, K, out_f32, out_t);
-  } else {
-    dim3 grid((N + 31) / 32, (M + 31) / 32);
-    gemm_nt_kernel<T, MODE, 32><<<grid, kGemmThreads, 0, s>>>(
-        A, W, bias, M, N, K, out_f32, out_t);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // cache rows [0, p_pad): the prefix K/V below m, zeros above
@@ -306,16 +191,11 @@ __global__ void __launch_bounds__(kAttnThreads)
 }
 
 // ---------------------------------------------------------------------------
-#define ISI_CHECK()                            \
-  do {                                         \
-    cudaError_t e_ = cudaGetLastError();       \
-    if (e_ != cudaSuccess) return e_;          \
-  } while (0)
-
+// the forward of batch row ``b``
 template <typename T>
-static cudaError_t prime(const PrimeParams& P, cudaStream_t s) {
+static cudaError_t prime_row(const PrimeParams& P, int b, int sms,
+                             cudaStream_t s) {
   const int d = P.d, m = P.m, H = P.n_heads, dh = d / H, dff = P.d_ff;
-  if (dh > DH_MAX || d % H) return cudaErrorInvalidValue;
   const T* wqkv = static_cast<const T*>(P.wqkv);
   const T* bqkv = static_cast<const T*>(P.bqkv);
   const T* wo = static_cast<const T*>(P.wo);
@@ -335,20 +215,16 @@ static cudaError_t prime(const PrimeParams& P, cudaStream_t s) {
   T* a = static_cast<T*>(P.a);
   T* mid = static_cast<T*>(P.mid);
   const size_t ln_smem = sizeof(float) * (d + 64);
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
   const dim3 attn_grid((m + QT - 1) / QT, H);
 
   to_f32_kernel<T><<<(m * d + 255) / 256, 256, 0, s>>>(
-      static_cast<const T*>(P.x_prefix), P.x, m * d);
+      static_cast<const T*>(P.x_prefix) + (size_t)b * P.x_rows * d, P.x,
+      m * d);
   ISI_CHECK();
   for (int l = 0; l < P.n_layers; ++l) {
     const float* ln = P.ln + (size_t)l * 6 * d;
-    T* kc = kv + (size_t)(2 * l) * P.l_pad * d;
-    T* vc = kc + (size_t)P.l_pad * d;
+    T* kc = kv + ((size_t)(2 * l) * P.batch + b) * P.l_pad * d;
+    T* vc = kc + (size_t)P.batch * P.l_pad * d;
     // self attention
     ln_rows_kernel<T><<<m, 128, ln_smem, s>>>(P.x, d, ln, ln + d, h);
     gemm<T, kOutF32>(h, wqkv + (size_t)l * 3 * d * d, bqkv + (size_t)l * 3 * d,
@@ -362,8 +238,8 @@ static cudaError_t prime(const PrimeParams& P, cudaStream_t s) {
                        P.x, nullptr, sms, s);
     ISI_CHECK();
     // cross attention
-    const T* mk = mem_k + (size_t)l * P.e_pad * d;
-    const T* mv = mem_v + (size_t)l * P.e_pad * d;
+    const T* mk = mem_k + ((size_t)l * P.batch + b) * P.e_pad * d;
+    const T* mv = mem_v + ((size_t)l * P.batch + b) * P.e_pad * d;
     if (P.aligned) {
       aligned_gather_kernel<T><<<m, 128, 0, s>>>(mv, P.e_pad, d, P.channels,
                                                  a);
@@ -388,6 +264,22 @@ static cudaError_t prime(const PrimeParams& P, cudaStream_t s) {
     gemm<T, kResidual>(mid, w2 + (size_t)l * d * dff, b2 + (size_t)l * d, m,
                        d, dff, P.x, nullptr, sms, s);
     ISI_CHECK();
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+static cudaError_t prime(const PrimeParams& P, cudaStream_t s) {
+  if (P.d / P.n_heads > DH_MAX || P.d % P.n_heads)
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  for (int b = 0; b < P.batch; ++b) {
+    e = prime_row<T>(P, b, sms, s);
+    if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
 }

@@ -1,24 +1,35 @@
-"""Decode tables for the fused sampling kernels, as plain PyTorch.
+"""Decode tables and the small-batch fused decode step.
 
-Port of the table builders of
-``interactive_spectrogram_inpainting_tpu/ops/decode_step_kernel.py``
-(``pack_decode_params``, ``precompute_mem_values``,
+Port of ``interactive_spectrogram_inpainting_tpu/ops/decode_step_kernel.py``:
+the decode tables (``pack_decode_params``, ``precompute_mem_values``,
 ``precompute_cross_bias_rows``, ``precompute_position_features``,
-``precompute_bias_rows``). The per-step kernel of that module
-(``fused_decode_step``, batch 2-4) is not ported yet.
+``precompute_bias_rows``) as plain PyTorch, and ``fused_decode_step``, which
+replaces the Pallas kernel of the same name: one token step for a small
+batch (hand-written CUDA for sm_90a, ``csrc/decode_step.cu``).
 
 One layout differs on purpose: the packed weight matrices are stored
 ``[out, in]`` (``nn.Linear``'s layout), the transpose of the JAX tables'
 ``[in, out]``, so that one warp of the CUDA kernels reads one output row
 as contiguous 16-byte vectors. Every other table is elementwise the JAX
-one.
+one. The step kernels take the head-major bias tables
+(``bias_hm [n_layers, steps_pad, H, l_pad]``) whole and index them by
+``pos``, where the JAX step is handed a ``[n_layers, l_pad, H]`` slice.
+
+``fused_decode_step`` launches the kernel for CUDA tensors and runs
+``decode_step_plain`` for CPU tensors, never falling back from one to the
+other. ``fused_decode_step.launches`` counts its kernel launches (one per
+step that reaches the GPU).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from .common import (DTYPE_CODES, NEG_INF, check_cuda, check_shape,
+                     layer_norm, ptr, raise_on_error, round_to, struct_type)
 
 LANE = 128
 
@@ -173,3 +184,274 @@ def precompute_bias_rows(model, l_pad: int) -> torch.Tensor:
             row = table.reshape(h, -1)[:, flat_idx]  # [H, steps, l_pad]
             rows.append(row.permute(1, 2, 0))
     return torch.stack(rows).float()
+
+
+# -- one decode step ----------------------------------------------------------
+
+ATTN_CHUNK = 128  # keys per attention partial in csrc/decode_common.cuh
+# csrc/decode_step.cu multiplies a weight row with up to this many
+# sequences at once; the sampler hands larger batches of an aligned decoder
+# to the batched kernel
+MAX_SMALL_BATCH = 4
+
+_STEP_WEIGHTS = ("wqkv", "bqkv", "wo", "bo", "wo_c", "bo_c", "wq_c", "bq_c",
+                 "w1", "b1", "w2", "b2", "w_logits")
+
+_StepParams = struct_type(
+    "StepParams",
+    pointers=_STEP_WEIGHTS + (
+        "b_logits", "ln", "ln_final", "emb", "posfull", "mem_k", "mem_v",
+        "bias_hm", "cross_hm", "gumbel", "token_in", "cur_token",
+        "token_out", "kv", "x", "qkv", "qc", "a", "mid", "logits",
+        "part"),
+    ints=("n_layers", "d", "d_ff", "n_heads", "n_class", "batch", "l_pad",
+          "e_pad", "steps_pad", "channels", "e_src", "aligned", "pos",
+          "take", "max_chunks"),
+    floats=("scale", "inv_temperature"))
+
+
+def _inv_temperature(temperature: float) -> float:
+    """1 / temperature rounded to float32, as the kernels multiply by it."""
+    one = torch.ones((), dtype=torch.float32)
+    return float(one / torch.tensor(float(temperature), dtype=torch.float32))
+
+
+def step_plain(params, bias_hm, posfull, mem_kv, kv, token_in, cur_token,
+               pos, i_index, is_masked, gumbel, temperature, *, n_class,
+               channels, cross_hm=None, e_src_real=None, chunk=None):
+    """The arithmetic of one decode step in plain PyTorch, shared by the
+    plain versions of both step kernels. ``chunk=None`` takes the softmax
+    over the cache rows ``< pos`` in one shot (the small-batch kernel);
+    an integer streams them in chunks of that many rows with a running
+    softmax whose heavy intermediates (the query, the q.k products, the
+    weights that multiply V and those products) are rounded to the cache
+    dtype, as the batched kernel of the JAX package does. The fresh
+    position enters last, as its own term; K/V of ``pos`` are written into
+    ``kv`` in place."""
+    mem_k, mem_v = mem_kv
+    dtype = kv.dtype
+    n_layers, _, batch, l_pad, d = kv.shape
+    nh = bias_hm.shape[2]
+    dh = d // nh
+    scale = 1.0 / (dh ** 0.5)
+    e_pad = mem_v.shape[2]
+    e_src = int(e_src_real) if e_src_real is not None else e_pad
+    pos, c = int(pos), channels
+
+    def w(name, l=None):
+        t = params[name] if l is None else params[name][l]
+        return t.float()
+
+    x = (params["emb_padded"][token_in[:, 0].long()].float()
+         + posfull[pos].float())
+    for l in range(n_layers):
+        ln = params["ln"][l]
+        h1 = round_to(layer_norm(x, ln[0], ln[1]), dtype)
+        qkv = h1 @ w("wqkv", l).T + w("bqkv", l)
+        q, k_i, v_i = (t.reshape(batch, nh, dh) for t in qkv.split(d, -1))
+        bias_row = bias_hm[l, pos]  # [H, l_pad]
+        lp = (q * k_i).sum(-1) * scale + bias_row[:, pos]  # [B, H]
+        m = torch.full_like(lp, NEG_INF)
+        denom = torch.zeros_like(lp)
+        acc = torch.zeros_like(v_i)
+        step_rows = pos if chunk is None else chunk
+        inter = torch.float32 if chunk is None else dtype
+        q_i = q.to(inter)
+        for j0 in range(0, pos, max(step_rows, 1)):
+            j1 = min(j0 + step_rows, pos)
+            kc = kv[l, 0, :, j0:j1].to(inter).reshape(batch, j1 - j0, nh, dh)
+            vc = kv[l, 1, :, j0:j1].to(inter).reshape(batch, j1 - j0, nh, dh)
+            logits = (kc * q_i[:, None]).float().sum(-1).transpose(1, 2) \
+                * scale + bias_row[None, :, j0:j1]  # [B, H, rows]
+            m_new = torch.maximum(m, logits.max(-1).values)
+            alpha = torch.exp(m - m_new)
+            p_c = torch.exp(logits - m_new[..., None])
+            denom = denom * alpha + p_c.sum(-1)
+            pv = p_c.to(inter).transpose(1, 2)[..., None] * vc
+            acc = acc * alpha[..., None] + pv.float().sum(1)
+            m = m_new
+        m_new = torch.maximum(m, lp)
+        alpha = torch.exp(m - m_new)
+        p_fresh = torch.exp(lp - m_new)
+        denom = denom * alpha + p_fresh
+        acc = acc * alpha[..., None] + p_fresh[..., None] * v_i
+        a = (acc / denom.clamp_min(1e-20)[..., None]).reshape(batch, d)
+        x = x + (round_to(a, dtype) @ w("wo", l).T + w("bo", l))
+        if cross_hm is None:
+            e_q = pos // c
+            mv = (mem_v[l, :, e_q].float() if e_q < e_pad
+                  else torch.zeros(batch, d, device=x.device))
+        else:
+            h2 = round_to(layer_norm(x, ln[2], ln[3]), dtype)
+            q_c = (h2 @ w("wq_c", l).T + w("bq_c", l)).reshape(batch, nh, dh)
+            mk = mem_k[l, :, :e_src].float().reshape(batch, e_src, nh, dh)
+            lq = torch.einsum("bhd,behd->bhe", q_c, mk) * scale \
+                + cross_hm[l, pos, :, :e_src][None]
+            mv = torch.einsum(
+                "bhe,behd->bhd", torch.softmax(lq, -1),
+                mem_v[l, :, :e_src].float().reshape(batch, e_src, nh, dh)
+            ).reshape(batch, d)
+        x = x + (round_to(mv, dtype) @ w("wo_c", l).T + w("bo_c", l))
+        h3 = round_to(layer_norm(x, ln[4], ln[5]), dtype)
+        mid = torch.relu(h3 @ w("w1", l).T + w("b1", l))
+        x = x + (round_to(mid, dtype) @ w("w2", l).T + w("b2", l))
+        kv[l, 0, :, pos] = k_i.reshape(batch, d).to(dtype)
+        kv[l, 1, :, pos] = v_i.reshape(batch, d).to(dtype)
+    hf = round_to(layer_norm(x, params["ln_final"][0],
+                             params["ln_final"][1]), dtype)
+    logits = (hf @ w("w_logits").T + params["b_logits"]) \
+        * _inv_temperature(temperature)
+    winner = torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+    if is_masked and i_index >= 0:
+        return winner[:, None], kv
+    return cur_token.to(torch.int32).clone(), kv
+
+
+def decode_step_plain(params, bias_hm, posfull, mem_kv, kv, token_in,
+                      cur_token, pos, i_index, is_masked, gumbel,
+                      temperature, *, n_class, channels, cross_hm=None,
+                      e_src_real=None, out=None):
+    """Plain PyTorch version of ``fused_decode_step`` (same arguments, same
+    result)."""
+    new_tok, kv = step_plain(
+        params, bias_hm, posfull, mem_kv, kv, token_in, cur_token, pos,
+        i_index, is_masked, gumbel, temperature, n_class=n_class,
+        channels=channels, cross_hm=cross_hm, e_src_real=e_src_real)
+    if out is not None:
+        out.copy_(new_tok)
+        new_tok = out
+    return new_tok, kv
+
+
+def launch_step(library: str, symbol: str, kernel: str, params, bias_hm,
+                posfull, mem_kv, kv, token_in, cur_token, pos, i_index,
+                is_masked, gumbel, temperature, *, n_class, channels,
+                cross_hm, e_src_real, out):
+    """Check the arguments of one decode step and launch it through the C
+    entry point ``symbol`` of kernel library ``library``."""
+    from .build import load
+    mem_k, mem_v = mem_kv
+    dtype = kv.dtype
+    if kv.dim() != 5:
+        raise ValueError("kv must be [n_layers, 2, B, l_pad, d], got "
+                         f"{tuple(kv.shape)}")
+    n_layers, _, batch, l_pad, d = kv.shape
+    d_ff = params["b1"].shape[-1]
+    _, steps_pad, nh, _ = bias_hm.shape
+    e_pad = mem_v.shape[2]
+    e_src = int(e_src_real) if e_src_real is not None else e_pad
+    pos = int(pos)
+    dev = kv.device
+    if out is None:
+        out = torch.empty(batch, 1, dtype=torch.int32, device=dev)
+    check_cuda(
+        {**{k: params[k] for k in _STEP_WEIGHTS},
+         "b_logits": params["b_logits"], "ln": params["ln"],
+         "ln_final": params["ln_final"], "emb": params["emb_padded"],
+         "posfull": posfull, "mem_k": mem_k, "mem_v": mem_v,
+         "bias_hm": bias_hm, "cross_hm": cross_hm, "gumbel": gumbel,
+         "token_in": token_in, "cur_token": cur_token, "out": out,
+         "kv": kv},
+        {**{k: (dtype,) for k in _STEP_WEIGHTS}, "emb": (dtype,),
+         "posfull": (dtype,), "mem_k": (dtype,), "mem_v": (dtype,),
+         "kv": tuple(DTYPE_CODES), "b_logits": (torch.float32,),
+         "ln": (torch.float32,), "ln_final": (torch.float32,),
+         "bias_hm": (torch.float32,), "cross_hm": (torch.float32,),
+         "gumbel": (torch.float32,), "token_in": (torch.int32,),
+         "cur_token": (torch.int32,), "out": (torch.int32,)})
+    check_shape(params["wqkv"], "wqkv", (n_layers, 3 * d, d))
+    check_shape(params["w1"], "w1", (n_layers, d_ff, d))
+    check_shape(params["w_logits"], "w_logits", (n_class, d))
+    check_shape(bias_hm, "bias_hm", (n_layers, steps_pad, nh, l_pad))
+    check_shape(mem_k, "mem_k", (n_layers, batch, e_pad, d))
+    check_shape(mem_v, "mem_v", (n_layers, batch, e_pad, d))
+    check_shape(gumbel, "gumbel", (batch, n_class))
+    for name, t in (("token_in", token_in), ("cur_token", cur_token),
+                    ("out", out)):
+        check_shape(t, name, (batch, 1))
+    if cross_hm is not None:
+        check_shape(cross_hm, "cross_hm", (n_layers, steps_pad, nh, e_pad))
+    if params["emb_padded"].shape[0] <= n_class:
+        raise ValueError("emb_padded needs the all-zeros row n_class")
+    if not 0 <= pos < min(steps_pad, l_pad, posfull.shape[0]):
+        raise ValueError(f"pos={pos} outside the tables")
+    if d % nh or (d // nh) % 2 or d // nh > 64 or d % 8 or d_ff % 8:
+        raise ValueError("head_dim must be even and <= 64, and d_model and "
+                         "d_ff multiples of 8")
+    max_chunks = (max(l_pad, e_pad) + ATTN_CHUNK - 1) // ATTN_CHUNK
+
+    def f32(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.float32)
+
+    def tdt(*shape):
+        return torch.empty(shape, device=dev, dtype=dtype)
+
+    scratch = {"x": f32(batch, d), "qkv": f32(batch, 3 * d),
+               "qc": f32(batch, d),
+               "a": tdt(batch, d), "mid": tdt(batch, d_ff),
+               "logits": f32(batch, n_class),
+               "part": f32(batch, nh, max_chunks, d // nh + 2)}
+    args = _StepParams(
+        **{k: ptr(params[k]) for k in _STEP_WEIGHTS},
+        b_logits=ptr(params["b_logits"]), ln=ptr(params["ln"]),
+        ln_final=ptr(params["ln_final"]), emb=ptr(params["emb_padded"]),
+        posfull=ptr(posfull), mem_k=ptr(mem_k), mem_v=ptr(mem_v),
+        bias_hm=ptr(bias_hm), cross_hm=ptr(cross_hm), gumbel=ptr(gumbel),
+        token_in=ptr(token_in), cur_token=ptr(cur_token),
+        token_out=ptr(out), kv=ptr(kv),
+        **{k: ptr(v) for k, v in scratch.items()},
+        n_layers=n_layers, d=d, d_ff=d_ff, n_heads=nh, n_class=n_class,
+        batch=batch, l_pad=l_pad, e_pad=e_pad, steps_pad=steps_pad,
+        channels=channels, e_src=e_src, aligned=int(cross_hm is None),
+        pos=pos, take=int(bool(is_masked) and int(i_index) >= 0),
+        max_chunks=max_chunks, scale=1.0 / ((d // nh) ** 0.5),
+        inv_temperature=_inv_temperature(temperature))
+    lib = load(library)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = getattr(lib, symbol)(ctypes.byref(args),
+                                ctypes.c_int(DTYPE_CODES[dtype]),
+                                ctypes.c_void_p(stream))
+    raise_on_error(lib, code, kernel)
+    return out, kv
+
+
+def fused_decode_step(params: Dict[str, torch.Tensor],
+                      bias_hm: torch.Tensor, posfull: torch.Tensor,
+                      mem_kv: Tuple[torch.Tensor, torch.Tensor],
+                      kv: torch.Tensor, token_in: torch.Tensor,
+                      cur_token: torch.Tensor, pos: int, i_index: int,
+                      is_masked: bool, gumbel: torch.Tensor,
+                      temperature: float, *, n_class: int, channels: int,
+                      cross_hm: Optional[torch.Tensor] = None,
+                      e_src_real: Optional[int] = None,
+                      out: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One fused decode step for a small batch (built for 2 to 4
+    sequences; more run in groups of 4).
+
+    params: ``pack_decode_params`` tables; bias_hm [n_layers, steps_pad, H,
+    l_pad] float32 (row ``pos`` is read); posfull [steps_pad, d]; mem_kv
+    (mem_k, mem_v) [n_layers, B, E_pad, d]; kv [n_layers, 2, B, l_pad, d],
+    updated in place (row ``pos`` of every layer); token_in / cur_token
+    [B, 1] int32 (``n_class`` in token_in selects the all-zeros start row);
+    pos, i_index, is_masked: scalars of the launch, known on the host;
+    gumbel [B, n_class] float32; cross_hm [n_layers, steps_pad, H, E_pad]
+    float32 or None (aligned decoders); e_src_real: real source length;
+    out: optional [B, 1] int32 tensor to write the tokens into (it may be
+    ``cur_token`` itself). Returns (new_token [B, 1], kv): the sampled token
+    where ``is_masked and i_index >= 0``, else ``cur_token``."""
+    kwargs = dict(n_class=n_class, channels=channels, cross_hm=cross_hm,
+                  e_src_real=e_src_real, out=out)
+    if kv.device.type != "cuda":
+        return decode_step_plain(
+            params, bias_hm, posfull, mem_kv, kv, token_in, cur_token, pos,
+            i_index, is_masked, gumbel, temperature, **kwargs)
+    result = launch_step(
+        "decode_step", "isi_decode_step", "fused_decode_step", params,
+        bias_hm, posfull, mem_kv, kv, token_in, cur_token, pos, i_index,
+        is_masked, gumbel, temperature, **kwargs)
+    fused_decode_step.launches += 1
+    return result
+
+
+fused_decode_step.launches = 0

@@ -7,7 +7,9 @@ before the first masked position, so one parallel decoder forward over that
 prefix fills rows ``[0, p0)`` of every layer's self-attention cache and the
 sequential scan starts at ``p0``. Per layer: LN, causal self attention with
 the relative-bias table, cross attention (aligned gather, or attention with
-the cross-bias table over the ``E_src`` real source keys), MLP.
+the cross-bias table over the ``E_src`` real source keys), MLP. A batch of
+sequences (``kv [n_layers, 2, B, l_pad, d]``) is primed in one call; the
+one-sequence form (``kv [n_layers, 2, l_pad, d]``) is the same call at B = 1.
 
 ``fused_prefix_prime`` launches the kernels of ``csrc/prefix_prime.cu`` for
 CUDA tensors and runs ``prefix_prime_plain`` (the same arithmetic, step by
@@ -34,17 +36,32 @@ _PrimeParams = struct_type(
               "bias_hm", "cross_hm", "kv", "x", "h", "qkv", "qc", "a",
               "mid"),
     ints=("n_layers", "d", "d_ff", "n_heads", "m", "p_pad", "l_pad",
-          "e_pad", "steps_pad", "channels", "e_src", "aligned"),
+          "e_pad", "steps_pad", "channels", "e_src", "aligned", "batch",
+          "x_rows"),
     floats=("scale",))
 
 _WEIGHTS = ("wqkv", "bqkv", "wo", "bo", "wo_c", "bo_c", "wq_c", "bq_c",
             "w1", "b1", "w2", "b2")
 
 
+def _batched(x_prefix, mem_kv, kv):
+    """The arguments with a batch dimension: views of the one-sequence form
+    (x_prefix [P, d], mem [n_layers, E_pad, d], kv [n_layers, 2, l_pad, d])
+    or the batched tensors as they are."""
+    if kv.dim() == 4:
+        return (x_prefix[None], tuple(m[:, None] for m in mem_kv),
+                kv[:, :, None])
+    if kv.dim() != 5 or x_prefix.dim() != 3 or mem_kv[1].dim() != 4:
+        raise ValueError(
+            "expected kv [n_layers, 2, B, l_pad, d], x_prefix [B, P, d] and "
+            "mem [n_layers, B, E_pad, d] (or all three without B)")
+    return x_prefix, tuple(mem_kv), kv
+
+
 def _geometry(bias_hm, mem_kv, kv, p0, e_src_real):
-    n_layers, _, l_pad, d = kv.shape
+    n_layers, _, _, l_pad, d = kv.shape
     num_heads = bias_hm.shape[2]
-    e_pad = mem_kv[1].shape[1]
+    e_pad = mem_kv[1].shape[2]
     e_src = int(e_src_real) if e_src_real is not None else e_pad
     p_pad = min(_round_up(p0, 128), l_pad)
     if not 0 < p0 <= p_pad <= l_pad:
@@ -59,10 +76,11 @@ def prefix_prime_plain(params: Dict[str, torch.Tensor],
                        cross_hm: Optional[torch.Tensor] = None,
                        e_src_real: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same arguments, same result)."""
-    mem_k, mem_v = mem_kv
+    x_prefix, (mem_k, mem_v), kv_b = _batched(x_prefix, mem_kv, kv)
     n_layers, l_pad, d, nh, e_pad, e_src, p_pad = _geometry(
-        bias_hm, mem_kv, kv, p0, e_src_real)
+        bias_hm, (mem_k, mem_v), kv_b, p0, e_src_real)
     dtype = kv.dtype
+    batch = kv_b.shape[2]
     dh = d // nh
     scale = 1.0 / (dh ** 0.5)
     m = p0
@@ -73,37 +91,37 @@ def prefix_prime_plain(params: Dict[str, torch.Tensor],
     def w(name, l):
         return params[name][l].float()
 
-    x = x_prefix[:m].float()
+    x = x_prefix[:, :m].float()
     for l in range(n_layers):
         ln = params["ln"][l]
         h1 = round_to(layer_norm(x, ln[0], ln[1]), dtype)
         qkv = h1 @ w("wqkv", l).T + w("bqkv", l)
         q, k, v = qkv.split(d, dim=-1)
-        kv[l, :, :p_pad] = 0
-        kv[l, 0, :m] = k.to(dtype)
-        kv[l, 1, :m] = v.to(dtype)
-        logits = torch.einsum("ihd,jhd->hij", q.reshape(m, nh, dh),
-                              k.reshape(m, nh, dh)) * scale
+        kv_b[l, :, :, :p_pad] = 0
+        kv_b[l, 0, :, :m] = k.to(dtype)
+        kv_b[l, 1, :, :m] = v.to(dtype)
+        logits = torch.einsum("bihd,bjhd->bhij", q.reshape(batch, m, nh, dh),
+                              k.reshape(batch, m, nh, dh)) * scale
         logits = logits + bias_hm[l, :m, :, :m].permute(1, 0, 2)
         logits = torch.where(causal, logits, NEG_INF)
-        a = torch.einsum("hij,jhd->ihd", torch.softmax(logits, -1),
-                         v.reshape(m, nh, dh)).reshape(m, d)
+        a = torch.einsum("bhij,bjhd->bihd", torch.softmax(logits, -1),
+                         v.reshape(batch, m, nh, dh)).reshape(batch, m, d)
         x = x + (round_to(a, dtype) @ w("wo", l).T + w("bo", l))
         if cross_hm is None:
             ev = rows // channels
-            mv = mem_v[l][ev.clamp(max=e_pad - 1)].float()
+            mv = mem_v[l][:, ev.clamp(max=e_pad - 1)].float()
             mv = torch.where((ev < e_pad)[:, None], mv, 0.0)
         else:
             h2 = round_to(layer_norm(x, ln[2], ln[3]), dtype)
             qc = h2 @ w("wq_c", l).T + w("bq_c", l)
-            mk = mem_k[l, :e_src].float().reshape(e_src, nh, dh)
-            logits = torch.einsum("ihd,ehd->hie", qc.reshape(m, nh, dh),
-                                  mk) * scale
+            mk = mem_k[l, :, :e_src].float().reshape(batch, e_src, nh, dh)
+            logits = torch.einsum("bihd,behd->bhie",
+                                  qc.reshape(batch, m, nh, dh), mk) * scale
             logits = logits + cross_hm[l, :m, :, :e_src].permute(1, 0, 2)
             mv = torch.einsum(
-                "hie,ehd->ihd", torch.softmax(logits, -1),
-                mem_v[l, :e_src].float().reshape(e_src, nh, dh)
-            ).reshape(m, d)
+                "bhie,behd->bihd", torch.softmax(logits, -1),
+                mem_v[l, :, :e_src].float().reshape(batch, e_src, nh, dh)
+            ).reshape(batch, m, d)
         x = x + (round_to(mv, dtype) @ w("wo_c", l).T + w("bo_c", l))
         h3 = round_to(layer_norm(x, ln[4], ln[5]), dtype)
         mid = torch.relu(h3 @ w("w1", l).T + w("b1", l))
@@ -122,20 +140,23 @@ def fused_prefix_prime(params: Dict[str, torch.Tensor],
 
     params: ``pack_decode_params`` tables (weights ``[n, out, in]``);
     bias_hm [n_layers, steps_pad, H, l_pad] float32 (head-major
-    ``precompute_bias_rows``); x_prefix [P >= p0, d]: embedded with-start
+    ``precompute_bias_rows``); x_prefix [B, P >= p0, d]: embedded with-start
     prefix rows (``emb_padded[tok] + posfull`` in the cache dtype);
-    mem_kv (mem_k, mem_v) [n_layers, E_pad, d]; kv [n_layers, 2, l_pad, d],
-    updated in place and returned; cross_hm [n_layers, steps_pad, H, E_pad]
-    float32 or None for aligned decoders; e_src_real: real source length.
-    """
+    mem_kv (mem_k, mem_v) [n_layers, B, E_pad, d]; kv [n_layers, 2, B,
+    l_pad, d], updated in place and returned; cross_hm [n_layers, steps_pad,
+    H, E_pad] float32 or None for aligned decoders; e_src_real: real source
+    length. All three of x_prefix, mem_kv and kv may come without the B
+    dimension (one sequence)."""
     if kv.device.type != "cuda":
         return prefix_prime_plain(params, bias_hm, x_prefix, mem_kv, kv,
                                   p0=p0, channels=channels,
                                   cross_hm=cross_hm, e_src_real=e_src_real)
     from .build import load
-    mem_k, mem_v = mem_kv
+    kv_out = kv
+    x_prefix, (mem_k, mem_v), kv = _batched(x_prefix, mem_kv, kv)
     n_layers, l_pad, d, nh, e_pad, e_src, p_pad = _geometry(
-        bias_hm, mem_kv, kv, p0, e_src_real)
+        bias_hm, (mem_k, mem_v), kv, p0, e_src_real)
+    batch = kv.shape[2]
     dtype = kv.dtype
     d_ff = params["b1"].shape[-1]
     steps_pad = bias_hm.shape[1]
@@ -151,13 +172,13 @@ def fused_prefix_prime(params: Dict[str, torch.Tensor],
     check_shape(params["w1"], "w1", (n_layers, d_ff, d))
     check_shape(params["w2"], "w2", (n_layers, d, d_ff))
     check_shape(bias_hm, "bias_hm", (n_layers, steps_pad, nh, l_pad))
-    check_shape(mem_v, "mem_v", (n_layers, e_pad, d))
-    check_shape(mem_k, "mem_k", (n_layers, e_pad, d))
+    check_shape(mem_v, "mem_v", (n_layers, batch, e_pad, d))
+    check_shape(mem_k, "mem_k", (n_layers, batch, e_pad, d))
     if cross_hm is not None:
         check_shape(cross_hm, "cross_hm", (n_layers, steps_pad, nh, e_pad))
-    if x_prefix.dim() != 2 or x_prefix.shape[0] < p0 \
-            or x_prefix.shape[1] != d:
-        raise ValueError(f"x_prefix must be [>= {p0}, {d}], "
+    if x_prefix.shape[0] != batch or x_prefix.shape[1] < p0 \
+            or x_prefix.shape[2] != d:
+        raise ValueError(f"x_prefix must be [{batch}, >= {p0}, {d}], "
                          f"got {tuple(x_prefix.shape)}")
     if d % nh or d // nh > 64 or d % 8 or d_ff % 8:
         raise ValueError("head_dim must be <= 64 and widths multiples of 8")
@@ -178,8 +199,8 @@ def fused_prefix_prime(params: Dict[str, torch.Tensor],
         **{k: ptr(v) for k, v in scratch.items()},
         n_layers=n_layers, d=d, d_ff=d_ff, n_heads=nh, m=m, p_pad=p_pad,
         l_pad=l_pad, e_pad=e_pad, steps_pad=steps_pad, channels=channels,
-        e_src=e_src, aligned=int(cross_hm is None),
-        scale=1.0 / ((d // nh) ** 0.5))
+        e_src=e_src, aligned=int(cross_hm is None), batch=batch,
+        x_rows=x_prefix.shape[1], scale=1.0 / ((d // nh) ** 0.5))
     lib = load("prefix_prime")
     stream = torch.cuda.current_stream(kv.device).cuda_stream
     code = lib.isi_prefix_prime(ctypes.byref(args),
@@ -187,7 +208,7 @@ def fused_prefix_prime(params: Dict[str, torch.Tensor],
                                 ctypes.c_void_p(stream))
     raise_on_error(lib, code, "fused_prefix_prime")
     fused_prefix_prime.launches += 1
-    return kv
+    return kv_out
 
 
 fused_prefix_prime.launches = 0

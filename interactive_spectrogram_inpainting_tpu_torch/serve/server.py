@@ -1,19 +1,29 @@
-"""Interactive inpainting HTTP service: the NOTONO inpaint + playback path.
+"""Interactive inpainting HTTP service: the NOTONO sampling endpoints.
 
 Port of ``interactive_spectrogram_inpainting_tpu/serve/server.py`` for the
-two endpoints of one interaction, with the JAX server's JSON schemas:
+generation, inpainting and playback endpoints, with the JAX server's JSON
+schemas:
 
+- ``/generate``          sample a full sound (top prior, then bottom) from
+                         pitch / instrument-family conditioning;
+- ``/test-generate``     random codemaps (plumbing test, no model needed);
 - ``/timerange-change``  the core inpaint op: masked regeneration of a
                          transformer-sized frame, top prior cascading into
                          the bottom prior (``layer=top``) or the bottom
                          prior alone (``layer=bottom``), with time-index
                          remapping for sounds longer than the frame;
+- ``/top-conditioned-sample``  the bottom prior sampled for a whole pitch
+                         range at once under one top codemap -> zip of wavs;
 - ``/get-audio``         codemaps -> VQ-VAE decode -> mel inverse -> wav.
 
-Both priors sample through the fused B=1 path (prefix priming plus the
-whole-scan kernel) in bfloat16, as the JAX server does. The other
-endpoints, the warmup lattice and checkpoint loading are not ported yet;
-``--test_models tiny|full`` serves randomly initialized models.
+By default both priors sample through the fused kernels in bfloat16, as
+the JAX server does: prefix priming plus the whole-scan kernel at batch 1,
+the step kernels for a batch. ``--sampling_top_k`` / ``--sampling_top_p``
+move every request to the dense KV scan and ``--use_predictive_sampling``
+to the predictive sampler. ``/analyze-audio``, ``/erase``,
+``/get-spectrogram-image``, ``/sample-from-dataset``, the warmup lattice
+and checkpoint loading are not ported yet; ``--test_models tiny|full``
+serves randomly initialized models.
 
 Run: ``python -m interactive_spectrogram_inpainting_tpu_torch.serve.server
 --test_models full`` (GPU by default; ``--device cpu`` for the plain path).
@@ -26,6 +36,7 @@ import io
 import logging
 import threading
 import time
+import zipfile
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -66,8 +77,27 @@ def make_time_indexes(start_index: int, codemap_duration: int,
                              + transformer_duration]
 
 
+def _log_predictive_speedup(which: str, diag) -> None:
+    """Per-request predictive-sampling telemetry: forwards run, the
+    correct-prediction ratio and the relative speedup over one forward per
+    token (the mode's latency depends on the data)."""
+    if diag is None:
+        return
+    num_forwards = int(diag["num_forwards"])
+    num_steps = int(diag["num_steps"])
+    ratio = 1.0 - num_forwards / max(num_steps, 1)
+    logger.info(
+        "predictive sampling (%s): %d/%d forwards, correct ratio %.2f, "
+        "relative speedup %.2f", which, num_forwards, num_steps, ratio,
+        num_steps / max(num_forwards, 1))
+
+
 class ServerState:
     """Models, decode tables and the per-request sampling closures.
+
+    ``sampling_options`` (``top_k``, ``top_p``, ``predictive``) choose the
+    sampler for every request: the fused kernels unless filtering or
+    predictive sampling is asked for (``_fused_ok``).
 
     ``gumbel_source``, when set, is called as ``gumbel_source(which)``
     (``'top'`` or ``'bottom'``) and returns the Gumbel noise of that
@@ -78,7 +108,8 @@ class ServerState:
                  bottom_model: VQNSynthTransformer, spectrograms_helper,
                  label_encoders: Mapping[str, LabelEncoder],
                  fs_hz: int = 16000, device: DeviceLike = None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None,
+                 sampling_options: Optional[Dict] = None):
         self.device = resolve_device(device)
         set_float32_precision()
         self.vqvae = vqvae_model.to(self.device).eval()
@@ -87,11 +118,13 @@ class ServerState:
         self.helper = spectrograms_helper
         self.label_encoders = dict(label_encoders)
         self.fs_hz = fs_hz
+        self.sampling_options = sampling_options or {}
         self._seed = (time.time_ns() if seed is None else seed) & 0xFFFFFFFF
         self._rng_counter = 0
         self._fn_cache: Dict = {}
-        # one request at a time on the device
-        self._lock = threading.Lock()
+        # one request at a time on the device; reentrant because a sampling
+        # call builds its decode tables while it holds the lock
+        self._lock = threading.RLock()
         self.gumbel_source: Optional[
             Callable[[str], Optional[torch.Tensor]]] = None
 
@@ -137,67 +170,90 @@ class ServerState:
     def _gumbel(self, which: str) -> Optional[torch.Tensor]:
         return self.gumbel_source(which) if self.gumbel_source else None
 
+    def _fused_ok(self, which: str) -> bool:
+        cfg = (self.top if which == "top" else self.bottom).config
+        top_k = int(self.sampling_options.get("top_k", 0))
+        top_p = float(self.sampling_options.get("top_p", 0.0))
+        if self.sampling_options.get("predictive", False):
+            return False  # predictive sampling runs full forwards
+        return (top_k == 0 and top_p == 0.0
+                and not cfg.positional_class_conditioning
+                and (cfg.use_aligned_decoder
+                     or not cfg.use_identity_memory_mask))
+
+    def _sample(self, which: str, generator, batch_size: int, temperature,
+                condition, initial_code, mask, class_conditioning, ti_src,
+                ti_tgt, scan_from, scan_until):
+        """One ``sample_model`` call under the server's sampling options:
+        bfloat16 everywhere; the logits, the filtering and the sampling
+        stay float32."""
+        model = self.top if which == "top" else self.bottom
+        fused_ok = self._fused_ok(which)
+        predictive = bool(self.sampling_options.get("predictive", False))
+        out = sample_model(
+            model, generator, batch_size, temperature=temperature,
+            condition=condition, class_conditioning=class_conditioning,
+            initial_code=initial_code, mask=mask,
+            time_indexes_source=ti_src, time_indexes_target=ti_tgt,
+            top_k_sampling_k=int(self.sampling_options.get("top_k", 0)),
+            top_p_sampling_p=float(self.sampling_options.get("top_p", 0.0)),
+            use_predictive_sampling=predictive,
+            compute_dtype=torch.bfloat16, use_fused_step=fused_ok,
+            scan_from=scan_from, scan_until=scan_until,
+            decode_state=self.decode_state(which) if fused_ok else None,
+            return_diagnostics=predictive, gumbel=self._gumbel(which),
+            bounds_from_mask=False, device=self.device)
+        if predictive:
+            out, diag = out
+            _log_predictive_speedup(which, diag)
+        return out
+
     def sample_fn(self, which: str, batch_size: int,
                   scan_from: Optional[int] = None,
                   scan_until: Optional[int] = None):
-        model = self.top if which == "top" else self.bottom
-        state = self.decode_state(which)
-
         def fn(generator, temperature, condition, initial_code, mask,
                class_conditioning, ti_src, ti_tgt):
             with self._lock:
-                return sample_model(
-                    model, generator, batch_size, temperature=temperature,
-                    condition=condition, class_conditioning=class_conditioning,
-                    initial_code=initial_code, mask=mask,
-                    time_indexes_source=ti_src, time_indexes_target=ti_tgt,
-                    compute_dtype=torch.bfloat16, scan_from=scan_from,
-                    scan_until=scan_until, decode_state=state,
-                    gumbel=self._gumbel(which), bounds_from_mask=False,
-                    device=self.device)
+                return self._sample(
+                    which, generator, batch_size, temperature, condition,
+                    initial_code, mask, class_conditioning, ti_src, ti_tgt,
+                    scan_from, scan_until)
         return fn
 
     def cascade_fn(self, sf_t, su_t, sf_b, su_b, long_sound=False):
         """Top inpaint -> bottom cascade (the core interactive op)."""
-        state_t = self.decode_state("top")
-        state_b = self.decode_state("bottom")
-
         def fn(generator, temperature, top_frame, bottom_frame, mask_top,
                mask_bottom, class_conditioning, ti_top=None, ti_bottom=None):
             assert (ti_top is not None) == bool(long_sound)
             with self._lock:
-                new_top = sample_model(
-                    self.top, generator, 1, temperature=temperature,
-                    condition=top_frame, class_conditioning=class_conditioning,
-                    initial_code=top_frame, mask=mask_top,
-                    time_indexes_source=ti_top, time_indexes_target=ti_top,
-                    compute_dtype=torch.bfloat16, scan_from=sf_t,
-                    scan_until=su_t, decode_state=state_t,
-                    gumbel=self._gumbel("top"), bounds_from_mask=False,
-                    device=self.device)
-                new_bottom = sample_model(
-                    self.bottom, generator, 1, temperature=temperature,
-                    condition=new_top, class_conditioning=class_conditioning,
-                    initial_code=bottom_frame, mask=mask_bottom,
-                    time_indexes_source=ti_top,
-                    time_indexes_target=ti_bottom,
-                    compute_dtype=torch.bfloat16, scan_from=sf_b,
-                    scan_until=su_b, decode_state=state_b,
-                    gumbel=self._gumbel("bottom"), bounds_from_mask=False,
-                    device=self.device)
+                new_top = self._sample(
+                    "top", generator, 1, temperature, top_frame, top_frame,
+                    mask_top, class_conditioning, ti_top, ti_top, sf_t, su_t)
+                new_bottom = self._sample(
+                    "bottom", generator, 1, temperature, new_top,
+                    bottom_frame, mask_bottom, class_conditioning, ti_top,
+                    ti_bottom, sf_b, su_b)
             return new_top, new_bottom
         return fn
+
+    def _on_device(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return torch.as_tensor(np.ascontiguousarray(x), device=self.device)
 
     def decode_audio_fn(self):
         """codemaps -> audio: VQ-VAE decode then the inverse transform."""
         def fn(top_code, bottom_code):
             with self._lock, torch.no_grad():
-                spec = self.vqvae.decode_code(
-                    torch.as_tensor(np.asarray(top_code), device=self.device),
-                    torch.as_tensor(np.asarray(bottom_code),
-                                    device=self.device))
+                spec = self.vqvae.decode_code(self._on_device(top_code),
+                                              self._on_device(bottom_code))
                 return self.helper.to_audio(spec)
         return fn
+
+    # batch-size buckets for /top-conditioned-sample: a pitch range pads up
+    # to one of these, so the batched sampler sees a small fixed set of
+    # batch sizes (surplus rows are sliced off)
+    pitch_batch_buckets: Tuple[int, ...] = (16, 64)
 
     def encode_conditioning(self, pitch, instrument_family_str,
                             batch: int = 1):
@@ -236,11 +292,25 @@ def parse_conditioning(request: Request):
     return data["top_conditioning"], data["bottom_conditioning"]
 
 
+def make_matrix(shape, value):
+    return [[value] * int(shape[1])] * int(shape[0])
+
+
+def conditioning_maps(state: ServerState, pitch, family):
+    top_map = {"pitch": make_matrix(state.top.config.shape, pitch),
+               "instrument_family_str": make_matrix(
+                   state.top.config.shape, family)}
+    bottom_map = {"pitch": make_matrix(state.bottom.config.shape, pitch),
+                  "instrument_family_str": make_matrix(
+                      state.bottom.config.shape, family)}
+    return top_map, bottom_map
+
+
 def make_response(top_code, bottom_code, top_conditioning,
                   bottom_conditioning):
     return jsonify({
-        "top_code": np.asarray(top_code)[0].astype(int).tolist(),
-        "bottom_code": np.asarray(bottom_code)[0].astype(int).tolist(),
+        "top_code": _host(top_code)[0].astype(int).tolist(),
+        "bottom_code": _host(bottom_code)[0].astype(int).tolist(),
         "top_conditioning": top_conditioning,
         "bottom_conditioning": bottom_conditioning,
     })
@@ -251,6 +321,40 @@ def _host(x) -> np.ndarray:
 
 
 # -- endpoints ----------------------------------------------------------------
+
+@app.route("/generate", methods=["GET", "POST"])
+def generate(request: Request):
+    state = STATE
+    temperature = float(request.args.get("temperature", 1.0))
+    pitch = int(request.args["pitch"])
+    family = str(request.args["instrument_family_str"])
+    cc = state.encode_conditioning(pitch, family)
+
+    top_code = state.sample_fn("top", 1)(
+        state.next_rng(), temperature, np.zeros(
+            (1,) + tuple(state.top.config.shape), np.int32),
+        None, None, cc, None, None)
+    bottom_code = state.sample_fn("bottom", 1)(
+        state.next_rng(), temperature, top_code, None, None, cc, None, None)
+    top_map, bottom_map = conditioning_maps(state, pitch, family)
+    return make_response(top_code, bottom_code, top_map, bottom_map)
+
+
+@app.route("/test-generate", methods=["GET", "POST"])
+def test_generate(request: Request):
+    state = STATE
+    pitch = int(request.args["pitch"])
+    family = str(request.args["instrument_family_str"])
+    rng = np.random.default_rng()
+    top_code = rng.integers(
+        0, state.vqvae.config.n_embed_t,
+        (1,) + tuple(state.top.config.shape))
+    bottom_code = rng.integers(
+        0, state.vqvae.config.n_embed_b,
+        (1,) + tuple(state.bottom.config.shape))
+    top_map, bottom_map = conditioning_maps(state, pitch, family)
+    return make_response(top_code, bottom_code, top_map, bottom_map)
+
 
 @app.route("/timerange-change", methods=["POST"])
 def timerange_change(request: Request):
@@ -357,6 +461,52 @@ def get_audio(request: Request):
     return send_bytes(buf.getvalue(), "audio/wav", "sample.wav")
 
 
+@app.route("/top-conditioned-sample", methods=["POST"])
+def top_conditioned_sample(request: Request):
+    state = STATE
+    top_code, _ = parse_codes(request)
+    family = str(request.args["instrument_family_str"])
+    min_pitch = int(request.args["min_pitch"])
+    max_pitch = int(request.args["max_pitch"])
+    temperature = float(request.args.get("temperature", 1.0))
+    num_samples = max_pitch - min_pitch
+    if num_samples <= 0:
+        raise ValueError("max_pitch must be above min_pitch")
+
+    pitches = list(range(min_pitch, max_pitch))
+    # pad each chunk of the pitch range up to a batch bucket (surplus rows
+    # repeat the last pitch and are sliced off)
+    buckets = state.pitch_batch_buckets
+    audio_chunks = []
+    for chunk_start in range(0, num_samples, buckets[-1]):
+        chunk = pitches[chunk_start:chunk_start + buckets[-1]]
+        bucket = next((b for b in buckets if b >= len(chunk)), buckets[-1])
+        padded = chunk + [chunk[-1]] * (bucket - len(chunk))
+        cc = {}
+        if "pitch" in state.label_encoders:
+            cc["pitch"] = np.asarray(
+                state.label_encoders["pitch"].transform(padded))
+        if "instrument_family_str" in state.label_encoders:
+            cc["instrument_family_str"] = np.asarray(
+                state.label_encoders["instrument_family_str"].transform(
+                    [family] * bucket))
+        condition = np.repeat(top_code, bucket, axis=0)
+        bottom = state.sample_fn("bottom", bucket)(
+            state.next_rng(), temperature, condition, None, None, cc,
+            None, None)
+        chunk_audio = _host(state.decode_audio_fn()(condition, bottom))
+        audio_chunks.append(chunk_audio[:len(chunk)])
+    audio = np.concatenate(audio_chunks, axis=0)
+
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as zf:
+        for pitch, wave in zip(pitches, audio):
+            wav_buf = io.BytesIO()
+            write_wav(wav_buf, wave, state.fs_hz)
+            zf.writestr(f"{family}-{pitch}.wav", wav_buf.getvalue())
+    return send_bytes(buf.getvalue(), "application/zip", "samples.zip")
+
+
 # -- test state ---------------------------------------------------------------
 
 def make_test_configs(size: str = "tiny"):
@@ -400,7 +550,8 @@ def make_test_configs(size: str = "tiny"):
 
 
 def make_test_state(size: str = "tiny", device: DeviceLike = None,
-                    seed: int = 0) -> ServerState:
+                    seed: int = 0,
+                    sampling_options: Optional[Dict] = None) -> ServerState:
     """Randomly initialized models (weights drawn from ``seed`` with the
     flax initializers' scales) for plumbing and load tests."""
     device = resolve_device(device)
@@ -417,7 +568,7 @@ def make_test_state(size: str = "tiny", device: DeviceLike = None,
     return ServerState(
         vqvae, top, bottom, get_spectrograms_helper(**spec_kwargs),
         label_encoders, fs_hz=spec_kwargs["fs_hz"], device=device,
-        seed=seed)
+        seed=seed, sampling_options=sampling_options)
 
 
 def main(argv=None):
@@ -429,14 +580,26 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--port", type=int, default=5000)
     p.add_argument("--host", type=str, default="0.0.0.0")
+    p.add_argument("--sampling_top_k", type=int, default=0)
+    p.add_argument("--sampling_top_p", type=float, default=0.0)
+    p.add_argument("--use_predictive_sampling", dest="predictive_sampling",
+                   action="store_true", default=False,
+                   help="Gumbel predictive sampling (bfloat16 full forwards "
+                        "with skip-on-match, arXiv:2002.09928) instead of "
+                        "the fused KV scan; its latency depends on the data")
+    p.add_argument("--no_predictive_sampling", dest="predictive_sampling",
+                   action="store_false")
     args = p.parse_args(argv)
     if not args.test_models:
         p.error("loading trained checkpoints is not ported yet; "
                 "pass --test_models tiny|full")
     global STATE
     logging.basicConfig(level=logging.INFO)
-    STATE = make_test_state(args.test_models, device=args.device,
-                            seed=args.seed)
+    STATE = make_test_state(
+        args.test_models, device=args.device, seed=args.seed,
+        sampling_options={"top_k": args.sampling_top_k,
+                          "top_p": args.sampling_top_p,
+                          "predictive": args.predictive_sampling})
     app.logger = logger
     print(f"serving on {args.host}:{args.port}", flush=True)
     app.run(host=args.host, port=args.port)

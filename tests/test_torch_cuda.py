@@ -17,8 +17,14 @@ import torch
 
 from interactive_spectrogram_inpainting_tpu_torch.models.prior import (
     transformer as tt)
+from interactive_spectrogram_inpainting_tpu_torch.ops.decode_attention import (
+    flash_decode_attention, reference_decode_attention)
 from interactive_spectrogram_inpainting_tpu_torch.ops.decode_scan_kernel import (
     decode_scan_plain, fused_decode_scan)
+from interactive_spectrogram_inpainting_tpu_torch.ops.decode_step_batched \
+    import decode_step_batched_plain, fused_decode_step_batched
+from interactive_spectrogram_inpainting_tpu_torch.ops.decode_step_kernel \
+    import decode_step_plain, fused_decode_step
 from interactive_spectrogram_inpainting_tpu_torch.ops.prefix_prime_kernel \
     import fused_prefix_prime, prefix_prime_plain
 from interactive_spectrogram_inpainting_tpu_torch.sampling.sample import (
@@ -129,3 +135,129 @@ def test_sample_model_cuda_matches_cpu(prior):
     assert torch.equal(out["cuda"], out["cpu"])
     np.testing.assert_array_equal(out["cpu"].numpy()[0][~mask],
                                   codemap[~mask])
+
+
+def batch_inputs(model, batch, dtype, seed=5):
+    """Step-kernel arguments for ``batch`` different sequences, primed up
+    to the first masked position of a two-column mask."""
+    import chip_smoke
+    cfg = model.config
+    rng = np.random.default_rng(seed)
+    codemaps = rng.integers(0, cfg.n_class, (batch,) + tuple(cfg.shape))
+    conditions = (codemaps if cfg.self_conditional_model else rng.integers(
+        0, cfg.n_class, (batch,) + tuple(cfg.condition_shape)))
+    mask = np.zeros(cfg.shape, bool)
+    mask[:, 1:3] = True
+    helper = cfg.target_codemaps_helper()
+    nz = np.nonzero(mask.reshape(-1)[helper.flatten_permutation])[0]
+    state = precompute_decode_state(model, compute_dtype=dtype)
+    return chip_smoke.scan_inputs(torch, model, state, codemaps, conditions,
+                                  mask, int(nz.min()), int(nz.max()) + 1,
+                                  dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefix_prime_batch_kernel_matches_plain(prior, dtype):
+    import chip_smoke
+    inp = batch_inputs(prior[0], 3, dtype)
+    kv_k = chip_smoke.run_prime(torch, fused_prefix_prime, inp, dtype)
+    kv_p = chip_smoke.run_prime(torch, prefix_prime_plain, inp, dtype)
+    torch.cuda.synchronize()
+    p0 = inp["p0"]
+    tol = 3e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(kv_k[:, :, :, :p0].float(),
+                               kv_p[:, :, :, :p0].float(), atol=tol, rtol=tol)
+    assert not torch.equal(kv_k[:, :, 0, :p0], kv_k[:, :, 1, :p0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [2, 6])
+def test_decode_step_kernel_matches_plain(prior, dtype, batch):
+    import chip_smoke
+    inp = batch_inputs(prior[0], batch, dtype)
+    kv0 = chip_smoke.run_prime(torch, fused_prefix_prime, inp, dtype)
+    n = inp["steps"] - inp["p0"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    noise = gumbel_noise((n, batch, inp["n_class"]), kv0.device, gen)
+    tk, kvk = chip_smoke.run_steps(torch, fused_decode_step, inp, kv0, noise,
+                                   0.8, n)
+    tp, kvp = chip_smoke.run_steps(torch, decode_step_plain, inp, kv0, noise,
+                                   0.8, n)
+    torch.cuda.synchronize()
+    tol = ((3e-4, 1e-3) if dtype == torch.float32 else (5e-2, 5e-2))
+    torch.testing.assert_close(kvk.float(), kvp.float(), atol=tol[0],
+                               rtol=tol[1])
+    if dtype == torch.float32:
+        assert torch.equal(tk, tp)
+    keep = ~inp["mask"]
+    assert torch.equal(tk[:, keep], inp["tokens"][:, keep])
+    assert not torch.equal(tk, inp["tokens"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_step_batched_kernel_matches_plain(device, dtype):
+    import chip_smoke
+    model = tiny_prior("aligned").to(device)
+    batch = 8
+    inp = batch_inputs(model, batch, dtype)
+    kv0 = chip_smoke.run_prime(torch, fused_prefix_prime, inp, dtype)
+    n = inp["steps"] - inp["p0"]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    noise = gumbel_noise((n, batch, inp["n_class"]), kv0.device, gen)
+    tk, kvk = chip_smoke.run_steps(torch, fused_decode_step_batched, inp,
+                                   kv0, noise, 0.8, n)
+    tp, kvp = chip_smoke.run_steps(torch, decode_step_batched_plain, inp,
+                                   kv0, noise, 0.8, n)
+    torch.cuda.synchronize()
+    tol = ((3e-4, 1e-3) if dtype == torch.float32 else (5e-2, 5e-2))
+    torch.testing.assert_close(kvk.float(), kvp.float(), atol=tol[0],
+                               rtol=tol[1])
+    if dtype == torch.float32:
+        assert torch.equal(tk, tp)
+    assert fused_decode_step_batched.launches >= n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [0, 5, 127, 128, 255])
+def test_flash_decode_attention_kernel_matches_plain(device, dtype, pos):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    B, L, H, Dh = 3, 256, 4, 8
+    q = torch.randn(B, H, Dh, generator=gen, device=device).to(dtype)
+    k = torch.randn(B, L, H, Dh, generator=gen, device=device).to(dtype)
+    v = torch.randn(B, L, H, Dh, generator=gen, device=device).to(dtype)
+    bias = torch.randn(H, L, generator=gen, device=device)
+    for bias_row in (bias, None):
+        out = flash_decode_attention(q, k, v, pos, bias_row)
+        ref = reference_decode_attention(q, k, v, pos, bias_row)
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == torch.float32 else 3e-2
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=max(tol, 1e-4))
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+def test_sample_model_batch_cuda_matches_cpu(prior, batch):
+    """Fused batch sampler (step kernel; batched kernel at 8 on the aligned
+    prior) and the dense flash sampler: the card's tokens equal the CPU's."""
+    model, codemap, condition, mask = prior
+    cfg = model.config
+    helper = cfg.target_codemaps_helper()
+    nz = np.nonzero(mask.reshape(-1)[helper.flatten_permutation])[0]
+    p0, steps = scan_range(model, int(nz.min()), int(nz.max()) + 1)
+    gumbel = torch.as_tensor(np.random.default_rng(8).gumbel(
+        size=(steps - p0, batch, cfg.n_class)).astype(np.float32))
+    cond = None if cfg.self_conditional_model else condition
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = model.to(dev)
+        out[dev] = [
+            sample_model(m, None, batch, condition=cond,
+                         initial_code=codemap, mask=mask, gumbel=gumbel,
+                         use_fused_step=fused, use_flash=not fused,
+                         top_k_sampling_k=0 if fused else 4,
+                         device=dev).cpu()
+            for fused in (True, False)]
+    model.to("cuda")
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+    assert flash_decode_attention.launches > 0

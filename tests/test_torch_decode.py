@@ -258,10 +258,23 @@ def test_sample_model_matches_jax(setup, masked_columns):
 
 
 def test_sample_model_refuses_unported_options(setup):
-    tm = setup["tm"]
-    with pytest.raises(NotImplementedError):
-        sample_model(tm, None, 2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sample_model(tm, None, 1, top_k_sampling_k=5, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sample_model(tm, None, 1, use_fused_step=False, device="cpu")
+    """What the JAX sampler refuses on the fused path (its assertions), the
+    port refuses with ``ValueError``; nothing else of ``sample_model`` is
+    left unported."""
+    jm, variables, tm = setup["jm"], setup["variables"], setup["tm"]
+    cfg = setup["cfg"]
+    condition = None if cfg.self_conditional_model else setup["condition"]
+    for options in (dict(top_k_sampling_k=5), dict(top_p_sampling_p=0.5)):
+        with pytest.raises(AssertionError):
+            jax_sample_model(jm, variables, jax.random.PRNGKey(0), 1,
+                             condition=condition, use_fused_step=True,
+                             **options)
+        with pytest.raises(ValueError, match="top-k/top-p"):
+            sample_model(tm, None, 1, condition=condition, device="cpu",
+                         **options)
+    with pytest.raises(ValueError, match="codemap_size"):
+        sample_model(tm, None, 1, condition=condition, codemap_size=(2, 2),
+                     device="cpu")
+    with pytest.raises(ValueError, match="gumbel has shape"):
+        sample_model(tm, None, 2, condition=condition,
+                     gumbel=torch.zeros(3, cfg.n_class), device="cpu")

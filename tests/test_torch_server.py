@@ -2,12 +2,15 @@
 
 Both servers hold the same weights (the JAX state's variables through
 ``from_flax_params``). ``/timerange-change`` (top -> bottom cascade, bf16,
-both priors primed) is fed the JAX server's Gumbel noise and must return
-the same codemaps; ``/get-audio`` must decode the same audio (1e-4 of its
-peak) and the same spectrogram (atol 1e-4)."""
+both priors primed), ``/generate`` and the padded batch of
+``/top-conditioned-sample`` are fed the JAX server's Gumbel noise and must
+return the same codemaps, as must the dense and predictive samplers that
+``sampling_options`` select; ``/get-audio`` must decode the same audio (1e-4
+of its peak) and the same spectrogram (atol 1e-4)."""
 
 import io
 import json
+import zipfile
 
 import numpy as np
 import jax
@@ -176,3 +179,190 @@ def test_get_audio_matches_jax(servers):
     wav, sr = read_wav(io.BytesIO(response.body))
     assert sr == tstate.fs_hz and wav.shape[-1] == audio.shape[-1]
     assert np.isfinite(wav).all()
+
+
+def test_generate_matches_jax(servers):
+    """``/generate``: the unprimed batch-1 fused scan of the top prior, then
+    of the bottom prior under it, with the JAX server's noise."""
+    jsrv, jstate, tsrv, tstate = servers
+    cc = jstate.encode_conditioning(60, "keyboard")
+    keys = {"top": np.array([7, 1], np.uint32),
+            "bottom": np.array([7, 2], np.uint32)}
+    j_top = jstate.sample_fn("top", 1)(
+        keys["top"], 0.9, jnp.zeros((1,) + tuple(jstate.top.config.shape),
+                                    jnp.int32), None, None, cc, None, None)
+    j_bottom = jstate.sample_fn("bottom", 1)(
+        keys["bottom"], 0.9, j_top, None, None, cc, None, None)
+
+    def noise(which):
+        model = getattr(tstate, which)
+        p0, steps = scan_range(model, None, None)
+        return torch.as_tensor(jax_gumbel(
+            jnp.asarray(keys[which]), p0, steps,
+            model.config.n_class_target))
+    tstate.gumbel_source = noise
+    try:
+        data = json.loads(post(
+            tsrv, "/generate",
+            "pitch=60&instrument_family_str=keyboard&temperature=0.9",
+            {}).body)
+    finally:
+        tstate.gumbel_source = None
+    np.testing.assert_array_equal(np.asarray(data["top_code"]),
+                                  np.asarray(j_top)[0])
+    np.testing.assert_array_equal(np.asarray(data["bottom_code"]),
+                                  np.asarray(j_bottom)[0])
+    top_map, bottom_map = jsrv.conditioning_maps(jstate, 60, "keyboard")
+    assert data["top_conditioning"] == top_map
+    assert data["bottom_conditioning"] == bottom_map
+
+
+def test_test_generate(servers):
+    jsrv, jstate, tsrv, tstate = servers
+    data = json.loads(post(tsrv, "/test-generate",
+                           "pitch=64&instrument_family_str=organ", {}).body)
+    top = np.asarray(data["top_code"])
+    bottom = np.asarray(data["bottom_code"])
+    assert top.shape == tuple(tstate.top.config.shape)
+    assert bottom.shape == tuple(tstate.bottom.config.shape)
+    assert (top >= 0).all() and (top < tstate.vqvae.config.n_embed_t).all()
+    assert (bottom >= 0).all() \
+        and (bottom < tstate.vqvae.config.n_embed_b).all()
+    top_map, bottom_map = jsrv.conditioning_maps(jstate, 64, "organ")
+    assert data["top_conditioning"] == top_map
+    assert data["bottom_conditioning"] == bottom_map
+
+
+def test_top_conditioned_sample_pads_to_bucket_and_matches_jax(servers):
+    """A 3-pitch range runs at the padded batch bucket (16: the batched
+    step kernel's path) with one pitch per row, returns exactly 3 wavs named
+    per pitch, and samples the JAX server's codemaps under its noise.
+
+    The server samples in bfloat16, where a float32 sum taken in another
+    order can flip the rounding of an activation and, with it, a token
+    whose two best noisy logits lie within ~1e-3: over the 16 x 512 tokens
+    of this request a handful differ (the float32 samplers are held to
+    exact equality in ``test_torch_sampling.py``), so at most 0.5 % may."""
+    jsrv, jstate, tsrv, tstate = servers
+    assert tstate.pitch_batch_buckets == jstate.pitch_batch_buckets
+    bucket = tstate.pitch_batch_buckets[0]
+    body = payload(tstate, np.zeros(tstate.top.config.shape, bool))
+    top = np.asarray(body["top_code"], np.int32)[None]
+    pitches = [70, 71, 72]
+    padded = pitches + [72] * (bucket - 3)
+    cc = {"pitch": jnp.asarray(
+              jstate.label_encoders["pitch"].transform(padded)),
+          "instrument_family_str": jnp.asarray(
+              jstate.label_encoders["instrument_family_str"].transform(
+                  ["keyboard"] * bucket))}
+    key = np.array([9, 1], np.uint32)
+    condition = jnp.broadcast_to(top, (bucket,) + top.shape[1:])
+    j_bottom = np.asarray(jstate.sample_fn("bottom", bucket)(
+        key, 1.0, condition, None, None, cc, None, None))
+
+    model = tstate.bottom
+    p0, steps = scan_range(model, None, None)
+    keys = jax.random.split(jnp.asarray(key), steps)[p0:]
+    noise = torch.as_tensor(np.array(jax.vmap(lambda k: jax.random.gumbel(
+        k, (bucket, model.config.n_class_target)))(keys)))
+    sampled = []
+    real_sample = tstate._sample
+
+    def recording_sample(which, generator, batch_size, *args):
+        out = real_sample(which, generator, batch_size, *args)
+        sampled.append((which, batch_size, out))
+        return out
+    tstate._sample = recording_sample
+    tstate.gumbel_source = lambda which: noise
+    try:
+        response = post(
+            tsrv, "/top-conditioned-sample",
+            "instrument_family_str=keyboard&min_pitch=70&max_pitch=73"
+            "&temperature=1.0", body)
+    finally:
+        tstate.gumbel_source = None
+        del tstate._sample
+    assert response.content_type == "application/zip"
+    [(which, batch_size, t_bottom)] = sampled
+    assert (which, batch_size) == ("bottom", bucket)
+    assert t_bottom.shape == j_bottom.shape
+    assert np.mean(t_bottom.numpy() != j_bottom) <= 0.005
+    assert not np.array_equal(j_bottom[0], j_bottom[1])
+    j_audio = np.asarray(jstate.decode_audio_fn()(
+        condition, jnp.asarray(t_bottom.numpy())))
+    with zipfile.ZipFile(io.BytesIO(response.body)) as zf:
+        assert zf.namelist() == [f"keyboard-{p}.wav" for p in pitches]
+        for row, name in enumerate(zf.namelist()):
+            wav, sr = read_wav(io.BytesIO(zf.read(name)))
+            assert sr == tstate.fs_hz
+            assert wav.shape[-1] == j_audio.shape[-1]
+            np.testing.assert_allclose(
+                wav.reshape(-1), j_audio[row],
+                atol=2e-4 * max(1.0, np.abs(j_audio).max()))
+
+
+@pytest.mark.parametrize("options,sampler", [
+    ({}, "_fused_scan_sample"),
+    ({"top_k": 4, "top_p": 0.0}, "_scan_sample"),
+    ({"top_k": 0, "top_p": 0.8}, "_scan_sample"),
+    ({"predictive": True}, "_predictive_sample")],
+    ids=["fused", "top_k", "top_p", "predictive"])
+def test_sampling_options_route_like_jax(servers, monkeypatch, caplog,
+                                         options, sampler):
+    """``sampling_options`` leave the fused kernels for the dense scan
+    (top-k / top-p) or the predictive sampler exactly where the JAX
+    server's ``_fused_ok`` does, and the served function inpaints through
+    that sampler. (Token equality with the JAX samplers is held in
+    float32 by ``test_torch_sampling.py``; the server samples in bfloat16,
+    where filtered logits tie within one rounding.)"""
+    from interactive_spectrogram_inpainting_tpu_torch.sampling import sample
+    jsrv, jstate, tsrv, tstate = servers
+    top_shape = tuple(tstate.top.config.shape)
+    rng = np.random.default_rng(11)
+    initial = rng.integers(0, 32, (1,) + top_shape).astype(np.int32)
+    mask = np.zeros(top_shape, bool)
+    mask[:, 2:4] = True
+    cc = tstate.encode_conditioning(60, "keyboard")
+    sf, su = tstate.mask_scan_bounds("top", mask)
+    calls = []
+    for name in ("_fused_scan_sample", "_scan_sample", "_predictive_sample"):
+        def spy(*args, _name=name, _fn=getattr(sample, name), **kwargs):
+            calls.append(_name)
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(sample, name, spy)
+    monkeypatch.setattr(jstate, "sampling_options", dict(options))
+    monkeypatch.setattr(tstate, "sampling_options", dict(options))
+    for which in ("top", "bottom"):
+        assert tstate._fused_ok(which) == jstate._fused_ok(which)
+    assert tstate._fused_ok("top") == (sampler == "_fused_scan_sample")
+    with caplog.at_level("INFO", logger="isi-server-torch"):
+        out = tstate.sample_fn("top", 1, sf, su)(
+            tstate.next_rng(), 1.0, initial, initial, mask[None], cc, None,
+            None).numpy()
+    assert calls == [sampler]
+    assert ("predictive sampling (top)" in caplog.text) == (
+        sampler == "_predictive_sample")
+    assert out.shape == (1,) + top_shape
+    assert (out >= 0).all() and (out < tstate.top.config.n_class).all()
+    np.testing.assert_array_equal(out[0][~mask], initial[0][~mask])
+    assert not np.array_equal(out[0][mask], initial[0][mask])
+
+
+def test_main_parses_sampling_flags(monkeypatch):
+    from interactive_spectrogram_inpainting_tpu_torch.serve import (
+        server as tsrv)
+    seen = {}
+    monkeypatch.setattr(
+        tsrv, "make_test_state",
+        lambda size, device, seed, sampling_options: seen.update(
+            size=size, device=device, options=sampling_options))
+    monkeypatch.setattr(tsrv.app, "run", lambda host, port: None)
+    old = tsrv.STATE
+    try:
+        tsrv.main(["--test_models", "tiny", "--device", "cpu",
+                   "--sampling_top_k", "5", "--sampling_top_p", "0.9",
+                   "--use_predictive_sampling"])
+    finally:
+        tsrv.STATE = old
+    assert seen == {"size": "tiny", "device": "cpu", "options": {
+        "top_k": 5, "top_p": 0.9, "predictive": True}}
