@@ -14,14 +14,20 @@ Phases, each failing the run with a nonzero exit:
    teacher-forced (mask all False: the final caches agree, the tokens are
    unchanged), greedy top prior in float32 (the token streams are equal),
    and bfloat16 with Gumbel noise (tokens in range, unmasked unchanged);
-4. decode-step: ``fused_decode_step`` at batch 2 (bottom and top prior) and
+4. vq-lookup: ``fused_vq_lookup`` against ``reference_vq_lookup`` at dim 64,
+   K 512 and N in {128, 512, 700, 65536}: ids equal on every row whose two
+   best scores differ by more than 1e-4, quantize equal to the codebook rows
+   bit for bit, counts exact, embed_sum within atol 1e-3 and rtol 1e-5 of
+   a float64 product, and a second call bit-identical to the first;
+5. decode-step: ``fused_decode_step`` at batch 2 (bottom and top prior) and
    ``fused_decode_step_batched`` at batch 16 (bottom prior) against their
    plain versions over 32 consecutive positions from a primed cache:
    teacher-forced caches in bfloat16 and float32, greedy float32 tokens
    equal; ``flash_decode_attention`` against ``reference_decode_attention``
    at batch 1 and 16 with ``pos`` in the first, a middle and the last
    chunk;
-5. server: the port's server with the full-width test models on the card,
+6. server: the port's server with the full-width test models on the card
+   (``use_pallas_lookup=True``: the encode runs the VQ lookup kernel),
    on localhost: three ``/timerange-change`` (``layer=top``, the last two
    of the four top columns masked, so both priors are primed), then three
    ``/get-audio`` (prefix-prime and decode-scan counters must grow); one
@@ -30,15 +36,26 @@ Phases, each failing the run with a nonzero exit:
    ``sample_model`` at batch 2 on the bottom prior (half mask, primed) and
    on the top prior (the small-batch step kernel), and the dense sampler
    with ``top_p=0.9, use_flash=True`` at batch 2 (the flash attention
-   kernel). Every path is driven with its kernels' counters set to 0 just
-   before and read just after; the first request of each kind is cold (it
-   builds the decode tables, plans the FFT and picks the convolution
+   kernel). Then the encode path: ``/analyze-audio`` with a 4 s and an 8 s
+   harmonic note made from a seed (codemap shapes; codes equal to those of
+   the same state with the lookup flag off), ``/erase`` on the returned
+   codes, ``/get-spectrogram-image`` (a PNG of the expected size),
+   ``/analyze-audio`` of the wav ``/get-audio`` returned; ``warmup`` and,
+   after it, a ``/timerange-change`` with scan bounds no request has had
+   beside a repeated one; the extraction of 256 four-second notes written
+   to a temporary NSynth-shaped directory (``extract_split`` at batch 128,
+   ``decode_back_sanity_check``) and ``/sample-from-dataset`` from the
+   store it wrote. Every path is driven with its kernels' counters set to 0
+   just before and read just after; the first request of each kind is cold
+   (it builds the decode tables, plans the FFT and picks the convolution
    algorithms);
-6. a ``{"kernels": [...]}`` line: each kernel's main-path launches, its
+7. a ``{"kernels": [...]}`` line: each kernel's main-path launches, its
    error against the plain version, its time and the plain version's time
-   on the main path's shapes, its bound on this card and, for the flash
-   attention, the time of ``F.scaled_dot_product_attention`` on the same
-   inputs.
+   on the main path's shapes, its bound on this card and, where PyTorch
+   has one, the library's time on the same inputs
+   (``F.scaled_dot_product_attention`` for the flash attention; for the VQ
+   lookup the dense path ``torch.matmul`` + ``argmin`` + ``F.embedding``,
+   a composition of calls that gives ids and quantize only).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -49,8 +66,10 @@ import argparse
 import io
 import json
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 import zipfile
@@ -59,6 +78,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "interactive_spectrogram_inpainting_tpu_torch"
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_OPS = 989e12       # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_OPS = 67e12         # H100 SXM float32 outside the tensor cores
 KERNEL_SOURCES = {
     "fused_prefix_prime": (
         f"{PKG}/ops/csrc/prefix_prime.cu",
@@ -75,9 +95,15 @@ KERNEL_SOURCES = {
     "flash_decode_attention": (
         f"{PKG}/ops/csrc/decode_attention.cu",
         "interactive_spectrogram_inpainting_tpu/ops/decode_attention.py:174"),
+    "fused_vq_lookup": (
+        f"{PKG}/ops/csrc/vq_lookup.cu",
+        "interactive_spectrogram_inpainting_tpu/ops/vq_lookup.py:94"),
 }
 STEPS_CHECKED = 32   # consecutive positions a step kernel is checked over
 STEPS_TIMED = 32     # captured steps (evenly spaced) a step kernel is timed on
+VQ_MARGIN = 1e-4     # codes are compared where the two best scores differ more
+EXTRACT_NOTES = 256  # notes the extraction phase encodes
+NOTE_SECONDS = 4.0   # one note: the full model's four top columns
 
 
 def fail(msg: str) -> None:
@@ -104,7 +130,8 @@ def setup():
 def full_priors(torch, device):
     from interactive_spectrogram_inpainting_tpu_torch.serve.server import (
         make_test_state)
-    return make_test_state("full", device=device, seed=0)
+    return make_test_state("full", device=device, seed=0,
+                           use_pallas_lookup=True)
 
 
 def request_codes(state, seed=0):
@@ -476,6 +503,63 @@ def phase_flash(torch, results):
                                        []).append(err)
 
 
+def vq_clear_rows(torch, flat, embed):
+    """Rows whose two best scores differ by more than VQ_MARGIN: a float32
+    sum taken in another order cannot change their code."""
+    scores = (embed * embed).sum(0)[None] - 2.0 * (flat @ embed)
+    best2 = torch.topk(scores, 2, dim=1, largest=False).values
+    return (best2[:, 1] - best2[:, 0]) > VQ_MARGIN
+
+
+def phase_vq(torch, results):
+    """fused_vq_lookup against reference_vq_lookup at the full model's
+    codebook shape and the main path's row counts (700: no tile divides
+    it)."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops.vq_lookup import (
+        fused_vq_lookup, reference_vq_lookup)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dim, n_embed = 64, 512
+    embed = torch.randn(dim, n_embed, generator=gen, device="cuda")
+    for n in (128, 512, 700, 65536):
+        flat = torch.randn(n, dim, generator=gen, device="cuda")
+        ids, quant, counts, esum = fused_vq_lookup(flat, embed)
+        again = fused_vq_lookup(flat, embed)
+        ids_p, quant_p, counts_p, esum_p = reference_vq_lookup(flat, embed)
+        torch.cuda.synchronize()
+        clear = vq_clear_rows(torch, flat, embed)
+        near = int((~clear).sum())
+        ids_ok = bool((ids[clear] == ids_p[clear]).all())
+        quant_ok = torch.equal(quant, embed.T[ids.long()])
+        counts_ok = torch.equal(counts, torch.bincount(
+            ids.long(), minlength=n_embed).float())
+        if near == 0:
+            counts_ok = counts_ok and torch.equal(counts, counts_p)
+        # the sums of the kernel's own codes: against the plain float32
+        # product, and both against a float64 product (a code that wins
+        # thousands of rows sums to thousands, where float32 rounds at 5e-4)
+        onehot = torch.nn.functional.one_hot(ids.long(), n_embed)
+        plain_sum = esum_p if torch.equal(ids, ids_p) else (
+            flat.T @ onehot.float())
+        exact = flat.double().T @ onehot.double()
+        err = max_err(esum, plain_sum)
+        err_exact = float((esum.double() - exact).abs().max())
+        plain_exact = float((plain_sum.double() - exact).abs().max())
+        sums_ok = torch.allclose(esum.double(), exact, atol=1e-3, rtol=1e-5)
+        repeat_ok = all(torch.equal(a, b) for a, b in zip(
+            (ids, quant, counts, esum), again))
+        log(f"vq_lookup N={n}: ids equal on rows above the margin {ids_ok} "
+            f"({near} rows within {VQ_MARGIN} of a tie), quantize bit-exact "
+            f"{quant_ok}, counts exact {counts_ok}, embed_sum max_abs_err "
+            f"{err:.3e} against the plain version, {err_exact:.3e} against "
+            f"float64 (plain: {plain_exact:.3e}; atol 1e-3, rtol 1e-5; "
+            f"largest sum {float(exact.abs().max()):.1f}, busiest code "
+            f"{int(counts.max())} rows), second call identical {repeat_ok}")
+        if not (ids_ok and quant_ok and counts_ok and sums_ok
+                and repeat_ok and near <= max(1, n // 1000)):
+            fail(f"fused_vq_lookup disagrees with the plain version at N={n}")
+        results.setdefault("fused_vq_lookup", []).append(err)
+
+
 def post(url, body):
     req = urllib.request.Request(
         url, data=json.dumps(body).encode(),
@@ -487,15 +571,54 @@ def post(url, body):
     return status, ctype, data, (time.perf_counter() - t0) * 1e3
 
 
+BOUNDARY = "chipsmoke1234boundary"
+
+
+def multipart_body(wav_bytes):
+    return (f"--{BOUNDARY}\r\n"
+            'Content-Disposition: form-data; name="audio"; '
+            'filename="upload.wav"\r\n'
+            "Content-Type: audio/wav\r\n\r\n").encode() \
+        + wav_bytes + f"\r\n--{BOUNDARY}--\r\n".encode()
+
+
+def post_wav(url, wav_bytes):
+    """POST a wav as the multipart upload the NOTONO UI sends."""
+    req = urllib.request.Request(
+        url, data=multipart_body(wav_bytes), method="POST", headers={
+            "Content-Type": f"multipart/form-data; boundary={BOUNDARY}"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        data = r.read()
+        status = r.status
+    return status, data, (time.perf_counter() - t0) * 1e3
+
+
+def harmonic_note(seed, seconds, fs_hz, pitch=57):
+    """A decaying harmonic note over a noise floor, float32 [n]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * fs_hz)) / fs_hz
+    f0 = 440.0 * 2.0 ** ((pitch - 69) / 12.0)
+    note = sum(a * np.sin(2 * np.pi * f0 * (h + 1) * t + p)
+               for h, (a, p) in enumerate(zip(
+                   [0.5, 0.25, 0.12, 0.06, 0.03], rng.uniform(0, 6.28, 5))))
+    envelope = np.exp(-1.5 * t) * np.minimum(1.0, t * 50.0)
+    return (note * envelope + 1e-3 * rng.standard_normal(t.shape[0])
+            ).astype(np.float32)
+
+
 def phase_server(torch, state, captured):
     import numpy as np
     from interactive_spectrogram_inpainting_tpu_torch.data.wav import read_wav
     from interactive_spectrogram_inpainting_tpu_torch.models.prior import (
         attention)
+    from interactive_spectrogram_inpainting_tpu_torch.models.vqvae import (
+        bottleneck)
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
         decode_attention as dat, decode_scan_kernel as dsk,
         decode_step_batched as dsb, decode_step_kernel as dst,
-        prefix_prime_kernel as ppk)
+        prefix_prime_kernel as ppk, vq_lookup as vql)
     from interactive_spectrogram_inpainting_tpu_torch.sampling import sample
     from interactive_spectrogram_inpainting_tpu_torch.serve import server
 
@@ -511,7 +634,8 @@ def phase_server(torch, state, captured):
         "fused_decode_scan": (sample, dsk.fused_decode_scan),
         "fused_decode_step": (sample, dst.fused_decode_step),
         "fused_decode_step_batched": (sample, dsb.fused_decode_step_batched),
-        "flash_decode_attention": (attention, dat.flash_decode_attention)}
+        "flash_decode_attention": (attention, dat.flash_decode_attention),
+        "fused_vq_lookup": (bottleneck, vql.fused_vq_lookup)}
     for name, (module, fn) in wrappers.items():
         setattr(module, name, capture(name, fn))
 
@@ -522,6 +646,19 @@ def phase_server(torch, state, captured):
     def read(*names):
         return {name: wrappers[name][1].launches for name in names}
 
+    # the handlers' own time (request parsed -> response built), beside the
+    # latency the client sees
+    handler_ms = {}
+    handle = server.app.handle
+
+    def timed_handle(request):
+        t0 = time.perf_counter()
+        response = handle(request)
+        handler_ms.setdefault(request.path, []).append(
+            round((time.perf_counter() - t0) * 1e3, 3))
+        return response
+
+    server.app.handle = timed_handle
     server.STATE = state
     http = server.app.run(host="127.0.0.1", port=0, background=True)
     base = f"http://127.0.0.1:{http.server_address[1]}"
@@ -564,9 +701,14 @@ def phase_server(torch, state, captured):
                 fail(f"/get-audio returned {status} {ctype}")
         launches.update(serve_generation(
             torch, state, base, reset, read, new_top, latencies))
+        launches.update(serve_encode(
+            torch, state, base, reset, read, wav_bytes, (query, body),
+            captured))
+        serve_extraction(torch, state, base, captured)
     finally:
         http.shutdown()
         http.server_close()
+        server.app.handle = handle
         for name, (module, fn) in wrappers.items():
             setattr(module, name, fn)
     audio, sr = read_wav(io.BytesIO(wav_bytes))
@@ -581,6 +723,8 @@ def phase_server(torch, state, captured):
         "get_audio": [round(x, 3) for x in latencies[3:6]],
         "generate": [round(x, 3) for x in latencies[6:7]],
         "top_conditioned_sample": [round(x, 3) for x in latencies[7:]]}))
+    log("handler ms, server side, in request order (warmup's included): "
+        + json.dumps(handler_ms))
     log(f"main-path launches: {json.dumps(launches)}")
     if min(launches.values()) <= 0:
         fail(f"a kernel of the main path was not launched: {launches}")
@@ -681,6 +825,319 @@ def serve_generation(torch, state, base, reset, read, top_code, latencies):
              f"{launches['flash_decode_attention']} attention calls "
              f"(expected {steps_b * n_layers}) or returned bad codes")
     return launches
+
+
+def check_codes(np, out, top_shape, bottom_shape, n_class, what):
+    top = np.asarray(out.get("top_code", []))
+    bottom = np.asarray(out.get("bottom_code", []))
+    if top.shape != tuple(top_shape) or bottom.shape != tuple(bottom_shape) \
+            or not ((top >= 0).all() and (top < n_class).all()
+                    and (bottom >= 0).all() and (bottom < n_class).all()):
+        fail(f"{what} returned codemaps {top.shape} / {bottom.shape} "
+             f"(expected {tuple(top_shape)} / {tuple(bottom_shape)}) or "
+             "out-of-range codes")
+    return top, bottom
+
+
+def serve_encode(torch, state, base, reset, read, played_wav, inpaint,
+                 captured):
+    """The encode path over HTTP: ``/analyze-audio`` (4 s, 8 s, and the wav
+    ``/get-audio`` returned), ``/erase``, ``/get-spectrogram-image``; then
+    ``warmup`` and a ``/timerange-change`` with new scan bounds beside a
+    repeated one. -> the launches of the VQ lookup kernel."""
+    import numpy as np
+    from interactive_spectrogram_inpainting_tpu_torch.data.wav import (
+        read_wav, write_wav)
+    from interactive_spectrogram_inpainting_tpu_torch.serve import server
+    cfg_t, cfg_b = state.top.config, state.bottom.config
+    n_class = state.vqvae.config.n_embed_t
+    query = "?pitch=57&instrument_family_str=keyboard"
+    latencies = {}
+
+    def timed(name, fn, n=3):
+        latencies[name] = []
+        for _ in range(n):
+            result = fn()
+            latencies[name].append(round(result[-1], 3))
+        return result
+
+    def flag_off_codes(wav_bytes, n_samples):
+        """The same upload through the same state with the lookup flag off
+        (the dense expression), plus the rows above the margin."""
+        decoded, _ = read_wav(io.BytesIO(wav_bytes))
+        audio = np.zeros((1, n_samples), np.float32)
+        audio[0, :min(n_samples, decoded.shape[-1])] = \
+            decoded[0][:n_samples]
+        vq = state.vqvae
+        with torch.no_grad():
+            spec = state.helper.to_spectrogram(
+                torch.as_tensor(audio, device=state.device))
+            enc_b = vq.enc_b(spec)
+            qt_in = vq.quantize_conv_t(vq.enc_t(enc_b))
+            qb_in = vq.quantize_conv_b(torch.cat(
+                [vq.dec_t(vq.quantize_t(qt_in)[0]), enc_b], dim=1))
+            clear = [vq_clear_rows(
+                torch, x.permute(0, 2, 3, 1).reshape(-1, level.dim),
+                level.embed).reshape(x.shape[2:]).cpu().numpy()
+                for x, level in ((qt_in, vq.quantize_t),
+                                 (qb_in, vq.quantize_b))]
+        for level in (vq.quantize_t, vq.quantize_b):
+            level.use_pallas_lookup = False
+        try:
+            id_t, id_b = state.analyze_fn()(audio)
+        finally:
+            for level in (vq.quantize_t, vq.quantize_b):
+                level.use_pallas_lookup = True
+        return id_t[0].cpu().numpy(), id_b[0].cpu().numpy(), clear
+
+    reset("fused_vq_lookup")
+    analyzed = {}
+    for scale in (1, 2):
+        seconds = scale * NOTE_SECONDS
+        buf = io.BytesIO()
+        write_wav(buf, harmonic_note(scale, seconds, state.fs_hz),
+                  state.fs_hz)
+        status, data, _ = timed(
+            f"analyze_audio_{seconds:g}s",
+            lambda: post_wav(base + "/analyze-audio" + query, buf.getvalue()))
+        if status != 200:
+            fail(f"/analyze-audio ({seconds:g} s) returned {status}")
+        analyzed[seconds] = check_codes(
+            np, json.loads(data), (cfg_t.shape[0], scale * cfg_t.shape[1]),
+            (cfg_b.shape[0], scale * cfg_b.shape[1]), n_class,
+            f"/analyze-audio ({seconds:g} s)") + (buf.getvalue(),)
+
+    top, bottom, _ = analyzed[NOTE_SECONDS]
+    erase_mask = np.zeros(cfg_t.shape, bool)
+    erase_mask[cfg_t.shape[0] // 4:3 * cfg_t.shape[0] // 4, 1:3] = True
+    status, _, data, _ = timed("erase", lambda: post(
+        base + "/erase?eraser_amplitude=0.5&start_index_top=0",
+        {"top_code": top.tolist(), "bottom_code": bottom.tolist(),
+         "mask": erase_mask.tolist()}))
+    if status != 200:
+        fail(f"/erase returned {status}")
+    erased_t, erased_b = check_codes(np, json.loads(data), top.shape,
+                                     bottom.shape, n_class, "/erase")
+    log(f"/erase: {int((erased_t != top).sum())} top and "
+        f"{int((erased_b != bottom).sum())} bottom codes changed")
+    if np.array_equal(erased_b, bottom):
+        fail("/erase changed nothing")
+
+    status, ctype, png, _ = timed("get_spectrogram_image", lambda: post(
+        base + "/get-spectrogram-image",
+        {"top_code": top.tolist(), "bottom_code": bottom.tolist()}))
+    f = state.vqvae.config.total_resolution_factor
+    size = struct.unpack(">II", png[16:24]) if len(png) > 24 else None
+    expected = (cfg_t.shape[1] * f * state.spectrograms_upsampling_factor,
+                cfg_t.shape[0] * f)
+    if status != 200 or ctype != "image/png" \
+            or png[:8] != b"\x89PNG\r\n\x1a\n" or size != expected:
+        fail(f"/get-spectrogram-image returned {status} {ctype}, size "
+             f"{size} (expected {expected})")
+
+    status, data, ms = post_wav(base + "/analyze-audio" + query, played_wav)
+    if status != 200:
+        fail(f"/analyze-audio of the played wav returned {status}")
+    check_codes(np, json.loads(data), cfg_t.shape, cfg_b.shape, n_class,
+                "/analyze-audio of the played wav")
+    latencies["analyze_audio_played_wav"] = [round(ms, 3)]
+    launches = read("fused_vq_lookup")
+    # what follows is held against the main path, not part of it: its
+    # kernel calls are neither counted nor kept for timing
+    kept = {name: len(calls) for name, calls in captured.items()}
+
+    for seconds, (top, bottom, wav_bytes) in analyzed.items():
+        ref_t, ref_b, (clear_t, clear_b) = flag_off_codes(
+            wav_bytes, state.snap_analyze_duration(
+                int(seconds * state.fs_hz)))
+        near = int((~clear_t).sum() + (~clear_b).sum())
+        differ = int((top != ref_t)[clear_t].sum()
+                     + (bottom != ref_b)[clear_b].sum())
+        log(f"/analyze-audio {seconds:g} s: codemaps {top.shape} / "
+            f"{bottom.shape}; against the flag-off encode {differ} codes "
+            f"differ on rows above the margin ({near} rows within "
+            f"{VQ_MARGIN} of a tie), {len(np.unique(bottom))} distinct "
+            "bottom codes")
+        if differ:
+            fail("/analyze-audio: the kernel's codes differ from the dense "
+                 "lookup's")
+
+    log("/analyze-audio split ms (one warm 4 s upload, in process): "
+        + json.dumps(analyze_split(torch, state, analyzed[NOTE_SECONDS][2])))
+
+    # warmup, then: does a request with scan bounds nobody has had cost more
+    # than its own repetition? (bounds are arguments of the kernels)
+    t0 = time.perf_counter()
+    n_warm = server.warmup(state)
+    warm_s = time.perf_counter() - t0
+    path, body = inpaint
+    middle = np.zeros(cfg_t.shape, bool)
+    middle[:, 1:3] = True
+    new_body = dict(body, mask=middle.tolist())
+    ratio = (cfg_b.shape[0] // cfg_t.shape[0], cfg_b.shape[1] // cfg_t.shape[1])
+    bounds = {
+        "repeated": [state.mask_scan_bounds("top", np.asarray(body["mask"])),
+                     state.mask_scan_bounds("bottom", np.repeat(np.repeat(
+                         np.asarray(body["mask"]), ratio[0], 0),
+                         ratio[1], 1))],
+        "new": [state.mask_scan_bounds("top", middle),
+                state.mask_scan_bounds("bottom", np.repeat(np.repeat(
+                    middle, ratio[0], 0), ratio[1], 1))]}
+    # ... and an upload length that only warmup has sent (the 5.12 s bucket)
+    late = io.BytesIO()
+    write_wav(late, harmonic_note(5, 1.25 * NOTE_SECONDS, state.fs_hz),
+              state.fs_hz)
+    timed("analyze_audio_new_bucket_after_warmup",
+          lambda: post_wav(base + "/analyze-audio" + query, late.getvalue()))
+    timed("timerange_change_new_bounds",
+          lambda: post(base + path, new_body), n=3)
+    timed("timerange_change_repeated", lambda: post(base + path, body), n=3)
+    log(f"warmup: {n_warm} requests in {warm_s:.2f} s; scan bounds "
+        f"{json.dumps(bounds)}")
+    log("encode latency ms (first request cold, before warmup, for all but "
+        "the last three rows): " + json.dumps(latencies))
+    for name, n in kept.items():
+        del captured[name][n:]
+    return launches
+
+
+def analyze_split(torch, state, wav_bytes):
+    """ms of each stage of one warm ``/analyze-audio``, run in this process
+    in the handler's order, each stage ended by a synchronize (the second of
+    two passes is kept)."""
+    import numpy as np
+    from interactive_spectrogram_inpainting_tpu_torch.data.wav import read_wav
+    from interactive_spectrogram_inpainting_tpu_torch.serve import server
+    from interactive_spectrogram_inpainting_tpu_torch.serve.http_app import (
+        Request)
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = round((time.perf_counter() - t0) * 1e3, 3)
+        return out
+
+    def parse():
+        request = Request.synthetic("/analyze-audio", "",
+                                    multipart_body(wav_bytes))
+        request._parse_multipart(
+            f"multipart/form-data; boundary={BOUNDARY}")
+        return request.files["audio"]
+
+    def pad(upload):
+        audio, _ = read_wav(upload)
+        n = state.snap_analyze_duration(audio.shape[-1])
+        out = np.zeros((1, n), np.float32)
+        out[0, :min(n, audio.shape[-1])] = audio[0][:n]
+        return out
+
+    for _ in range(2):
+        upload = stage("multipart_parse", parse)
+        audio = stage("read_wav_snap_pad", lambda: pad(upload))
+        with torch.no_grad():
+            on_card = stage("to_device", lambda: torch.as_tensor(
+                audio, device=state.device))
+            spec = stage("to_spectrogram",
+                         lambda: state.helper.to_spectrogram(on_card))
+            codes = stage("vqvae_encode",
+                          lambda: state.vqvae.encode_codes_only(spec))
+        stage("to_host_json", lambda: server.make_response(
+            codes[0], codes[1],
+            *server.conditioning_maps(state, 57, "keyboard")))
+    stages["sum"] = round(sum(stages.values()), 3)
+    return stages
+
+
+def serve_extraction(torch, state, base, captured):
+    """EXTRACT_NOTES notes of NOTE_SECONDS written as an NSynth-shaped
+    directory, encoded by ``extract_split`` at batch 128, decoded back, and
+    served by ``/sample-from-dataset``."""
+    import numpy as np
+    from interactive_spectrogram_inpainting_tpu_torch.data.lmdb_compat import (
+        open_codes_dataset)
+    from interactive_spectrogram_inpainting_tpu_torch.data.nsynth import NSynth
+    from interactive_spectrogram_inpainting_tpu_torch.data.wav import (
+        read_wav, write_wav)
+    from interactive_spectrogram_inpainting_tpu_torch.extract.extract_codes \
+        import decode_back_sanity_check, extract_split
+    families = ["bass", "flute", "keyboard", "organ"]
+    cfg_t, cfg_b = state.top.config, state.bottom.config
+    with tempfile.TemporaryDirectory() as tmp:
+        os.mkdir(os.path.join(tmp, "audio"))
+        t0 = time.perf_counter()
+        meta = {}
+        for i in range(EXTRACT_NOTES):
+            pitch = 36 + i % 48
+            name = f"{families[i % 4]}_synthetic_{i:03d}-{pitch:03d}-100"
+            write_wav(os.path.join(tmp, "audio", f"{name}.wav"),
+                      harmonic_note(100 + i, NOTE_SECONDS, state.fs_hz,
+                                    pitch),
+                      state.fs_hz)
+            meta[name] = {"pitch": pitch, "note_str": name,
+                          "instrument_family_str": families[i % 4]}
+        with open(os.path.join(tmp, "examples.json"), "w") as f:
+            json.dump(meta, f)
+        write_s = time.perf_counter() - t0
+        dataset = NSynth(tmp, os.path.join(tmp, "examples.json"),
+                         categorical_field_list=["pitch",
+                                                 "instrument_family_str"],
+                         duration_seconds=NOTE_SECONDS)
+        store = os.path.join(tmp, "codes")
+        before = len(captured.get("fused_vq_lookup", []))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count = extract_split(state.vqvae, state.helper, dataset, store,
+                              batch_size=128, device=state.device)
+        torch.cuda.synchronize()
+        extract_s = time.perf_counter() - t0
+        rows = [call[0][0].shape[0]
+                for call in captured["fused_vq_lookup"][before:]]
+        cells = [cfg_t.shape[0] * cfg_t.shape[1],
+                 cfg_b.shape[0] * cfg_b.shape[1]]
+        if count != EXTRACT_NOTES or sorted(set(rows)) != sorted(
+                cells + [128 * c for c in cells]):
+            fail(f"extract_split wrote {count} records through lookups of "
+                 f"{sorted(set(rows))} rows")
+        wav_path = os.path.join(tmp, "back.wav")
+        decode_back_sanity_check(state.vqvae, state.helper, store, wav_path,
+                                 audio_samples=dataset.num_samples,
+                                 device=state.device)
+        audio, sr = read_wav(wav_path)
+        if sr != state.fs_hz or audio.shape[-1] != 4 * dataset.num_samples \
+                or not np.isfinite(audio).all():
+            fail(f"decode_back_sanity_check wrote {audio.shape} at {sr} Hz")
+        codes = open_codes_dataset(store)
+        tops, bottoms, attrs = codes.read_batch(range(len(codes)))
+        if tops.shape != (EXTRACT_NOTES,) + tuple(cfg_t.shape) \
+                or bottoms.shape != (EXTRACT_NOTES,) + tuple(cfg_b.shape) \
+                or tops.min() < 0 or tops.max() >= cfg_t.n_class:
+            fail(f"the store holds codemaps {tops.shape} / {bottoms.shape}")
+        log(f"extraction: {count} notes in {extract_s:.3f} s = "
+            f"{count / extract_s:.1f} notes/s at batch 128 (wav files read "
+            f"on the host included; writing them took {write_s:.2f} s), "
+            f"{len(np.unique(bottoms))} distinct bottom codes")
+        served_encoders = state.label_encoders
+        state.codes_dataset = codes
+        state.label_encoders = dict(codes.label_encoders)
+        try:
+            status, _, data, ms = post(
+                base + "/sample-from-dataset?pitch=40"
+                "&instrument_family_str=bass", {})
+            out = json.loads(data) if status == 200 else {}
+            top, _ = check_codes(np, out, cfg_t.shape, cfg_b.shape,
+                                 cfg_t.n_class, "/sample-from-dataset")
+            stored = [i for i in range(len(codes))
+                      if np.array_equal(tops[i], top)]
+            if not stored or out["top_conditioning"]["pitch"][0][0] != 40:
+                fail("/sample-from-dataset returned a codemap the store "
+                     "does not hold, or the wrong pitch")
+            log(f"/sample-from-dataset: record {stored[0]} in {ms:.1f} ms")
+        finally:
+            state.codes_dataset = None
+            state.label_encoders = served_encoders
 
 
 def time_calls(torch, fn, calls, reps):
@@ -837,6 +1294,26 @@ def sdpa_decode_attention(q, k_cache, v_cache, pos, bias_row):
         v_cache[:, :n].transpose(1, 2), attn_mask=mask)[:, :, 0]
 
 
+def vq_bound(args, kwargs):
+    """(bytes, ops) one VQ lookup needs: flat and embed read once, the four
+    outputs written once; the one product, 2 N dim K."""
+    flat, embed = args
+    n, dim = flat.shape
+    k = embed.shape[1]
+    return 4 * (2 * n * dim + 2 * dim * k + n + k), 2 * n * dim * k
+
+
+def dense_vq_lookup(flat, embed):
+    """ids and quantize (not the statistics) as the dense path computes
+    them: a composition of library calls, timed as ``library_ms``; the port
+    never calls it where the kernel serves."""
+    import torch
+    import torch.nn.functional as F
+    scores = (embed * embed).sum(0)[None] - 2.0 * torch.matmul(flat, embed)
+    ids = torch.argmin(scores, dim=1)
+    return ids, F.embedding(ids, embed.T)
+
+
 def spaced(calls, n):
     """``n`` calls evenly spaced over ``calls`` (all when there are fewer)."""
     if len(calls) <= n:
@@ -848,7 +1325,7 @@ def phase_kernels(torch, card, captured, launches, errors, state):
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
         decode_attention as dat, decode_scan_kernel as dsk,
         decode_step_batched as dsb, decode_step_kernel as dst,
-        prefix_prime_kernel as ppk)
+        prefix_prime_kernel as ppk, vq_lookup as vql)
     cfg_b = state.bottom.config
     steps_b = cfg_b.target_sequence_length + cfg_b.target_num_channels - 1
     kernels = []
@@ -857,7 +1334,16 @@ def phase_kernels(torch, card, captured, launches, errors, state):
     # kernel. Step kernels: STEPS_TIMED steps evenly spaced over one
     # /top-conditioned-sample generation (batched) and over the two batch-2
     # sample_model calls. Flash attention: 64 calls evenly spaced over the
-    # dense sample_model call.
+    # dense sample_model call. VQ lookup: the two lookups of one 4 s
+    # /analyze-audio (N = 128, 512) and of one extraction batch (N = 16384,
+    # 65536); it is float32 on CUDA cores, so its operations are held
+    # against the float32 non-tensor peak.
+    vq_calls = captured["fused_vq_lookup"]
+    vq_timed = vq_calls[:2] + [
+        next(call for call in vq_calls if call[0][0].shape[0] == rows)
+        for rows in (128 * state.top.config.shape[0]
+                     * state.top.config.shape[1],
+                     128 * cfg_b.shape[0] * cfg_b.shape[1])]
     for name, fn, plain, bound, calls, library in (
             ("fused_prefix_prime", ppk.fused_prefix_prime,
              ppk.prefix_prime_plain, prime_bound,
@@ -875,13 +1361,16 @@ def phase_kernels(torch, card, captured, launches, errors, state):
             ("flash_decode_attention", dat.flash_decode_attention,
              dat.reference_decode_attention, flash_bound,
              spaced(captured["flash_decode_attention"], 64),
-             sdpa_decode_attention)):
+             sdpa_decode_attention),
+            ("fused_vq_lookup", vql.fused_vq_lookup, vql.reference_vq_lookup,
+             vq_bound, vq_timed, dense_vq_lookup)):
         ms = time_calls(torch, fn, calls, reps=10)
         plain_ms = time_calls(torch, plain, calls, reps=1)
         bounds = [bound(*call) for call in calls]
         b = sum(x[0] for x in bounds)
         ops = sum(x[1] for x in bounds)
-        t_bytes, t_ops = b / PEAK_BYTES_PER_S * 1e3, ops / PEAK_BF16_OPS * 1e3
+        peak_ops = PEAK_F32_OPS if name == "fused_vq_lookup" else PEAK_BF16_OPS
+        t_bytes, t_ops = b / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
         detail[name] = {"calls_timed": len(calls), "bytes": b, "ops": ops,
                         "host_enqueue_ms": round(host_ms(torch, fn, calls),
                                                  4)}
@@ -905,6 +1394,16 @@ def phase_kernels(torch, card, captured, launches, errors, state):
                 / PEAK_BYTES_PER_S * 1e3, 4)
         if name == "fused_decode_step":
             detail[name]["positions"] = [call[0][7] for call in calls]
+        if name == "fused_vq_lookup":
+            detail[name]["rows"] = [call[0][0].shape[0] for call in calls]
+            for key, f in (("per_call_ms", fn), ("per_call_plain_ms", plain),
+                           ("per_call_dense_ms", library)):
+                detail[name][key] = [
+                    round(time_calls(torch, f, [call], reps=10), 4)
+                    for call in calls]
+            detail[name]["per_call_bound_ms"] = [
+                round(max(x[0] / PEAK_BYTES_PER_S, x[1] / peak_ops) * 1e3, 6)
+                for x in bounds]
         source, replaces = KERNEL_SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -934,6 +1433,7 @@ def main():
     phase_scan(torch, state, errors)
     phase_step(torch, state, errors)
     phase_flash(torch, errors)
+    phase_vq(torch, errors)
     captured = {}
     launches = phase_server(torch, state, captured)
     phase_kernels(torch, card, captured, launches, errors, state)

@@ -3,14 +3,16 @@
 The port's copy of ``LabelEncoder`` from
 ``interactive_spectrogram_inpainting_tpu/data/label_encoders.py``: each
 conditioning modality (``pitch``, ``instrument_family_str``, ...) maps
-class values to contiguous integer indices, as sklearn's ``classes_``.
-Reading and writing ``label_encoders.json`` waits with the checkpoint
-loader.
+class values to contiguous integer indices, as sklearn's ``classes_``; the
+full mapping set is dumped to and read from ``label_encoders.json`` (one
+class list per modality).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Sequence
+import json
+import pathlib
+from typing import Dict, Iterable, List, Mapping, Sequence, Union
 
 import numpy as np
 
@@ -46,3 +48,17 @@ class LabelEncoder:
     def __len__(self) -> int:
         return len(self.classes_)
 
+
+def dump_label_encoders(label_encoders: Mapping[str, LabelEncoder],
+                        path: Union[str, pathlib.Path]) -> None:
+    payload = {name: list(encoder.classes_)
+               for name, encoder in label_encoders.items()}
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=4)
+
+
+def load_label_encoders(path: Union[str, pathlib.Path]
+                        ) -> Dict[str, LabelEncoder]:
+    with open(path) as f:
+        payload = json.load(f)
+    return {name: LabelEncoder(classes) for name, classes in payload.items()}

@@ -117,3 +117,32 @@ def write_wav(path_or_buf, audio: np.ndarray, sample_rate: int,
         with open(path_or_buf, "wb") as f:
             f.write(header + payload)
 
+
+def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Band-limited polyphase resampling (windowed-sinc), last-axis."""
+    if orig_sr == target_sr:
+        return audio
+    from math import gcd
+
+    g = gcd(orig_sr, target_sr)
+    up, down = target_sr // g, orig_sr // g
+    # windowed-sinc lowpass at min(orig, target) Nyquist
+    max_rate = max(up, down)
+    half_width = 32
+    taps = 2 * half_width * max_rate + 1
+    cutoff = 0.5 / max_rate
+    t = np.arange(taps, dtype=np.float64) - (taps - 1) / 2
+    h = 2 * cutoff * np.sinc(2 * cutoff * t)
+    h *= np.kaiser(taps, beta=8.0)
+    h *= up / h.sum() / 1.0
+    # upsample (zero-stuff), filter, downsample
+    orig_shape = audio.shape
+    x = audio.reshape(-1, orig_shape[-1]).astype(np.float64)
+    n_out = int(np.ceil(orig_shape[-1] * up / down))
+    out = np.empty((x.shape[0], n_out), dtype=np.float32)
+    for row in range(x.shape[0]):
+        up_x = np.zeros(orig_shape[-1] * up)
+        up_x[::up] = x[row]
+        y = np.convolve(up_x, h, mode="same")
+        out[row] = y[::down][:n_out].astype(np.float32)
+    return out.reshape(orig_shape[:-1] + (n_out,))

@@ -1,12 +1,15 @@
-"""Transposed-conv decoder stacks of the VQ-VAE-2 (decode side).
+"""Strided-conv encoder and transposed-conv decoder stacks of the VQ-VAE-2.
 
-Port of the decode side of
+Port of
 ``interactive_spectrogram_inpainting_tpu/models/vqvae/encoder_decoder.py``
-(``ResBlock``, ``Decoder``, ``UpsampleStack``): the same channel schedules
-per ``resolution_factor`` in {2, 4, 8, 16}, overlapping (kernel = 2 *
-stride) or local (kernel = stride) upsampling kernels, grouped convs and
-ReLU-Conv3x3-ReLU-Conv1x1 residual blocks. Tensors are NCHW. The encoder
-is not ported yet.
+(``ResBlock``, ``Encoder``, ``Decoder``, ``UpsampleStack``): the same
+channel schedules per ``resolution_factor`` in {2, 4, 8, 16}, overlapping
+(kernel = 2 * stride) or local (kernel = stride) down- and upsampling
+kernels, grouped convs and ReLU-Conv3x3-ReLU-Conv1x1 residual blocks.
+Tensors are NCHW.
+
+flax's ``Conv(kernel 2s, stride s, padding=1)`` pads both sides by 1, as
+PyTorch's ``Conv2d(kernel 2s, stride s, padding=1)`` does.
 
 flax's ``ConvTranspose(kernel 2s, stride s, padding='SAME')`` is PyTorch's
 ``ConvTranspose2d(kernel 2s, stride s, padding s // 2)`` with the kernel
@@ -59,6 +62,39 @@ def _conv_transpose(in_ch: int, out_ch: int, use_local_kernels: bool
     padding = 0 if use_local_kernels else stride // 2
     return nn.ConvTranspose2d(in_ch, out_ch, kernel, stride=stride,
                               padding=padding)
+
+
+class Encoder(nn.Module):
+    """Downsample by ``resolution_factor`` with stride-2 convs, then a 3x3
+    conv, the res blocks and a final ReLU."""
+
+    def __init__(self, in_channel: int, channel: int, n_res_block: int,
+                 res_channel: int, resolution_factor: int, groups: int = 1,
+                 use_local_kernels: bool = False):
+        super().__init__()
+        stride = 2
+        kernel = stride if use_local_kernels else 2 * stride
+        padding = 0 if use_local_kernels else 1
+        schedule = tuple(_down_channel_schedule(channel, resolution_factor))
+        ins = (in_channel,) + schedule[:-1]
+        self.downsample = nn.ModuleList([
+            nn.Conv2d(i, o, kernel, stride=stride, padding=padding,
+                      groups=groups)
+            for i, o in zip(ins, schedule)])
+        self.conv_out = nn.Conv2d(schedule[-1], channel, 3, padding=1,
+                                  groups=groups)
+        self.res_blocks = nn.ModuleList([
+            ResBlock(channel, res_channel, groups)
+            for _ in range(n_res_block)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for layer in self.downsample:
+            h = F.relu(layer(h))
+        h = self.conv_out(h)
+        for block in self.res_blocks:
+            h = block(h)
+        return F.relu(h)
 
 
 class Decoder(nn.Module):

@@ -1,12 +1,13 @@
-"""Two-level hierarchical VQ-VAE-2 (top/bottom codemaps), decode side.
+"""Two-level hierarchical VQ-VAE-2 (top/bottom codemaps).
 
-Port of the decode path of
-``interactive_spectrogram_inpainting_tpu/models/vqvae/vqvae.py``: the top
-quantized map is upsampled to the bottom resolution, concatenated with the
-bottom quantized map and decoded to a ``[B, C, F, T]`` spectrogram, then
-post-processed (denormalized, optionally phase-masked). ``VQVAEConfig``
-reads and writes the JAX package's JSON keys. The encoder, the codebook
-lookup and training are not ported yet.
+Port of ``interactive_spectrogram_inpainting_tpu/models/vqvae/vqvae.py``.
+Encode: ``enc_b -> enc_t -> 1x1 -> quantize_t -> dec_t -> concat(enc_b) ->
+1x1 -> quantize_b``. Decode: the top quantized map is upsampled to the
+bottom resolution, concatenated with the bottom quantized map and decoded to
+a ``[B, C, F, T]`` spectrogram, then post-processed (denormalized,
+optionally phase-masked). All tensors are channel-first. ``VQVAEConfig``
+reads and writes the JAX package's JSON keys; saving and loading the
+two-file checkpoints is in ``utils/checkpoint_io.py``.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ from torch import nn
 
 from ...signal.normalizer import DataNormalizer
 from ...signal.spectrogram import make_masked_phase_transform
-from .bottleneck import QuantizedBottleneck
-from .encoder_decoder import Decoder, UpsampleStack
+from .bottleneck import QuantizedBottleneck, UnquantizedBottleneck
+from .encoder_decoder import Decoder, Encoder, UpsampleStack
 
 
 def _log2_int(x: int) -> int:
@@ -95,33 +96,93 @@ class VQVAEConfig:
 
 
 class VQVAE(nn.Module):
-    """Decode side: ``decode_code(code_t, code_b)`` and ``decode``."""
+    """``forward`` is the training path; ``encode``, ``encode_codes_only``,
+    ``decode`` and ``decode_code`` are the serving and extraction paths."""
 
     def __init__(self, config: VQVAEConfig):
         super().__init__()
         cfg = self.config = config
-        if cfg.use_resnet or cfg.disable_quantization:
+        if cfg.use_resnet:
             raise NotImplementedError(
-                "the ResNet decoders and the unquantized ablation are not "
+                "the ResNet encoders and decoders (use_resnet) are not "
                 "ported")
-        self.quantize_t = QuantizedBottleneck(
-            cfg.embed_dim, cfg.n_embed_t, cfg.embeddings_initial_variance)
-        self.quantize_b = QuantizedBottleneck(
-            cfg.embed_dim, cfg.n_embed_b, cfg.embeddings_initial_variance)
-        self.upsample_top_to_bottom = UpsampleStack(
-            cfg.embed_dim, _log2_int(int(cfg.resolution_factors["top"])),
-            use_local_kernels=cfg.use_local_kernels)
-        self.dec = Decoder(
-            in_channel=2 * cfg.embed_dim, out_channel=cfg.in_channel,
+        bottleneck_cls = (UnquantizedBottleneck if cfg.disable_quantization
+                          else QuantizedBottleneck)
+        bottleneck_kwargs = dict(
+            dim=cfg.embed_dim, decay=cfg.decay,
+            embeddings_initial_variance=cfg.embeddings_initial_variance,
+            restart_threshold=cfg.restarts_usage_threshold,
+            use_pallas_lookup=cfg.use_pallas_lookup)
+        corruption = dict(cfg.corruption_weights or {})
+        stack_kwargs = dict(
             channel=cfg.num_hidden_channels, n_res_block=cfg.n_res_block,
-            res_channel=cfg.num_residual_channels,
-            resolution_factor=int(cfg.resolution_factors["bottom"]),
-            groups=cfg.groups, use_local_kernels=cfg.use_local_kernels)
+            res_channel=cfg.num_residual_channels, groups=cfg.groups,
+            use_local_kernels=cfg.use_local_kernels)
+        factor_b = int(cfg.resolution_factors["bottom"])
+        factor_t = int(cfg.resolution_factors["top"])
+
+        self.enc_b = Encoder(in_channel=cfg.in_channel,
+                             resolution_factor=factor_b, **stack_kwargs)
+        self.enc_t = Encoder(in_channel=cfg.num_hidden_channels,
+                             resolution_factor=factor_t, **stack_kwargs)
+        self.quantize_conv_t = nn.Conv2d(cfg.num_hidden_channels,
+                                         cfg.embed_dim, 1)
+        self.quantize_t = bottleneck_cls(
+            n_embed=cfg.n_embed_t,
+            corruption_weights=corruption.get("top"), **bottleneck_kwargs)
+        self.dec_t = Decoder(in_channel=cfg.embed_dim,
+                             out_channel=cfg.embed_dim,
+                             resolution_factor=factor_t, **stack_kwargs)
+        self.quantize_conv_b = nn.Conv2d(
+            cfg.embed_dim + cfg.num_hidden_channels, cfg.embed_dim, 1)
+        self.quantize_b = bottleneck_cls(
+            n_embed=cfg.n_embed_b,
+            corruption_weights=corruption.get("bottom"), **bottleneck_kwargs)
+        self.upsample_top_to_bottom = UpsampleStack(
+            cfg.embed_dim, _log2_int(factor_t),
+            use_local_kernels=cfg.use_local_kernels)
+        self.dec = Decoder(in_channel=2 * cfg.embed_dim,
+                           out_channel=cfg.in_channel,
+                           resolution_factor=factor_b, **stack_kwargs)
         self.normalizer = (DataNormalizer(cfg.normalizer_statistics)
                            if cfg.normalizer_statistics else None)
         self.output_transform = (
             make_masked_phase_transform(cfg.output_spectrogram_min_magnitude)
             if cfg.output_spectrogram_min_magnitude is not None else None)
+
+    def forward(self, input: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """[B, C, F, T] -> (dec, diff, perplexity_t, perplexity_b, id_t,
+        id_b)."""
+        (quant_t, quant_b, diff, id_t, id_b,
+         perplexity_t, perplexity_b) = self.encode(input, train=train,
+                                                   generator=generator)
+        dec = self.decode(quant_t, quant_b)
+        return dec, diff, perplexity_t, perplexity_b, id_t, id_b
+
+    def encode(self, input: torch.Tensor, train: bool = False,
+               generator: Optional[torch.Generator] = None):
+        """[B, C, F, T] -> (quant_t, quant_b, diff, id_t, id_b, perp_t,
+        perp_b); quantized maps [B, D, f, t]. ``generator`` feeds the
+        bottlenecks' training-time draws (corruption, restarts)."""
+        if self.normalizer is not None:
+            input = self.normalizer.normalize(input)
+        enc_b = self.enc_b(input)
+        enc_t = self.enc_t(enc_b)
+        quant_t, diff_t, id_t, perplexity_t = self.quantize_t(
+            self.quantize_conv_t(enc_t), train=train, generator=generator)
+        dec_t = self.dec_t(quant_t)
+        qb_in = self.quantize_conv_b(torch.cat([dec_t, enc_b], dim=1))
+        quant_b, diff_b, id_b, perplexity_b = self.quantize_b(
+            qb_in, train=train, generator=generator)
+        return (quant_t, quant_b, diff_t + diff_b, id_t, id_b,
+                perplexity_t, perplexity_b)
+
+    def encode_codes_only(self, input: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[B, C, F, T] -> (id_t, id_b): the extraction hot path."""
+        _, _, _, id_t, id_b, _, _ = self.encode(input, train=False)
+        return id_t, id_b
 
     def decode(self, quant_t: torch.Tensor, quant_b: torch.Tensor
                ) -> torch.Tensor:

@@ -5,9 +5,13 @@ Neither is available in this environment and neither is necessary: this
 module provides the small subset the NOTONO endpoints need — route
 registration with multiple methods, query args, JSON bodies, multipart
 file uploads, binary file responses, CORS headers, threaded serving —
-on ``http.server.ThreadingHTTPServer`` (one OS thread per request; model
-inference itself is serialized by the server state's lock, matching the
-reference's effective concurrency under ``@torch.no_grad``).
+on ``http.server.ThreadingHTTPServer``: one OS thread per connection reads
+the request and writes the response, and one long-lived worker thread runs
+every handler (``App.dispatch``). Model inference is serialized by the
+server state's lock anyway, and the CUDA libraries keep per-thread state
+(handles, convolution plans) that a fresh thread per request would build
+anew each time; a warmup must go through ``dispatch`` too, to warm the
+thread that serves.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import email.policy
 import json
 import threading
 import urllib.parse
+from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
@@ -95,6 +100,8 @@ class App:
         self.name = name
         self.routes: Dict[str, Tuple[Callable, Tuple[str, ...]]] = {}
         self.logger = None
+        self._worker: Optional[ThreadPoolExecutor] = None
+        self._worker_lock = threading.Lock()
 
     def route(self, path: str, methods=("GET",)):
         def decorator(fn):
@@ -123,6 +130,15 @@ class App:
             return result
         return jsonify(result)
 
+    def dispatch(self, request: Request) -> Response:
+        """``handle`` on the app's one handler thread (started at first
+        use, kept for the life of the process)."""
+        with self._worker_lock:
+            if self._worker is None:
+                self._worker = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix=f"{self.name}-handler")
+        return self._worker.submit(self.handle, request).result()
+
     def make_server(self, host: str, port: int) -> ThreadingHTTPServer:
         app = self
 
@@ -133,7 +149,7 @@ class App:
                 if self.command == "OPTIONS":
                     response = Response(b"", 204, "text/plain")
                 else:
-                    response = app.handle(Request(self, body))
+                    response = app.dispatch(Request(self, body))
                 self.send_response(response.status)
                 self.send_header("Content-Type", response.content_type)
                 self.send_header("Content-Length",

@@ -1,14 +1,17 @@
 """Dataset-level channel normalization (GANSynth DataNormalizer).
 
-Port of ``interactive_spectrogram_inpainting_tpu/signal/normalizer.py``,
-decode side: the decoder's output is mapped back through the inverse of
+Port of ``interactive_spectrogram_inpainting_tpu/signal/normalizer.py``:
 the per-channel affine rescaling ``a * x + b`` of the (log-magnitude, IF)
-channels. Normalizing (the encode side) is not ported yet.
+channels computed from dataset statistics, its exact inverse (the decoder's
+output is denormalized before the inverse spectrogram transform), and the
+statistics' computation and JSON file.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import pathlib
 from typing import Mapping, Union
 
 import numpy as np
@@ -43,6 +46,37 @@ class DataNormalizer:
         b = torch.as_tensor(self._b, device=like.device).reshape(2, 1, 1)
         return a, b
 
+    def normalize(self, spec_and_IF: torch.Tensor) -> torch.Tensor:
+        """[..., 2, F, T] -> normalized."""
+        a, b = self._ab(spec_and_IF)
+        return spec_and_IF * a + b
+
     def denormalize(self, spec_and_IF: torch.Tensor) -> torch.Tensor:
         a, b = self._ab(spec_and_IF)
         return (spec_and_IF - b) / a
+
+    @staticmethod
+    def compute_statistics(spectrogram_batches) -> DataNormalizerStatistics:
+        """Scan an iterable of [B, 2, F, T] batches for channel ranges."""
+        min_logmag, max_logmag = np.inf, -np.inf
+        min_if, max_if = np.inf, -np.inf
+        for batch in spectrogram_batches:
+            if isinstance(batch, torch.Tensor):
+                batch = batch.detach().cpu().numpy()
+            batch = np.asarray(batch)
+            min_logmag = min(min_logmag, float(batch[:, 0].min()))
+            max_logmag = max(max_logmag, float(batch[:, 0].max()))
+            min_if = min(min_if, float(batch[:, 1].min()))
+            max_if = max(max_if, float(batch[:, 1].max()))
+        return DataNormalizerStatistics(min_logmag, max_logmag, min_if,
+                                        max_if)
+
+    def dump_statistics(self, path: Union[str, pathlib.Path]) -> None:
+        with open(path, "w") as f:
+            json.dump(dataclasses.asdict(self.statistics), f, indent=4)
+
+    @classmethod
+    def load_statistics(cls, path: Union[str, pathlib.Path]
+                        ) -> "DataNormalizer":
+        with open(path) as f:
+            return cls(DataNormalizerStatistics(**json.load(f)))

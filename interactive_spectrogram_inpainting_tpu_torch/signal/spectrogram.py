@@ -1,14 +1,18 @@
-"""GANSynth-style spectrogram resynthesis (the playback path).
+"""GANSynth-style invertible spectrogram transforms.
 
-Port of the inverse half of
-``interactive_spectrogram_inpainting_tpu/signal/spectrogram.py``:
-``[B, 2, F, T]`` (log magnitude, instantaneous frequency) -> phase
-integration -> iSTFT -> audio, for the linear helper and the fused mel
-inverse (``MelSpectrogramsHelper._to_audio_impl``), plus the expanded mel
-filterbank matrices. The iSTFT runs through ``torch.fft.irfft``; the JAX
-package's DFT-matmul STFT core existed only for a TPU backend without a
-complex FFT and is not carried over. The forward transform (the encode
-path) is not ported yet.
+Port of ``interactive_spectrogram_inpainting_tpu/signal/spectrogram.py``:
+
+    audio -> STFT -> (log magnitude, instantaneous frequency)   [B, 2, F, T]
+    [B, 2, F, T] -> phase integration -> iSTFT -> audio
+
+for the linear helper and the mel-warped one (forward ``linear_to_mel``,
+inverse ``mel_to_linear`` and the fused mel inverse
+``MelSpectrogramsHelper._to_audio_impl``), plus the expanded mel filterbank
+matrices. The STFT and iSTFT run through ``torch.fft``; the JAX package's
+DFT-matmul STFT core and its FFT fallback device existed only for a TPU
+backend without a complex FFT and are not carried over. The time axis is
+padded up to a multiple of ``time_frames_multiple`` (32) so the VQ-VAE's
+total downsampling divides it evenly.
 
 Canonical NSynth geometry (fs 16 kHz, n_fft 2048, hop 512, 4 s) gives
 ``[2, 1024, 128]`` spectrograms.
@@ -49,6 +53,18 @@ def _hann_window(window_length: int) -> np.ndarray:
             ).astype(np.float32)
 
 
+def instantaneous_frequency(phase_angle: torch.Tensor,
+                            time_axis: int = -1) -> torch.Tensor:
+    """Finite difference of the unwrapped phase, in units of pi. The first
+    frame keeps the raw initial phase (GANSynth convention), so that
+    ``cumsum(IF * pi)`` recovers a phase equal to the original modulo 2 pi."""
+    dphase = torch.diff(phase_angle, dim=time_axis)
+    # wrap the finite difference into (-pi, pi]
+    dphase = dphase - 2.0 * math.pi * torch.round(dphase / (2.0 * math.pi))
+    first = phase_angle.narrow(time_axis, 0, 1)
+    return torch.cat([first, dphase], dim=time_axis) / math.pi
+
+
 @dataclasses.dataclass(frozen=True)
 class SpectrogramsHelper:
     """Invertible linear-frequency log-magnitude + IF transform."""
@@ -58,6 +74,9 @@ class SpectrogramsHelper:
     hop_length: int = 512
     window_length: int = 2048
     safelog_eps: float = 1e-6
+    # the frame count is padded up to a multiple of this (125 -> 128 frames
+    # for 4 s at hop 512)
+    time_frames_multiple: int = 32
 
     @property
     def num_freq_bins(self) -> int:
@@ -67,9 +86,79 @@ class SpectrogramsHelper:
     def _pad_left(self) -> int:
         return (self.window_length - self.hop_length) // 2
 
+    def num_frames(self, num_samples: int) -> int:
+        frames = int(math.ceil(num_samples / self.hop_length))
+        m = self.time_frames_multiple
+        return ((frames + m - 1) // m) * m
+
     def num_samples(self, num_frames: int) -> int:
         """Audio length decoded from a spectrogram with ``num_frames``."""
         return num_frames * self.hop_length
+
+    def _pad_right(self, num_samples: int) -> int:
+        total = ((self.num_frames(num_samples) - 1) * self.hop_length
+                 + self.window_length)
+        return total - self._pad_left - num_samples
+
+    def safelog(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.log(x + self.safelog_eps)
+
+    def _frame(self, audio: torch.Tensor) -> torch.Tensor:
+        """[..., num_samples] -> windowed frames [..., T, n_fft]."""
+        num_samples = audio.shape[-1]
+        padded = torch.nn.functional.pad(
+            audio, (self._pad_left, self._pad_right(num_samples)))
+        frames = self.num_frames(num_samples)
+        framed = padded.unfold(-1, self.window_length,
+                               self.hop_length)[..., :frames, :]
+        window = torch.as_tensor(_hann_window(self.window_length),
+                                 device=audio.device)
+        framed = framed * window
+        if self.n_fft > self.window_length:
+            framed = torch.nn.functional.pad(
+                framed, (0, self.n_fft - self.window_length))
+        return framed
+
+    def stft(self, audio: torch.Tensor) -> torch.Tensor:
+        """[..., num_samples] -> complex [..., T, n_fft // 2 + 1]."""
+        return torch.fft.rfft(self._frame(audio.float()), n=self.n_fft,
+                              dim=-1)
+
+    def istft(self, stfts: torch.Tensor, num_samples: int) -> torch.Tensor:
+        """complex [..., T, n_fft // 2 + 1] -> [..., num_samples]."""
+        return self._istft_ri(stfts.real, stfts.imag, num_samples)
+
+    def to_spectrogram(self, audio: torch.Tensor) -> torch.Tensor:
+        """[B, num_samples] (or [num_samples]) -> [B, 2, F, T] mag + IF."""
+        squeeze = audio.dim() == 1
+        if squeeze:
+            audio = audio[None]
+        spec = self._to_spectrogram_impl(audio)
+        return spec[0] if squeeze else spec
+
+    def _to_spectrogram_impl(self, audio: torch.Tensor) -> torch.Tensor:
+        x = self.stft(audio)[..., 1:]  # discard DC -> [B, T, F]
+        re, im = x.real, x.imag
+        logmag = self.safelog(torch.sqrt(re * re + im * im))
+        if_ = instantaneous_frequency(torch.atan2(im, re), time_axis=-2)
+        return torch.stack([logmag, if_], dim=1).transpose(-1, -2)
+
+    def from_wavfile(self, path, duration_n: Optional[int] = None,
+                     device=None) -> torch.Tensor:
+        """Load a wav file (resampled to fs_hz) and return [1, 2, F, T]."""
+        from ..data.wav import read_wav, resample
+
+        audio, fs = read_wav(path)
+        if audio.ndim > 1:
+            audio = audio.mean(axis=0)
+        if fs != self.fs_hz:
+            audio = resample(audio, fs, self.fs_hz)
+        if duration_n is not None:
+            if audio.shape[-1] < duration_n:
+                audio = np.pad(audio, (0, duration_n - audio.shape[-1]))
+            audio = audio[:duration_n]
+        return self.to_spectrogram(torch.as_tensor(
+            np.ascontiguousarray(audio, np.float32), device=device)[None])
 
     def _istft_ri(self, re: torch.Tensor, im: torch.Tensor,
                   num_samples: int) -> torch.Tensor:
@@ -227,6 +316,15 @@ def _mel_matrices(num_bins: int, fs_hz: float, lower: float, upper: float,
     return l2m, mel_to_linear_matrix(l2m)
 
 
+@functools.lru_cache(maxsize=8)
+def _mel_tensors(device: torch.device, *key
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two matrices as tensors on ``device``, uploaded once."""
+    l2m, m2l = _mel_matrices(*key)
+    return (torch.as_tensor(l2m, device=device),
+            torch.as_tensor(m2l, device=device))
+
+
 @dataclasses.dataclass(frozen=True)
 class MelSpectrogramsHelper(SpectrogramsHelper):
     """Mel-warped variant; shape-preserving (mel bins == linear bins)."""
@@ -237,12 +335,35 @@ class MelSpectrogramsHelper(SpectrogramsHelper):
     mel_bin_width_threshold_factor: float = 1.5
 
     def _matrices(self, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        l2m, m2l = _mel_matrices(
+        return _mel_tensors(
+            torch.device("cpu" if device is None else device),
             self.num_freq_bins, self.fs_hz, self.lower_edge_hertz,
             self.upper_edge_hertz, self.mel_break_frequency_hertz,
             self.mel_bin_width_threshold_factor)
-        return (torch.as_tensor(l2m, device=device),
-                torch.as_tensor(m2l, device=device))
+
+    def _to_spectrogram_impl(self, audio: torch.Tensor) -> torch.Tensor:
+        return self.linear_to_mel(
+            SpectrogramsHelper._to_spectrogram_impl(self, audio))
+
+    def linear_to_mel(self, spec_and_IF: torch.Tensor) -> torch.Tensor:
+        """[..., 2, F, T] linear logmag + IF -> mel logmag + IF."""
+        l2m, _ = self._matrices(spec_and_IF.device)
+        logmag = spec_and_IF[..., 0, :, :].transpose(-1, -2)  # [..., T, F]
+        if_ = spec_and_IF[..., 1, :, :].transpose(-1, -2)
+        logmelmag = 0.5 * self.safelog(torch.exp(2.0 * logmag) @ l2m)
+        mel_phase = torch.cumsum(if_ * math.pi, dim=-2) @ l2m
+        mel_if = instantaneous_frequency(mel_phase, time_axis=-2)
+        return torch.stack([logmelmag, mel_if], dim=-3).transpose(-1, -2)
+
+    def mel_to_linear(self, mel_spec_and_IF: torch.Tensor) -> torch.Tensor:
+        _, m2l = self._matrices(mel_spec_and_IF.device)
+        logmelmag = mel_spec_and_IF[..., 0, :, :].transpose(-1, -2)
+        mel_if = mel_spec_and_IF[..., 1, :, :].transpose(-1, -2)
+        mag_sq = torch.exp(2.0 * logmelmag) @ m2l
+        logmag = 0.5 * self.safelog(torch.clamp(mag_sq, min=0.0))
+        phase = torch.cumsum(mel_if * math.pi, dim=-2) @ m2l
+        if_ = instantaneous_frequency(phase, time_axis=-2)
+        return torch.stack([logmag, if_], dim=-3).transpose(-1, -2)
 
     def _to_audio_impl(self, spec_and_IF: torch.Tensor,
                        num_samples: Optional[int] = None) -> torch.Tensor:

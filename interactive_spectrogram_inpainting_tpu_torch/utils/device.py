@@ -28,8 +28,8 @@ def set_float32_precision() -> None:
     """Full float32 for matmuls and cuDNN convolutions.
 
     ``torch.backends.cudnn.allow_tf32`` defaults to True, which would run
-    the VQ-VAE decoder's float32 convolutions in TF32 (about three decimal
-    digits). Both switches are set to False so the port computes what the
+    the VQ-VAE's float32 convolutions in TF32 (about three decimal digits:
+    enough to move a nearly tied code of the encoder). Both switches are set to False so the port computes what the
     JAX reference computes in float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -13,11 +13,12 @@ the same function:
   become ``nn.ConvTranspose2d`` weights ``[I, O, kH, kW]`` with both
   spatial axes flipped (flax's transposed conv correlates, PyTorch's
   convolves);
-- the VQ-VAE codebooks come from the ``codebook`` collection.
+- the VQ-VAE codebooks and their EMA state (``embed``, ``cluster_size``,
+  ``embed_avg``) come from the ``codebook`` collection.
 
-Only the decode side of the VQ-VAE is ported; encoder weights in the tree
-are ignored. Reading the JAX package's msgpack checkpoint files is not
-part of this module.
+``to_flax_params`` is the inverse: a port module's weights as the JAX
+package's variables tree (numpy leaves), which ``utils/checkpoint_io.py``
+writes into the JAX package's checkpoint files.
 """
 
 from __future__ import annotations
@@ -148,9 +149,29 @@ def _decoder_state_dict(sd: Dict, prefix: str, node: Mapping) -> None:
         i += 1
 
 
+def _encoder_state_dict(sd: Dict, prefix: str, node: Mapping) -> None:
+    """flax numbers an Encoder's convs in call order: the strided
+    downsampling convs, then the trailing 3x3."""
+    n_convs = sum(1 for key in node if key.startswith("Conv_"))
+    for i in range(n_convs - 1):
+        _conv(sd, f"{prefix}.downsample.{i}", node[f"Conv_{i}"])
+    _conv(sd, f"{prefix}.conv_out", node[f"Conv_{n_convs - 1}"])
+    r = 0
+    while f"ResBlock_{r}" in node:
+        res = node[f"ResBlock_{r}"]
+        _conv(sd, f"{prefix}.res_blocks.{r}.conv1", res["Conv_0"])
+        _conv(sd, f"{prefix}.res_blocks.{r}.conv2", res["Conv_1"])
+        r += 1
+
+
 def _vqvae_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     p = variables["params"]
     sd: Dict[str, torch.Tensor] = {}
+    _encoder_state_dict(sd, "enc_b", p["enc_b"])
+    _encoder_state_dict(sd, "enc_t", p["enc_t"])
+    _conv(sd, "quantize_conv_t", p["quantize_conv_t"])
+    _conv(sd, "quantize_conv_b", p["quantize_conv_b"])
+    _decoder_state_dict(sd, "dec_t", p["dec_t"])
     _decoder_state_dict(sd, "dec", p["dec"])
     ups = p["upsample_top_to_bottom"]
     i = 0
@@ -158,8 +179,9 @@ def _vqvae_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         _conv(sd, f"upsample_top_to_bottom.layers.{i}",
               ups[f"ConvTranspose_{i}"], transpose=True)
         i += 1
-    for level in ("quantize_t", "quantize_b"):
-        sd[f"{level}.embed"] = _t(variables["codebook"][level]["embed"])
+    for level, buffers in variables["codebook"].items():
+        for name in ("embed", "cluster_size", "embed_avg"):
+            sd[f"{level}.{name}"] = _t(buffers[name])
     return sd
 
 
@@ -176,15 +198,162 @@ def from_flax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return _prior_state_dict(params)
 
 
+# -- the inverse: port modules -> flax trees -----------------------------------
+
+def _n(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().cpu().float().numpy())
+
+
+def _dense_node(sd: Mapping, prefix: str) -> Dict:
+    return {"kernel": _n(sd[f"{prefix}.weight"].T),
+            "bias": _n(sd[f"{prefix}.bias"])}
+
+
+def _mha_node(sd: Mapping, prefix: str, n_heads: int) -> Dict:
+    node = {}
+    for name in ("q", "k", "v"):
+        w = _n(sd[f"{prefix}.{name}.weight"])  # [H * Dh, d]
+        node[name] = {"kernel": np.ascontiguousarray(w.T).reshape(
+                          w.shape[1], n_heads, -1),
+                      "bias": _n(sd[f"{prefix}.{name}.bias"]).reshape(
+                          n_heads, -1)}
+    w = _n(sd[f"{prefix}.o.weight"])  # [d, H * Dh]
+    node["o"] = {"kernel": np.ascontiguousarray(w.T).reshape(
+                     n_heads, -1, w.shape[0]),
+                 "bias": _n(sd[f"{prefix}.o.bias"])}
+    return node
+
+
+def _ln_node(sd: Mapping, prefix: str) -> Dict:
+    return {"scale": _n(sd[f"{prefix}.weight"]),
+            "bias": _n(sd[f"{prefix}.bias"])}
+
+
+def _prior_tree(sd: Mapping, n_heads: int) -> Dict:
+    p: Dict[str, Any] = {}
+    for name in ("source_embed", "target_embed"):
+        p[name] = {"embedding": _n(sd[f"{name}.weight"])}
+    for name in ("source_embeddings_linear", "target_embeddings_linear",
+                 "project_logits"):
+        p[name] = _dense_node(sd, name)
+    for name in ("source_pos_frequency", "target_pos_frequency",
+                 "target_pos_patch", "source_start_symbol",
+                 "target_start_symbol"):
+        p[name] = _n(sd[name])
+    for key in sd:
+        if key.startswith("class_embeds."):
+            modality = key[len("class_embeds."):-len(".weight")]
+            p[f"class_conditioning_{modality}"] = {"embedding": _n(sd[key])}
+    for kind in ("encoder", "decoder"):
+        i = 0
+        while f"{kind}_layers.{i}.ln1.weight" in sd:
+            pre = f"{kind}_layers.{i}"
+            node = {"self_bias": {"rel_bias": _n(
+                        sd[f"{pre}.self_bias.rel_bias"])},
+                    "self_attn": _mha_node(sd, f"{pre}.self_attn", n_heads),
+                    "ln1": _ln_node(sd, f"{pre}.ln1"),
+                    "ln2": _ln_node(sd, f"{pre}.ln2"),
+                    "mlp": {"Dense_0": _dense_node(sd, f"{pre}.mlp.fc1"),
+                            "Dense_1": _dense_node(sd, f"{pre}.mlp.fc2")}}
+            if kind == "decoder":
+                if f"{pre}.cross_bias.rel_bias" in sd:
+                    node["cross_bias"] = {"rel_bias": _n(
+                        sd[f"{pre}.cross_bias.rel_bias"])}
+                node["cross_attn"] = _mha_node(sd, f"{pre}.cross_attn",
+                                               n_heads)
+                node["ln3"] = _ln_node(sd, f"{pre}.ln3")
+            p[f"{kind}_layer_{i}"] = node
+            i += 1
+        p[f"{kind}_norm"] = _ln_node(sd, f"{kind}_norm")
+    return p
+
+
+def _conv_node(sd: Mapping, prefix: str, transpose: bool = False) -> Dict:
+    w = _n(sd[f"{prefix}.weight"])
+    if transpose:  # [I, O, kH, kW] flipped -> [kH, kW, I, O]
+        kernel = np.transpose(w[:, :, ::-1, ::-1], (2, 3, 0, 1))
+    else:          # [O, I/g, kH, kW] -> [kH, kW, I/g, O]
+        kernel = np.transpose(w, (2, 3, 1, 0))
+    return {"kernel": np.ascontiguousarray(kernel),
+            "bias": _n(sd[f"{prefix}.bias"])}
+
+
+def _res_nodes(sd: Mapping, prefix: str, node: Dict) -> None:
+    r = 0
+    while f"{prefix}.res_blocks.{r}.conv1.weight" in sd:
+        node[f"ResBlock_{r}"] = {
+            "Conv_0": _conv_node(sd, f"{prefix}.res_blocks.{r}.conv1"),
+            "Conv_1": _conv_node(sd, f"{prefix}.res_blocks.{r}.conv2")}
+        r += 1
+
+
+def _encoder_node(sd: Mapping, prefix: str) -> Dict:
+    node: Dict[str, Any] = {}
+    i = 0
+    while f"{prefix}.downsample.{i}.weight" in sd:
+        node[f"Conv_{i}"] = _conv_node(sd, f"{prefix}.downsample.{i}")
+        i += 1
+    node[f"Conv_{i}"] = _conv_node(sd, f"{prefix}.conv_out")
+    _res_nodes(sd, prefix, node)
+    return node
+
+
+def _upsample_nodes(sd: Mapping, prefix: str, node: Dict) -> None:
+    i = 0
+    while f"{prefix}.{i}.weight" in sd:
+        node[f"ConvTranspose_{i}"] = _conv_node(sd, f"{prefix}.{i}",
+                                                transpose=True)
+        i += 1
+
+
+def _decoder_node(sd: Mapping, prefix: str) -> Dict:
+    node = {"Conv_0": _conv_node(sd, f"{prefix}.conv_in")}
+    _res_nodes(sd, prefix, node)
+    _upsample_nodes(sd, f"{prefix}.upsample", node)
+    return node
+
+
+def _vqvae_tree(sd: Mapping) -> Dict:
+    ups: Dict[str, Any] = {}
+    _upsample_nodes(sd, "upsample_top_to_bottom.layers", ups)
+    params = {"enc_b": _encoder_node(sd, "enc_b"),
+              "enc_t": _encoder_node(sd, "enc_t"),
+              "quantize_conv_t": _conv_node(sd, "quantize_conv_t"),
+              "quantize_conv_b": _conv_node(sd, "quantize_conv_b"),
+              "dec_t": _decoder_node(sd, "dec_t"),
+              "dec": _decoder_node(sd, "dec"),
+              "upsample_top_to_bottom": ups}
+    codebook = {
+        level: {name: _n(sd[f"{level}.{name}"])
+                for name in ("embed", "cluster_size", "embed_avg")}
+        for level in ("quantize_t", "quantize_b")
+        if f"{level}.embed" in sd}
+    return {"params": params, "codebook": codebook}
+
+
+def to_flax_params(module: nn.Module) -> Dict[str, Any]:
+    """A port VQ-VAE's or prior's weights as the JAX package's variables
+    tree with numpy leaves: the inverse of ``from_flax_params``."""
+    sd = module.state_dict()
+    if "quantize_conv_t.weight" in sd:
+        return _vqvae_tree(sd)
+    if "decoder_norm.weight" not in sd:
+        raise ValueError("not a prior or VQ-VAE module")
+    return {"params": _prior_tree(
+        sd, int(module.config.conditional_model_nhead))}
+
+
 # -- flax-like random initialization ------------------------------------------
 
 def init_like_flax(module: nn.Module,
                    generator: Optional[torch.Generator] = None) -> nn.Module:
     """Re-draw a port module's parameters with the JAX package's flax
     initializers' scales (lecun-normal kernels, zero biases, unit-variance
-    embeddings and positional tables, 0.02 relative-bias tables), so
-    randomly initialized test models see realistic activations."""
+    embeddings and positional tables, 0.02 relative-bias tables, codebooks
+    at their configured variance), so randomly initialized test models see
+    realistic activations and depend on ``generator`` alone."""
     from ..models.prior.attention import RelativeAttentionBias
+    from ..models.vqvae.bottleneck import QuantizedBottleneck
 
     def normal_(t: torch.Tensor, std: float) -> None:
         with torch.no_grad():
@@ -209,6 +378,10 @@ def init_like_flax(module: nn.Module,
             nn.init.zeros_(sub.bias)
         elif isinstance(sub, RelativeAttentionBias):
             normal_(sub.rel_bias, 0.02)
+        elif isinstance(sub, QuantizedBottleneck):
+            normal_(sub.embed, sub.embeddings_initial_variance ** 0.5)
+            sub.embed_avg.copy_(sub.embed)
+            sub.cluster_size.zero_()
     for name, param in module.named_parameters(recurse=True):
         if name.endswith(("_pos_frequency", "pos_patch", "start_symbol")):
             normal_(param, 1.0)

@@ -261,3 +261,136 @@ def test_sample_model_batch_cuda_matches_cpu(prior, batch):
     for a, b in zip(out["cuda"], out["cpu"]):
         assert torch.equal(a, b)
     assert flash_decode_attention.launches > 0
+
+
+# -- fused_vq_lookup ----------------------------------------------------------
+
+def vq_margin_rows(flat, embed, margin=1e-4):
+    """Rows whose two best scores lie closer than ``margin``: a float32 sum
+    taken in another order may pick either code there."""
+    scores = (embed * embed).sum(0)[None] - 2.0 * (flat @ embed)
+    best2 = torch.topk(scores, min(2, scores.shape[1]), dim=1,
+                       largest=False).values
+    if best2.shape[1] < 2:
+        return torch.zeros(flat.shape[0], dtype=torch.bool,
+                           device=flat.device)
+    return (best2[:, 1] - best2[:, 0]) < margin
+
+
+@pytest.mark.parametrize("n,dim,n_embed", [
+    (128, 64, 512), (700, 64, 512), (1, 64, 512), (33, 8, 32), (257, 5, 7),
+    (96, 64, 130), (4096, 200, 64), (5000, 64, 512), (6145, 32, 33)])
+def test_vq_lookup_kernel_matches_plain(device, n, dim, n_embed):
+    """ids equal wherever the two best scores differ by more than 1e-4;
+    quantize is the codebook row bit for bit; counts exact; embed_sum within
+    atol 1e-3 (another summation order); a second call gives the same bits."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops.vq_lookup import (
+        fused_vq_lookup, reference_vq_lookup)
+    rng = np.random.default_rng(n * 31 + dim)
+    flat = torch.as_tensor(rng.standard_normal((n, dim), np.float32),
+                           device=device)
+    embed = torch.as_tensor(rng.standard_normal((dim, n_embed), np.float32),
+                            device=device)
+    before = fused_vq_lookup.launches
+    ids, quant, counts, esum = fused_vq_lookup(flat, embed)
+    torch.cuda.synchronize()
+    assert fused_vq_lookup.launches == before + 1
+    ids_p, quant_p, counts_p, esum_p = reference_vq_lookup(flat, embed)
+    close = vq_margin_rows(flat, embed)
+    assert int(close.sum()) <= max(1, n // 1000)
+    assert torch.equal(ids[~close], ids_p[~close])
+    assert ids.dtype == torch.int32
+    assert torch.equal(quant, embed.T[ids.long()])
+    assert torch.equal(counts, torch.bincount(
+        ids.long(), minlength=n_embed).float())
+    if not bool(close.any()):
+        assert torch.equal(counts, counts_p)
+        torch.testing.assert_close(esum, esum_p, atol=1e-3, rtol=0)
+    again = fused_vq_lookup(flat, embed)
+    torch.cuda.synchronize()
+    for a, b in zip((ids, quant, counts, esum), again):
+        assert torch.equal(a, b)
+
+
+def test_vq_lookup_kernel_ties_take_the_lowest_code(device):
+    """Duplicate codebook columns score equally: the lower index wins, as
+    argmin does."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops.vq_lookup import (
+        fused_vq_lookup)
+    rng = np.random.default_rng(5)
+    base = rng.standard_normal((16, 40), np.float32)
+    embed = torch.as_tensor(np.concatenate([base, base, base], axis=1),
+                            device=device)  # codes k, k + 40, k + 80 equal
+    flat = torch.as_tensor(rng.standard_normal((300, 16), np.float32),
+                           device=device)
+    ids, _, counts, _ = fused_vq_lookup(flat, embed)
+    assert int(ids.max()) < 40
+    assert float(counts[40:].sum()) == 0.0
+    assert float(counts.sum()) == 300.0
+
+
+def test_vq_lookup_kernel_when_one_code_takes_every_row(device):
+    """An untrained encoder sends every row to one code: the statistics are
+    sums over all rows (several 2048-row segments, added in a fixed order)
+    and stay exact in counts, within float32 rounding of the float64 sums,
+    and bit-identical from call to call."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops.vq_lookup import (
+        fused_vq_lookup)
+    rng = np.random.default_rng(9)
+    n, dim, n_embed = 10000, 64, 512
+    flat = torch.as_tensor(rng.standard_normal((n, dim), np.float32),
+                           device=device)
+    embed = 50.0 * torch.as_tensor(
+        rng.standard_normal((dim, n_embed), np.float32), device=device)
+    embed[:, 7] = 0.0
+    ids, quant, counts, esum = fused_vq_lookup(flat, embed)
+    assert bool((ids == 7).all()) and float(quant.abs().max()) == 0.0
+    assert float(counts[7]) == n and float(counts.sum()) == n
+    exact = flat.double().sum(0)
+    torch.testing.assert_close(esum[:, 7].double(), exact, atol=1e-3,
+                               rtol=1e-5)
+    assert float(esum[:, :7].abs().max()) == 0.0
+    again = fused_vq_lookup(flat, embed)
+    assert torch.equal(esum, again[3]) and torch.equal(counts, again[2])
+
+
+def test_vq_lookup_refuses_what_the_kernel_does_not_take(device):
+    from interactive_spectrogram_inpainting_tpu_torch.ops.vq_lookup import (
+        fused_vq_lookup)
+    flat = torch.zeros(4, 8, device=device)
+    embed = torch.zeros(8, 16, device=device)
+    with pytest.raises(ValueError):
+        fused_vq_lookup(flat.double(), embed)
+    with pytest.raises(ValueError):
+        fused_vq_lookup(torch.zeros(8, 4, device=device).T, embed)
+    with pytest.raises(ValueError):
+        fused_vq_lookup(flat.requires_grad_(), embed)
+    with pytest.raises(ValueError):
+        fused_vq_lookup(torch.zeros(4, 300, device=device),
+                        torch.zeros(300, 16, device=device))
+
+
+def test_bottleneck_on_the_card_runs_the_kernel(device):
+    """QuantizedBottleneck with the flag on launches the kernel on a CUDA
+    tensor, in evaluation and in training, and agrees with the flag off."""
+    from interactive_spectrogram_inpainting_tpu_torch.models.vqvae.bottleneck \
+        import QuantizedBottleneck
+    from interactive_spectrogram_inpainting_tpu_torch.ops.vq_lookup import (
+        fused_vq_lookup)
+    torch.manual_seed(0)
+    fused = QuantizedBottleneck(16, 64, use_pallas_lookup=True).to(device)
+    dense = QuantizedBottleneck(16, 64).to(device)
+    dense.load_state_dict(fused.state_dict())
+    x = torch.randn(3, 16, 8, 4, device=device)
+    before = fused_vq_lookup.launches
+    for train in (False, True, True):
+        out_f = fused(x, train=train)
+        out_d = dense(x, train=train)
+        for a, b in zip(out_f, out_d):
+            torch.testing.assert_close(a.float(), b.float(), atol=1e-5,
+                                       rtol=1e-5)
+    assert fused_vq_lookup.launches == before + 3
+    for name in ("embed", "cluster_size", "embed_avg"):
+        torch.testing.assert_close(getattr(fused, name),
+                                   getattr(dense, name), atol=1e-5,
+                                   rtol=1e-5)
