@@ -49,13 +49,31 @@ Phases, each failing the run with a nonzero exit:
    just before and read just after; the first request of each kind is cold
    (it builds the decode tables, plans the FFT and picks the convolution
    algorithms);
-7. a ``{"kernels": [...]}`` line: each kernel's main-path launches, its
+7. train-attention: the forward and backward kernels against their plain
+   versions at the three attention shapes of the priors' training step
+   (decoder self 516 x 516 causal, cross 516 x 129 aligned, encoder self
+   129 x 129 anti-causal; B = 32, H = 8, Dh = 64), in float32 and
+   bfloat16, a second backward bit-identical to the first;
+8. training: ``train_prior.main`` at the flagship width (d_model 512, 6 + 8
+   layers, batch 32) on a store of 256 seeded random codemaps at the full
+   geometry: one epoch of the top and of the bottom prior (aligned), whose
+   step must launch 22 forward and 22 backward attention kernels; a few
+   bottom steps with ``--bf16`` and with ``--remat``; a resume of one more
+   epoch; one step with the kernels against one with the dense attention
+   (dropout 0, the same batch: loss and gradients within atol 2e-4, rtol
+   2e-3); 20 steps on one batch (the loss must fall); warm ms per step of
+   both priors in float32 and bfloat16, and a ``torch.profiler`` split of
+   three warm steps of each (device time by kernel family, the device's
+   idle share); then the two trained priors, loaded from the files the
+   trainer wrote, serve one ``/timerange-change``;
+9. a ``{"kernels": [...]}`` line: each kernel's main-path launches, its
    error against the plain version, its time and the plain version's time
    on the main path's shapes, its bound on this card and, where PyTorch
    has one, the library's time on the same inputs
-   (``F.scaled_dot_product_attention`` for the flash attention; for the VQ
-   lookup the dense path ``torch.matmul`` + ``argmin`` + ``F.embedding``,
-   a composition of calls that gives ids and quantize only).
+   (``F.scaled_dot_product_attention`` for the flash attention and, forward
+   and backward, for the training attention; for the VQ lookup the dense
+   path ``torch.matmul`` + ``argmin`` + ``F.embedding``, a composition of
+   calls that gives ids and quantize only).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -66,6 +84,7 @@ import argparse
 import io
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -98,12 +117,24 @@ KERNEL_SOURCES = {
     "fused_vq_lookup": (
         f"{PKG}/ops/csrc/vq_lookup.cu",
         "interactive_spectrogram_inpainting_tpu/ops/vq_lookup.py:94"),
+    "fused_train_attention": (
+        f"{PKG}/ops/csrc/train_attention.cu",
+        "interactive_spectrogram_inpainting_tpu/ops/train_attention.py:309"),
 }
 STEPS_CHECKED = 32   # consecutive positions a step kernel is checked over
 STEPS_TIMED = 32     # captured steps (evenly spaced) a step kernel is timed on
 VQ_MARGIN = 1e-4     # codes are compared where the two best scores differ more
 EXTRACT_NOTES = 256  # notes the extraction phase encodes
 NOTE_SECONDS = 4.0   # one note: the full model's four top columns
+TRAIN_RECORDS = 256  # codemaps of the training phase's store
+TRAIN_BATCH = 32     # the trainer's default batch
+# attention calls of one training step of either prior: 6 encoder self,
+# 8 decoder self and 8 cross attentions, each one forward and one backward
+ATTENTION_CALLS = 22
+# width flags of the training phase: none, the trainer's defaults are the
+# flagship width (a rehearsal on the CPU narrows them)
+TRAIN_MODEL_ARGS: list = []
+DEVICE = "cuda"
 
 
 def fail(msg: str) -> None:
@@ -1140,6 +1171,474 @@ def serve_extraction(torch, state, base, captured):
             state.label_encoders = served_encoders
 
 
+def attention_shapes(state):
+    """(name, Lq, Lk, additive mask) of the three attentions of a training
+    step at the full priors' geometry (with start symbols)."""
+    from interactive_spectrogram_inpainting_tpu_torch.models.prior import (
+        attention)
+    cfg_b = state.bottom.config
+    lq = cfg_b.target_sequence_length + cfg_b.target_num_channels
+    ls = cfg_b.source_sequence_length + 1
+    aligned = state.bottom.decoder_layers[0]._aligned_mask(lq, ls)
+    return [("decoder self", lq, lq, attention.causal_mask(lq, DEVICE)),
+            ("cross", lq, ls, aligned.to(DEVICE)),
+            ("encoder self", ls, ls, attention.anti_causal_mask(ls, DEVICE))]
+
+
+def phase_train_attention(torch, state, results):
+    """The training-attention kernels against their plain versions at the
+    three attention shapes of a training step, B = 32, 8 heads of 64."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        train_attention as ta)
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    heads, head_dim = 8, 64
+    tol = {torch.float32: ((1e-5, 1e-5), (2e-4, 1e-4)),
+           torch.bfloat16: ((3e-2, 3e-2), (3e-2, 3e-2))}
+    for name, lq, lk, mask in attention_shapes(state):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, dout = (torch.randn(TRAIN_BATCH, lq, heads, head_dim,
+                                   generator=gen, device=DEVICE).to(dtype)
+                       for _ in range(2))
+            k, v = (torch.randn(TRAIN_BATCH, lk, heads, head_dim,
+                                generator=gen, device=DEVICE).to(dtype)
+                    for _ in range(2))
+            ab = torch.randn(heads, lq, lk, generator=gen,
+                             device=DEVICE) + mask[None]
+            out = ta.train_attention_forward(q, k, v, ab)
+            grads = ta.train_attention_backward(q, k, v, ab, dout)
+            again = ta.train_attention_backward(q, k, v, ab, dout)
+            ref = ta.reference_train_attention(q, k, v, ab)
+            ref_grads = ta.reference_train_attention_backward(q, k, v, ab,
+                                                              dout)
+            torch.cuda.synchronize()
+            (fa, fr), (ga, gr) = tol[dtype]
+            errs = {"o": max_err(out, ref)}
+            ok = torch.allclose(out.float(), ref.float(), atol=fa, rtol=fr)
+            for key, got, want in zip(("dq", "dk", "dv", "dab"), grads,
+                                      ref_grads):
+                errs[key] = max_err(got, want)
+                ok = ok and torch.allclose(got.float(), want.float(),
+                                           atol=ga, rtol=gr)
+                ok = ok and bool(torch.isfinite(got.float()).all())
+            same = all(torch.equal(a, b) for a, b in zip(grads, again))
+            log(f"train_attention {name} {lq}x{lk} {str(dtype)[6:]}: "
+                "max_abs_err " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in errs.items())
+                + f" (forward atol {fa} rtol {fr}, gradients atol {ga} "
+                f"rtol {gr}), second backward identical {same}")
+            if not (ok and same):
+                fail(f"train_attention {name} {dtype} disagrees with the "
+                     "plain version")
+            if dtype == torch.float32:
+                results.setdefault("fused_train_attention", []).extend(
+                    errs.values())
+
+
+def write_train_store(torch, state, path):
+    """TRAIN_RECORDS seeded random codemaps at the full geometry, labelled
+    with the test state's pitches and families."""
+    import numpy as np
+    from interactive_spectrogram_inpainting_tpu_torch.data.codemap_store \
+        import CodemapStoreWriter
+    cfg_t, cfg_b = state.top.config, state.bottom.config
+    encoders = state.label_encoders
+    rng = np.random.default_rng(12)
+    with CodemapStoreWriter(path, cfg_t.shape, cfg_b.shape,
+                            ["pitch", "instrument_family_str"],
+                            label_encoders=encoders,
+                            n_class=cfg_t.n_class) as writer:
+        for i in range(TRAIN_RECORDS):
+            writer.append(
+                rng.integers(0, cfg_t.n_class, cfg_t.shape),
+                rng.integers(0, cfg_b.n_class, cfg_b.shape),
+                {"pitch": i % len(encoders["pitch"]),
+                 "instrument_family_str":
+                     i % len(encoders["instrument_family_str"])},
+                f"record_{i:03d}")
+
+
+def train_args(store, runs, hier, *extra):
+    out = ["--hier", hier, "--database_path", store, "--runs_directory",
+           runs, "--batch_size", str(TRAIN_BATCH), "--num_training_epochs",
+           "1", "--train_logs_frequency_batches", "4", "--device", DEVICE]
+    if hier == "bottom":
+        out.append("--use_aligned_decoder")
+    return out + TRAIN_MODEL_ARGS + list(extra)
+
+
+def step_setup(torch, store, hier, fused=True, bf16=False, dropout=None,
+               seed=0):
+    """(model, train_step, batches) of the trainer at its defaults."""
+    from interactive_spectrogram_inpainting_tpu_torch.data.lmdb_compat import (
+        open_codes_dataset)
+    from interactive_spectrogram_inpainting_tpu_torch.train import (
+        scheduler, train_prior as tp)
+    from interactive_spectrogram_inpainting_tpu_torch.utils.weights import (
+        init_like_flax)
+    extra = [] if dropout is None else ["--dropout", str(dropout)]
+    args = tp.make_parser().parse_args(train_args(store, "", hier, *extra))
+    dataset = open_codes_dataset(store, args.classes_for_conditioning)
+    model = tp.build_model(args, dataset, fused)
+    init_like_flax(model, torch.Generator().manual_seed(seed)).to(DEVICE)
+    cfg = model.config
+    sampler = None if hier == "bottom" else tp.make_mask_sampler(
+        args.mask_sampler, cfg.source_sequence_length, cfg.mask_token_index,
+        args.mask_probability, args.mask_min_masking_ratio)
+    optimizer = scheduler.get_optimizer(model.parameters(), "adam", None,
+                                        args.lr, 100)
+    step, _ = tp.make_steps(model, optimizer, hier, sampler, 0.0, bf16=bf16)
+    batches = list(tp.iterate_batches(dataset, TRAIN_BATCH, True, 0,
+                                      device=DEVICE))
+    return model, step, batches
+
+
+def attention_launches():
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        train_attention as ta)
+    return (ta.train_attention_forward.launches,
+            ta.train_attention_backward.launches)
+
+
+def reset_attention_launches():
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        train_attention as ta)
+    ta.train_attention_forward.launches = 0
+    ta.train_attention_backward.launches = 0
+
+
+def time_train_steps(torch, store, hier, bf16, timing):
+    """Warm ms of one training step at batch 32 (the kernels on), after a
+    first step that must launch ATTENTION_CALLS forward and backward
+    attention kernels."""
+    model, step, batches = step_setup(torch, store, hier, bf16=bf16)
+    gen = torch.Generator().manual_seed(1)
+    reset_attention_launches()
+    step(*batches[0][:3], gen)
+    torch.cuda.synchronize()
+    launches = attention_launches()
+    if launches != (ATTENTION_CALLS, ATTENTION_CALLS):
+        fail(f"one {hier} training step launched {launches} forward and "
+             f"backward attention kernels, expected {ATTENTION_CALLS} each")
+    step(*batches[1][:3], gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = batches[2:]
+    t0 = time.perf_counter()
+    for batch in timed:
+        metrics = step(*batch[:3], gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(timed)
+    if not torch.isfinite(metrics["loss"]):
+        fail(f"{hier} training step loss is not finite")
+    key = f"{hier} {'bf16' if bf16 else 'f32'}"
+    timing[key] = {"warm_step_ms": round(ms, 3),
+                   "steps_per_s": round(1e3 / ms, 3),
+                   "steps_timed": len(timed),
+                   "max_memory_allocated_gib": round(
+                       torch.cuda.max_memory_allocated() / 2 ** 30, 3)}
+    del model, step, batches
+
+
+def check_fused_against_dense(torch, store, hier):
+    """One step with the kernels and one with the dense attention from the
+    same weights, on the same batch with dropout 0: loss and every gradient
+    close. Then 20 steps on that batch with the kernels: the loss falls."""
+    models = {}
+    for fused in (True, False):
+        model, step, batches = step_setup(torch, store, hier, fused=fused,
+                                          dropout=0.0)
+        metrics = step(*batches[0][:3], torch.Generator().manual_seed(2))
+        models[fused] = (model, step, batches, metrics)
+    (m_f, step_f, batches, met_f), (m_d, _, _, met_d) = (models[True],
+                                                         models[False])
+    torch.cuda.synchronize()
+    worst = {"loss": abs(float(met_f["loss"]) - float(met_d["loss"]))}
+    ok = worst["loss"] <= 2e-4 + 2e-3 * abs(float(met_d["loss"]))
+    for (name, p_f), p_d in zip(m_f.named_parameters(), m_d.parameters()):
+        worst[name] = max_err(p_f.grad, p_d.grad)
+        ok = ok and torch.allclose(p_f.grad, p_d.grad, atol=2e-4, rtol=2e-3)
+    top3 = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    log(f"train step {hier}, kernels against dense attention (dropout 0, "
+        f"one batch): loss {float(met_f['loss']):.6f} / "
+        f"{float(met_d['loss']):.6f}; largest gradient differences "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in top3})} "
+        "(atol 2e-4, rtol 2e-3)")
+    if not ok:
+        fail(f"{hier}: the kernels' training step disagrees with the dense "
+             "one")
+    del models, m_d
+    losses = [float(met_f["loss"])]
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(19):
+        losses.append(float(step_f(*batches[0][:3], gen)["loss"]))
+    log(f"train step {hier}, 20 steps on one batch: loss "
+        + " ".join(f"{x:.3f}" for x in losses))
+    # random codes: the loss falls from the initial model's toward the
+    # codes' entropy, ln(512) = 6.24, and below it as the batch is learnt
+    if not (losses[-1] < losses[0] - 0.25
+            and min(losses[-5:]) < min(losses[:5])):
+        fail(f"{hier}: the loss did not fall over 20 steps on one batch")
+
+
+def profile_kernels(torch, fn, reps=1):
+    """Device time by kernel name of ``reps`` calls of ``fn`` under
+    ``torch.profiler`` (per call), the host clock's ms per call around them
+    (ended by a synchronize) and the share of that wall time in which no
+    kernel ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        total = getattr(evt, "device_time_total", None)
+        if total is None:
+            total = evt.cuda_time_total
+        kernels[evt.key] = (total / 1e3 / reps, evt.count / reps)
+    busy = sum(ms for ms, _ in kernels.values())
+    return kernels, wall_ms, busy
+
+
+def kernel_family(name):
+    if name.startswith("void") and "attn_" in name:
+        return "training attention kernels"
+    lowered = name.lower()
+    if any(k in lowered for k in ("gemm", "cutlass", "sm90_xmma", "nvjet")):
+        return "cuBLAS products"
+    if "optimizer" in lowered or "adam" in lowered or "foreach" in lowered:
+        return "optimizer (foreach)"
+    return "other (elementwise, reductions, copies)"
+
+
+def profile_train_step(torch, store, hier, bf16):
+    """Where one warm training step's device time goes."""
+    model, step, batches = step_setup(torch, store, hier, bf16=bf16)
+    gen = torch.Generator().manual_seed(5)
+    it = iter(batches * 2)
+    kernels, wall_ms, busy = profile_kernels(
+        torch, lambda: step(*next(it)[:3], gen), reps=3)
+    families = {}
+    for name, (ms, count) in kernels.items():
+        fam = families.setdefault(kernel_family(name), [0.0, 0.0])
+        fam[0] += ms
+        fam[1] += count
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    del model, step, batches
+    return {"wall_ms": round(wall_ms, 3), "device_busy_ms": round(busy, 3),
+            "device_idle_share": round(1.0 - busy / wall_ms, 4),
+            "families_ms_launches": {k: [round(v[0], 3), round(v[1], 1)]
+                                     for k, v in families.items()},
+            "top_kernels_ms": {k[:90]: round(v[0], 3) for k, v in top}}
+
+
+def epoch_record(run_dir, hier):
+    import pathlib
+    path = pathlib.Path(run_dir) / "tb" / "metrics.jsonl"
+    records = [json.loads(line) for line in path.read_text().splitlines()]
+    epochs = [r for r in records if f"{hier}/epoch/epoch_s" in r]
+    validation = [r for r in records if f"{hier}/validation/loss" in r]
+    if not epochs or not validation:
+        fail(f"{path} holds no epoch or validation record")
+    return {k.split("/")[-1]: round(v, 4) for k, v in
+            {**epochs[-1], **validation[-1]}.items()
+            if k.startswith(f"{hier}/")}
+
+
+def phase_train(torch, state, captured):
+    """The prior trainer at the flagship width; see the module docstring.
+    -> the attention launches of the main path (one epoch of each prior)."""
+    import pathlib
+    import numpy as np
+    from interactive_spectrogram_inpainting_tpu_torch.models.prior import (
+        attention)
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        train_attention as ta)
+    from interactive_spectrogram_inpainting_tpu_torch.serve import server
+    from interactive_spectrogram_inpainting_tpu_torch.serve.http_app import (
+        Request)
+    from interactive_spectrogram_inpainting_tpu_torch.train import (
+        checkpoint, train_prior as tp)
+    from interactive_spectrogram_inpainting_tpu_torch.utils.checkpoint_io \
+        import prior_from_parameters_and_weights
+    cfg_b = state.bottom.config
+    l_self = cfg_b.target_sequence_length + cfg_b.target_num_channels
+    steps = TRAIN_RECORDS // TRAIN_BATCH
+    calls = captured.setdefault("fused_train_attention", [])
+
+    def capture(q, k, v, ab):
+        # keep one float32 decoder self-attention of the main path (forward
+        # inputs and the backward's output cotangent) for the kernels line
+        out = ta.fused_train_attention(q, k, v, ab)
+        if not calls and q.dtype == torch.float32 \
+                and q.shape[1] == k.shape[1] == l_self:
+            kept = tuple(t.detach() for t in (q, k, v, ab))
+            out.register_hook(lambda g: calls.append(kept + (g.contiguous(),))
+                              if not calls else None)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "codes")
+        write_train_store(torch, state, store)
+        runs = {name: os.path.join(tmp, name) for name in
+                ("top", "bottom", "bf16", "remat", "resume")}
+        # the main path: one epoch of each prior, kernels counted
+        attention.fused_train_attention = capture
+        reset_attention_launches()
+        try:
+            results = {}
+            for hier in ("top", "bottom"):
+                t0 = time.perf_counter()
+                before = attention_launches()
+                tp.main(train_args(store, runs[hier], hier))
+                after = attention_launches()
+                (run_dir,) = pathlib.Path(runs[hier]).iterdir()
+                results[hier] = dict(epoch_record(run_dir, hier),
+                                     wall_s=round(time.perf_counter() - t0, 2))
+                # every train step and every evaluation batch of the epoch
+                want = (ATTENTION_CALLS * 2 * steps, ATTENTION_CALLS * steps)
+                got = (after[0] - before[0], after[1] - before[1])
+                if got != want:
+                    fail(f"{hier} epoch launched {got} forward/backward "
+                         f"attention kernels, expected {want}")
+                for name in (f"{hier}-model_parameters.json",
+                             f"{hier}-weights.msgpack",
+                             "checkpoints/0/state.pt"):
+                    if not (run_dir / name).exists():
+                        fail(f"the {hier} run wrote no {name}")
+                runs[hier] = run_dir
+            launches = attention_launches()
+        finally:
+            attention.fused_train_attention = ta.fused_train_attention
+        log("train epochs (main path, float32, batch 32): "
+            + json.dumps(results))
+        log(f"train main-path attention launches (forward, backward): "
+            f"{launches}")
+
+        # the other switches of the trainer, a few bottom steps each
+        for name, flag in (("bf16", "--bf16"), ("remat", "--remat")):
+            model = tp.main(train_args(
+                store, runs[name], "bottom", flag, "--num_training_samples",
+                str(3 * TRAIN_BATCH), "--disable_writes_to_disk"))
+            if not all(torch.isfinite(p).all() for p in model.parameters()):
+                fail(f"bottom training with {flag} gave non-finite weights")
+            log(f"bottom training with {flag}: 3 steps, weights finite")
+        tp.main(train_args(store, runs["resume"], "top",
+                           "--resume_training_from", str(runs["top"]),
+                           "--num_training_epochs", "2"))
+        (resumed,) = pathlib.Path(runs["resume"]).iterdir()
+        if checkpoint.Checkpointer(resumed).latest_epoch() != 1:
+            fail("the resumed top run did not train epoch 1")
+        log(f"top resumed from epoch 0: {json.dumps(epoch_record(resumed, 'top'))}")
+
+        check_fused_against_dense(torch, store, "bottom")
+        timing = {}
+        for hier in ("top", "bottom"):
+            for bf16 in (False, True):
+                time_train_steps(torch, store, hier, bf16, timing)
+        log("train step timing (batch 32, warm, host clock around "
+            "synchronizes): " + json.dumps(timing))
+        for hier in ("top", "bottom"):
+            for bf16 in (False, True):
+                log(f"train step profile, {hier} "
+                    f"{'bf16' if bf16 else 'f32'} (3 warm steps, "
+                    "torch.profiler, per step): " + json.dumps(
+                        profile_train_step(torch, store, hier, bf16)))
+
+        # the trained priors, from the files the trainer wrote, serve
+        priors = {hier: prior_from_parameters_and_weights(
+            runs[hier] / f"{hier}-model_parameters.json",
+            runs[hier] / f"{hier}-weights.msgpack") for hier in
+            ("top", "bottom")}
+        trained = server.ServerState(
+            state.vqvae, priors["top"], priors["bottom"], state.helper,
+            state.label_encoders, fs_hz=state.fs_hz,
+            max_sound_duration_s=state.max_sound_duration_s,
+            device=state.device, seed=0)
+        top, bottom, mask = request_codes(trained, seed=2)
+        served, server.STATE = server.STATE, trained
+        try:
+            t0 = time.perf_counter()
+            response = server.app.dispatch(Request.synthetic(
+                "/timerange-change", "layer=top&temperature=1.0"
+                "&start_index_top=0&pitch=60&instrument_family_str=keyboard",
+                json.dumps({"top_code": top.tolist(),
+                            "bottom_code": bottom.tolist(),
+                            "mask": mask.tolist()}).encode()))
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            server.STATE = served
+        if response.status != 200:
+            fail(f"/timerange-change from the trained priors returned "
+                 f"{response.status}: {response.body[:200]!r}")
+        out = json.loads(response.body)
+        new_top = np.asarray(out["top_code"])
+        if new_top.shape != top.shape or not np.array_equal(
+                new_top[~mask], top[~mask]):
+            fail("/timerange-change from the trained priors returned wrong "
+                 "codemaps")
+        log(f"/timerange-change from the trained priors: "
+            f"{int((new_top != top).sum())} top codes changed, "
+            f"{ms:.1f} ms (cold)")
+    if not calls:
+        fail("no float32 decoder self-attention was captured")
+    return launches
+
+
+def train_attention_bound(q, k, v, ab, dout):
+    """(bytes, ops) of one forward and of one backward: inputs read once,
+    outputs written once; 4 B H Lq Lk Dh flops forward (two products),
+    10 backward (the scores recomputed, dP, dq, dk, dv)."""
+    batch, lq, heads, dh = q.shape
+    lk = k.shape[1]
+    qkv = nbytes(q) + nbytes(k) + nbytes(v)
+    work = batch * heads * lq * lk * dh
+    fwd = (qkv + nbytes(ab) + nbytes(q), 4 * work)
+    bwd = (qkv + nbytes(ab) + nbytes(dout) + qkv + nbytes(ab), 10 * work)
+    return fwd, bwd
+
+
+def sdpa_train_attention(q, k, v, ab, dout):
+    """Forward and backward of the same function as library calls
+    (``F.scaled_dot_product_attention`` with ``ab`` as a float mask that
+    requires grad, broadcast over the batch); timed as ``library_ms``, the
+    port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    leaves = [t.detach().requires_grad_() for t in
+              (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), ab)]
+    out = F.scaled_dot_product_attention(*leaves[:3],
+                                         attn_mask=leaves[3][None])
+    return torch.autograd.grad(out, leaves, dout.transpose(1, 2))
+
+
+def train_attention_pair(q, k, v, ab, dout):
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        train_attention as ta)
+    ta.train_attention_forward(q, k, v, ab)
+    return ta.train_attention_backward(q, k, v, ab, dout)
+
+
+def plain_train_attention_pair(q, k, v, ab, dout):
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        train_attention as ta)
+    ta.reference_train_attention(q, k, v, ab)
+    return ta.reference_train_attention_backward(q, k, v, ab, dout)
+
+
+def train_attention_pair_bound(args, kwargs):
+    fwd, bwd = train_attention_bound(*args)
+    return fwd[0] + bwd[0], fwd[1] + bwd[1]
+
+
 def time_calls(torch, fn, calls, reps):
     """Mean ms of running every call once (CUDA events, after a warmup)."""
     def run():
@@ -1325,7 +1824,7 @@ def phase_kernels(torch, card, captured, launches, errors, state):
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
         decode_attention as dat, decode_scan_kernel as dsk,
         decode_step_batched as dsb, decode_step_kernel as dst,
-        prefix_prime_kernel as ppk, vq_lookup as vql)
+        prefix_prime_kernel as ppk, train_attention as ta, vq_lookup as vql)
     cfg_b = state.bottom.config
     steps_b = cfg_b.target_sequence_length + cfg_b.target_num_channels - 1
     kernels = []
@@ -1337,7 +1836,9 @@ def phase_kernels(torch, card, captured, launches, errors, state):
     # dense sample_model call. VQ lookup: the two lookups of one 4 s
     # /analyze-audio (N = 128, 512) and of one extraction batch (N = 16384,
     # 65536); it is float32 on CUDA cores, so its operations are held
-    # against the float32 non-tensor peak.
+    # against the float32 non-tensor peak. Training attention: one forward
+    # and one backward of a float32 decoder self-attention (516 x 516, batch
+    # 32) of the bottom prior's epoch, against the same peak.
     vq_calls = captured["fused_vq_lookup"]
     vq_timed = vq_calls[:2] + [
         next(call for call in vq_calls if call[0][0].shape[0] == rows)
@@ -1363,13 +1864,21 @@ def phase_kernels(torch, card, captured, launches, errors, state):
              spaced(captured["flash_decode_attention"], 64),
              sdpa_decode_attention),
             ("fused_vq_lookup", vql.fused_vq_lookup, vql.reference_vq_lookup,
-             vq_bound, vq_timed, dense_vq_lookup)):
+             vq_bound, vq_timed, dense_vq_lookup),
+            ("fused_train_attention", train_attention_pair,
+             plain_train_attention_pair, train_attention_pair_bound,
+             [(captured["fused_train_attention"][0], {})],
+             sdpa_train_attention)):
         ms = time_calls(torch, fn, calls, reps=10)
         plain_ms = time_calls(torch, plain, calls, reps=1)
         bounds = [bound(*call) for call in calls]
         b = sum(x[0] for x in bounds)
         ops = sum(x[1] for x in bounds)
-        peak_ops = PEAK_F32_OPS if name == "fused_vq_lookup" else PEAK_BF16_OPS
+        # float32 products on the CUDA cores: the VQ lookup, and the
+        # training attention of the float32 main path
+        peak_ops = (PEAK_F32_OPS if name in ("fused_vq_lookup",
+                                             "fused_train_attention")
+                    else PEAK_BF16_OPS)
         t_bytes, t_ops = b / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
         detail[name] = {"calls_timed": len(calls), "bytes": b, "ops": ops,
                         "host_enqueue_ms": round(host_ms(torch, fn, calls),
@@ -1404,6 +1913,29 @@ def phase_kernels(torch, card, captured, launches, errors, state):
             detail[name]["per_call_bound_ms"] = [
                 round(max(x[0] / PEAK_BYTES_PER_S, x[1] / peak_ops) * 1e3, 6)
                 for x in bounds]
+        if name == "fused_train_attention":
+            q, k, v, ab, dout = calls[0][0]
+            fwd, bwd = train_attention_bound(q, k, v, ab, dout)
+            detail[name].update({
+                "shape_b_lq_lk_h_dh": [q.shape[0], q.shape[1], k.shape[1],
+                                       q.shape[2], q.shape[3]],
+                "forward_ms": round(time_calls(
+                    torch, ta.train_attention_forward,
+                    [((q, k, v, ab), {})], reps=10), 4),
+                "backward_ms": round(time_calls(
+                    torch, ta.train_attention_backward, calls, reps=10), 4),
+                "forward_bound_ms": round(max(
+                    fwd[0] / PEAK_BYTES_PER_S, fwd[1] / peak_ops) * 1e3, 6),
+                "backward_bound_ms": round(max(
+                    bwd[0] / PEAK_BYTES_PER_S, bwd[1] / peak_ops) * 1e3, 6),
+                "launches_per_step_forward_backward": [ATTENTION_CALLS,
+                                                       ATTENTION_CALLS]})
+            by_kernel, _, _ = profile_kernels(
+                torch, lambda: train_attention_pair(q, k, v, ab, dout),
+                reps=5)
+            detail[name]["profiler_ms_by_kernel"] = {
+                (re.search(r"attn_\w+", key) or re.search(r"\w+", key))
+                .group(0): round(ms, 4) for key, (ms, _) in by_kernel.items()}
         source, replaces = KERNEL_SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -1434,8 +1966,11 @@ def main():
     phase_step(torch, state, errors)
     phase_flash(torch, errors)
     phase_vq(torch, errors)
+    phase_train_attention(torch, state, errors)
     captured = {}
     launches = phase_server(torch, state, captured)
+    launches["fused_train_attention"] = sum(phase_train(torch, state,
+                                                        captured))
     phase_kernels(torch, card, captured, launches, errors, state)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,13 @@ Layers are pre-LN. LayerNorm epsilon is flax's 1e-6 (PyTorch's default is
 1e-5). Projections are ``nn.Linear`` over the flattened ``H * Dh`` head
 axis; ``utils/weights.py`` maps the flax ``DenseGeneral`` kernels onto
 them.
+
+Dropout sits where the JAX layers have it: after the feed-forward ``relu``
+and on the self- and cross-attention outputs. A layer's forward takes a
+``dropout_seed``: ``None`` is the deterministic (evaluation) forward; an
+integer seeds a generator of the layer's own on the activations' device,
+so that a forward recomputed under ``torch.utils.checkpoint`` draws the
+same masks.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.decode_attention import flash_decode_attention
+from ...ops.train_attention import fused_train_attention
 
 NEG_INF = -1e9
 LN_EPS = 1e-6
@@ -36,6 +44,25 @@ def grid_coords(length: int, num_channels: int,
 
 def layer_norm(d_model: int) -> nn.LayerNorm:
     return nn.LayerNorm(d_model, eps=LN_EPS)
+
+
+def dropout_generator(seed: Optional[int], device: torch.device
+                      ) -> Optional[torch.Generator]:
+    """The generator of one layer's dropout masks (``None``: no dropout)."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``Dropout``: keep each element with probability ``1 - rate`` and
+    scale it by ``1 / (1 - rate)``; the identity without a generator or at
+    rate 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep / (1.0 - rate)
 
 
 class RelativeAttentionBias(nn.Module):
@@ -84,14 +111,21 @@ class RelativeAttentionBias(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """MHA with additive bias/mask and a cached single-query step."""
+    """MHA with additive bias/mask and a cached single-query step.
 
-    def __init__(self, d_model: int, num_heads: int):
+    ``use_fused=True`` routes the batched forward through
+    ``ops/train_attention.py`` (the training kernels on the GPU): the bias
+    and the mask are folded into one float32 ``ab [H, Lq, Lk]`` and the
+    probabilities never reach device memory. Parameters and outputs are the
+    same either way (up to bf16 rounding)."""
+
+    def __init__(self, d_model: int, num_heads: int, use_fused: bool = False):
         super().__init__()
         assert d_model % num_heads == 0
         self.d_model = d_model
         self.num_heads = num_heads
         self.head_dim = d_model // num_heads
+        self.use_fused = use_fused
         self.q = nn.Linear(d_model, d_model)
         self.k = nn.Linear(d_model, d_model)
         self.v = nn.Linear(d_model, d_model)
@@ -108,6 +142,15 @@ class MultiHeadAttention(nn.Module):
         q = self._heads(self.q(q_in))
         k = self._heads(self.k(kv_in))
         v = self._heads(self.v(kv_in))
+        if self.use_fused:
+            ab = torch.zeros(self.num_heads, q.shape[1], k.shape[1],
+                             device=q.device, dtype=torch.float32)
+            if bias is not None:
+                ab = ab + bias.float()
+            if mask is not None:
+                ab = ab + mask[None].float()
+            out = fused_train_attention(q, k, v, ab)
+            return self.o(out.reshape(out.shape[:2] + (self.d_model,)))
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
         logits = logits / math.sqrt(float(self.head_dim))
         if bias is not None:
@@ -143,33 +186,41 @@ class MultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, d_model: int, d_ff: int):
+    def __init__(self, d_model: int, d_ff: int, dropout: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(d_model, d_ff)
         self.fc2 = nn.Linear(d_ff, d_model)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.relu(self.fc1(x)))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.fc2(dropout(F.relu(self.fc1(x)), self.dropout,
+                                generator))
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
-                 num_channels: int, num_events: int):
+                 num_channels: int, num_events: int, dropout: float = 0.0,
+                 fused_attention: bool = False):
         super().__init__()
         self.self_bias = RelativeAttentionBias(
             num_heads, num_channels, num_events, num_channels, num_events)
-        self.self_attn = MultiHeadAttention(d_model, num_heads)
+        self.self_attn = MultiHeadAttention(d_model, num_heads,
+                                            use_fused=fused_attention)
         self.ln1 = layer_norm(d_model)
         self.ln2 = layer_norm(d_model)
-        self.mlp = FeedForward(d_model, d_ff)
+        self.mlp = FeedForward(d_model, d_ff, dropout)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        gen = dropout_generator(dropout_seed, x.device)
         length = x.shape[1]
         bias = self.self_bias.full(length, length)
         h = self.ln1(x)
-        x = x + self.self_attn(h, h, bias=bias, mask=mask)
-        return x + self.mlp(self.ln2(x))
+        x = x + dropout(self.self_attn(h, h, bias=bias, mask=mask),
+                        self.dropout, gen)
+        return x + self.mlp(self.ln2(x), gen)
 
 
 class DecoderLayer(nn.Module):
@@ -181,10 +232,12 @@ class DecoderLayer(nn.Module):
                  num_channels_encoder: int, num_events_encoder: int,
                  num_channels_decoder: int, num_events_decoder: int,
                  cross_bias_type: str = "relative_attention_target_source",
-                 aligned: bool = False):
+                 aligned: bool = False, dropout: float = 0.0,
+                 fused_attention: bool = False):
         super().__init__()
         self.num_channels_decoder = num_channels_decoder
         self.aligned = aligned
+        self.dropout = dropout
         self.self_bias = RelativeAttentionBias(
             num_heads, num_channels_decoder, num_events_decoder,
             num_channels_decoder, num_events_decoder)
@@ -196,12 +249,14 @@ class DecoderLayer(nn.Module):
             self.cross_bias = None
         else:
             raise ValueError(cross_bias_type)
-        self.self_attn = MultiHeadAttention(d_model, num_heads)
-        self.cross_attn = MultiHeadAttention(d_model, num_heads)
+        self.self_attn = MultiHeadAttention(d_model, num_heads,
+                                            use_fused=fused_attention)
+        self.cross_attn = MultiHeadAttention(d_model, num_heads,
+                                             use_fused=fused_attention)
         self.ln1 = layer_norm(d_model)
         self.ln2 = layer_norm(d_model)
         self.ln3 = layer_norm(d_model)
-        self.mlp = FeedForward(d_model, d_ff)
+        self.mlp = FeedForward(d_model, d_ff, dropout)
 
     def _aligned_mask(self, len_q: int, len_k: int) -> torch.Tensor:
         """Target event e sees only source position e."""
@@ -213,12 +268,15 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor,
                 tgt_mask: Optional[torch.Tensor] = None,
-                memory_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                memory_mask: Optional[torch.Tensor] = None,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        gen = dropout_generator(dropout_seed, x.device)
         len_q = x.shape[1]
         len_k = memory.shape[1]
         self_bias = self.self_bias.full(len_q, len_q)
         h = self.ln1(x)
-        x = x + self.self_attn(h, h, bias=self_bias, mask=tgt_mask)
+        x = x + dropout(self.self_attn(h, h, bias=self_bias, mask=tgt_mask),
+                        self.dropout, gen)
         cross_bias = (self.cross_bias.full(len_q, len_k)
                       if self.cross_bias is not None else None)
         cross_mask = memory_mask
@@ -226,9 +284,10 @@ class DecoderLayer(nn.Module):
             aligned = self._aligned_mask(len_q, len_k)
             cross_mask = aligned if cross_mask is None else (
                 cross_mask + aligned)
-        x = x + self.cross_attn(self.ln2(x), memory, bias=cross_bias,
-                                mask=cross_mask)
-        return x + self.mlp(self.ln3(x))
+        x = x + dropout(self.cross_attn(self.ln2(x), memory,
+                                        bias=cross_bias, mask=cross_mask),
+                        self.dropout, gen)
+        return x + self.mlp(self.ln3(x), gen)
 
     # -- KV-cached decode ---------------------------------------------------
     def init_memory_kv(self, memory: torch.Tensor):

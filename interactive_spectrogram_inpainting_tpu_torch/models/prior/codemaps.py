@@ -64,6 +64,11 @@ class CodemapsHelper:
         ``seq = codemap.reshape(-1)[perm]`` on the host."""
         return self._gather
 
+    def positions(self) -> np.ndarray:
+        """[L, 2] (f, t) cell of each sequence position (host-side)."""
+        return np.stack([self._gather // self.duration,
+                         self._gather % self.duration], axis=1)
+
 
 class SimpleCodemapsHelper(CodemapsHelper):
     def _build_gather(self) -> np.ndarray:

@@ -14,6 +14,15 @@ Port of ``interactive_spectrogram_inpainting_tpu/models/prior/transformer.py``:
 
 ``TransformerConfig`` reads and writes the same JSON keys as the JAX
 package's config, so one parameters file serves both packages.
+
+Training: ``encode_source`` and ``forward`` take ``deterministic=False``
+and a ``torch.Generator`` for dropout (a CPU generator draws one seed per
+layer without waiting for the device); ``fused_attention`` routes every
+batched attention through the training kernels of
+``ops/train_attention.py``, and ``remat`` recomputes each encoder and
+decoder layer in the backward pass (``torch.utils.checkpoint``; the layer's
+dropout seed is drawn outside it, so the recomputation draws the same
+masks).
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (DecoderLayer, EncoderLayer, anti_causal_mask,
                         causal_mask, identity_mask, layer_norm)
@@ -61,7 +71,8 @@ class TransformerConfig:
     unconditional_model_nhead: int = 8
     use_identity_memory_mask: bool = False
     d_ff: int = 2048
-    # training-only switches of the JAX package, kept for JSON parity
+    # training-only switches: per-layer recomputation in the backward pass
+    # and the training-attention kernels (inference loaders turn both off)
     remat: bool = False
     fused_attention: bool = False
 
@@ -234,7 +245,9 @@ class VQNSynthTransformer(nn.Module):
         tgt_events_ws = cfg.target_num_events + 1
         self.encoder_layers = nn.ModuleList([
             EncoderLayer(d, cfg.conditional_model_nhead, cfg.d_ff,
-                         num_channels=1, num_events=src_events_ws)
+                         num_channels=1, num_events=src_events_ws,
+                         dropout=cfg.dropout,
+                         fused_attention=cfg.fused_attention)
             for _ in range(cfg.conditional_model_num_encoder_layers)])
         self.encoder_norm = layer_norm(d)
         cross_bias_type = ("no_bias" if cfg.use_identity_memory_mask
@@ -246,7 +259,9 @@ class VQNSynthTransformer(nn.Module):
                          num_channels_decoder=cfg.target_num_channels,
                          num_events_decoder=tgt_events_ws,
                          cross_bias_type=cross_bias_type,
-                         aligned=cfg.use_aligned_decoder)
+                         aligned=cfg.use_aligned_decoder,
+                         dropout=cfg.dropout,
+                         fused_attention=cfg.fused_attention)
             for _ in range(cfg.conditional_model_num_decoder_layers)])
         self.decoder_norm = layer_norm(d)
 
@@ -372,29 +387,57 @@ class VQNSynthTransformer(nn.Module):
         return source_sequence, target_sequence
 
     # -- full forward -------------------------------------------------------
-    def encode_source(self, source_sequence: torch.Tensor) -> torch.Tensor:
+    def _dropout_seeds(self, n: int, deterministic: bool,
+                       generator: Optional[torch.Generator]) -> List:
+        """One dropout seed per layer (``None``: no dropout)."""
+        if deterministic or self.config.dropout == 0.0:
+            return [None] * n
+        if generator is None:
+            raise ValueError("a training forward with dropout needs a "
+                             "torch.Generator")
+        draws = torch.randint(0, 2 ** 62, (n,), generator=generator,
+                              device=generator.device)
+        return [int(x) for x in draws.tolist()]
+
+    def _run_layer(self, layer: nn.Module, seed: Optional[int], *args):
+        if self.config.remat and torch.is_grad_enabled():
+            return checkpoint(lambda *a: layer(*a, dropout_seed=seed), *args,
+                              use_reentrant=False, preserve_rng_state=False)
+        return layer(*args, dropout_seed=seed)
+
+    def encode_source(self, source_sequence: torch.Tensor,
+                      deterministic: bool = True,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
         cfg = self.config
         mask = (anti_causal_mask(source_sequence.shape[1],
                                  source_sequence.device)
                 if cfg.self_conditional_model else None)
+        seeds = self._dropout_seeds(len(self.encoder_layers), deterministic,
+                                    generator)
         h = source_sequence
-        for layer in self.encoder_layers:
-            h = layer(h, mask)
+        for layer, seed in zip(self.encoder_layers, seeds):
+            h = self._run_layer(layer, seed, h, mask)
         return self.encoder_norm(h)
 
     def forward(self, input: torch.Tensor, condition: torch.Tensor,
-                memory: Optional[torch.Tensor] = None
+                memory: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Embedded sequences -> (logits [B, L_tgt, n_class_target], memory)."""
+        """Embedded sequences -> (logits [B, L_tgt, n_class_target], memory).
+        ``deterministic=False`` applies dropout, drawn from ``generator``."""
         cfg = self.config
         if memory is None:
-            memory = self.encode_source(condition)
+            memory = self.encode_source(condition, deterministic, generator)
         tgt_mask = causal_mask(input.shape[1], input.device)
         memory_mask = (identity_mask(memory.shape[1], input.device)
                        if cfg.use_identity_memory_mask else None)
+        seeds = self._dropout_seeds(len(self.decoder_layers), deterministic,
+                                    generator)
         h = input
-        for layer in self.decoder_layers:
-            h = layer(h, memory, tgt_mask, memory_mask)
+        for layer, seed in zip(self.decoder_layers, seeds):
+            h = self._run_layer(layer, seed, h, memory, tgt_mask, memory_mask)
         h = self.decoder_norm(h)
         # keep the start symbol's last position (it predicts token 0) and
         # drop the last position

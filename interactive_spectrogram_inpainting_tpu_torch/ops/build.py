@@ -25,7 +25,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("decode_scan", "prefix_prime", "decode_step",
-           "decode_step_batched", "decode_attention", "vq_lookup")
+           "decode_step_batched", "decode_attention", "vq_lookup",
+           "train_attention")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -394,3 +394,121 @@ def test_bottleneck_on_the_card_runs_the_kernel(device):
         torch.testing.assert_close(getattr(fused, name),
                                    getattr(dense, name), atol=1e-5,
                                    rtol=1e-5)
+
+
+# -- training attention -------------------------------------------------------
+
+def attention_inputs(device, batch, lq, lk, heads, dh, dtype, mask=None,
+                     seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(batch, n, heads, dh, generator=gen).to(dtype)
+               for n in (lq, lk, lk))
+    ab = torch.randn(heads, lq, lk, generator=gen)
+    if mask is not None:
+        ab = ab + mask[None]
+    dout = torch.randn(batch, lq, heads, dh, generator=gen).to(dtype)
+    return [t.to(device) for t in (q, k, v, ab, dout)]
+
+
+def aligned_mask(lq, lk, channels):
+    e_q = torch.arange(lq) // channels
+    return torch.where(e_q[:, None] == torch.arange(lk)[None, :], 0.0, -1e9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,mask", [
+    ((3, 37, 21, 2, 8), None),          # ragged everything
+    ((2, 129, 129, 3, 24), "anti"),     # odd heads, small Dh
+    ((4, 70, 70, 4, 64), "causal"),
+    ((2, 66, 17, 2, 64), "aligned"),    # cross attention, one key per row
+    ((2, 40, 40, 2, 80), None),         # Dh above 64
+    ((2, 600, 50, 16, 8), None),        # one batch group (no partial dab)
+])
+def test_train_attention_kernels_match_plain(device, dtype, shape, mask):
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        train_attention as ta)
+    batch, lq, lk, heads, dh = shape
+    i = torch.arange(lq)
+    masks = {None: None,
+             "causal": torch.where(i[:, None] >= i[None, :], 0.0, -1e9),
+             "anti": torch.where(i[:, None] <= i[None, :], 0.0, -1e9),
+             "aligned": aligned_mask(lq, lk, 4)}
+    q, k, v, ab, dout = attention_inputs(device, *shape, dtype,
+                                         masks[mask])
+    launches = (ta.train_attention_forward.launches,
+                ta.train_attention_backward.launches)
+    out = ta.train_attention_forward(q, k, v, ab)
+    grads = ta.train_attention_backward(q, k, v, ab, dout)
+    again = ta.train_attention_backward(q, k, v, ab, dout)
+    ref = ta.reference_train_attention(q, k, v, ab)
+    ref_grads = ta.reference_train_attention_backward(q, k, v, ab, dout)
+    torch.cuda.synchronize()
+    assert (ta.train_attention_forward.launches,
+            ta.train_attention_backward.launches) == (launches[0] + 1,
+                                                      launches[1] + 2)
+    fwd_tol = (1e-5, 1e-5) if dtype == torch.float32 else (3e-2, 3e-2)
+    grad_tol = (2e-4, 1e-4) if dtype == torch.float32 else (3e-2, 3e-2)
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=fwd_tol[0],
+                               rtol=fwd_tol[1])
+    for name, got, want, rep in zip(("dq", "dk", "dv", "dab"), grads,
+                                    ref_grads, again):
+        assert got.dtype == want.dtype, name
+        assert torch.equal(got, rep), f"{name} differs between two calls"
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=grad_tol[0], rtol=grad_tol[1],
+                                   msg=name)
+
+
+def test_train_attention_autograd_on_the_card(device):
+    """The autograd function launches one forward and one backward."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        train_attention as ta)
+    q, k, v, ab, dout = attention_inputs(device, 2, 20, 12, 2, 16,
+                                         torch.float32, seed=3)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, ab)]
+    before = ta.train_attention_backward.launches
+    out = ta.fused_train_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, dout)
+    assert ta.train_attention_backward.launches == before + 1
+    ref = [t.clone().requires_grad_() for t in (q, k, v, ab)]
+    want = torch.autograd.grad(ta.reference_train_attention(*ref), ref, dout)
+    for got, w in zip(grads, want):
+        torch.testing.assert_close(got, w, atol=2e-4, rtol=1e-4)
+
+
+def test_train_prior_two_steps_on_the_card(device, tmp_path):
+    """``train_prior.main`` on the card: two steps of a tiny bottom prior
+    (1 encoder and 2 decoder layers: 5 attention calls a step) through the
+    training kernels, then its evaluation, and the trained files."""
+    from interactive_spectrogram_inpainting_tpu_torch.data.codemap_store \
+        import CodemapStoreWriter
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        train_attention as ta)
+    from interactive_spectrogram_inpainting_tpu_torch.train import (
+        train_prior)
+    rng = np.random.default_rng(0)
+    store = tmp_path / "codes"
+    with CodemapStoreWriter(store, (4, 2), (8, 4), [], n_class=16) as w:
+        for i in range(8):
+            w.append(rng.integers(0, 16, (4, 2)), rng.integers(0, 16, (8, 4)),
+                     {}, f"note_{i}")
+    before = (ta.train_attention_forward.launches,
+              ta.train_attention_backward.launches)
+    model = train_prior.main([
+        "--hier", "bottom", "--use_aligned_decoder", "--database_path",
+        str(store), "--runs_directory", str(tmp_path / "runs"),
+        "--d_model", "32", "--embeddings_dim", "8",
+        "--positional_embeddings_dim", "8", "--num_encoder_layers", "1",
+        "--num_decoder_layers", "2", "--num_heads", "4", "--d_ff", "64",
+        "--classes_for_conditioning", "--batch_size", "4",
+        "--num_training_epochs", "1"])
+    torch.cuda.synchronize()
+    launches = (ta.train_attention_forward.launches - before[0],
+                ta.train_attention_backward.launches - before[1])
+    # two train steps, then two evaluation batches
+    assert launches == (5 * 4, 5 * 2)
+    assert model.config.fused_attention
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+    (run_dir,) = (tmp_path / "runs").iterdir()
+    assert (run_dir / "bottom-weights.msgpack").exists()
