@@ -54,7 +54,11 @@ Phases, each failing the run with a nonzero exit:
    (decoder self 516 x 516 causal, cross 516 x 129 aligned, encoder self
    129 x 129 anti-causal; B = 32, H = 8, Dh = 64), in float32 and
    bfloat16, a second backward bit-identical to the first;
-8. training: ``train_prior.main`` at the flagship width (d_model 512, 6 + 8
+8. spectral loss: the forward and backward kernels against their plain
+   versions at the flagship shapes (every Jukebox and DDSP scale, B = 64
+   rows of 65 536 samples, precision 'high' and 'default': value rtol 1e-5,
+   gradient atol 2e-3 x max), a second forward and backward bit-identical;
+9. prior training: ``train_prior.main`` at the flagship width (d_model 512, 6 + 8
    layers, batch 32) on a store of 256 seeded random codemaps at the full
    geometry: one epoch of the top and of the bottom prior (aligned), whose
    step must launch 22 forward and 22 backward attention kernels; a few
@@ -66,14 +70,31 @@ Phases, each failing the run with a nonzero exit:
    three warm steps of each (device time by kernel family, the device's
    idle share); then the two trained priors, loaded from the files the
    trainer wrote, serve one ``/timerange-change``;
-9. a ``{"kernels": [...]}`` line: each kernel's main-path launches, its
+10. VQ-VAE training: ``train_vqvae.main`` at the README's flagship flags
+   (mel, input normalization, factors top 2 / bottom 16, batch 64, the
+   trainer's width defaults, ``spectral_jukebox``, ``--pallas_vq``, the
+   metric trio at every step) on 256 + 64 seeded 4 s harmonic notes
+   written as an NSynth-shaped directory: one epoch whose spectral-loss
+   launches must equal what its steps imply (12 forward and 3 backward a
+   step, 12 forward an evaluation batch) and whose VQ lookups are counted;
+   two ``--bf16`` steps, a resume, one ``mse`` epoch; one step with the
+   kernels against one with the plain float32 loss (loss rtol 1e-5,
+   gradients atol 5e-3 x max); 20 steps on one batch (the loss must fall);
+   warm ms per step (mse and spectral_jukebox, float32 and bf16) and a
+   ``torch.profiler`` split with the device's idle share; then the trained
+   VQ-VAE with the two priors of phase 9, loaded by
+   ``load_state_from_checkpoints``, serves ``/analyze-audio``,
+   ``/timerange-change`` and ``/get-audio``;
+11. a ``{"kernels": [...]}`` line: each kernel's main-path launches, its
    error against the plain version, its time and the plain version's time
    on the main path's shapes, its bound on this card and, where PyTorch
    has one, the library's time on the same inputs
    (``F.scaled_dot_product_attention`` for the flash attention and, forward
    and backward, for the training attention; for the VQ lookup the dense
    path ``torch.matmul`` + ``argmin`` + ``F.embedding``, a composition of
-   calls that gives ids and quantize only).
+   calls that gives ids and quantize only; for the spectral loss
+   ``torch.stft`` + magnitudes + distance, forward and backward by
+   autograd, on the three Jukebox scales of the main path's first step).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -81,8 +102,10 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import io
 import json
+import math
 import os
 import re
 import struct
@@ -120,6 +143,9 @@ KERNEL_SOURCES = {
     "fused_train_attention": (
         f"{PKG}/ops/csrc/train_attention.cu",
         "interactive_spectrogram_inpainting_tpu/ops/train_attention.py:309"),
+    "fused_multiscale_loss": (
+        f"{PKG}/ops/csrc/spectral_loss.cu",
+        "interactive_spectrogram_inpainting_tpu/ops/spectral_loss_kernel.py:264"),
 }
 STEPS_CHECKED = 32   # consecutive positions a step kernel is checked over
 STEPS_TIMED = 32     # captured steps (evenly spaced) a step kernel is timed on
@@ -134,6 +160,17 @@ ATTENTION_CALLS = 22
 # width flags of the training phase: none, the trainer's defaults are the
 # flagship width (a rehearsal on the CPU narrows them)
 TRAIN_MODEL_ARGS: list = []
+# the VQ-VAE trainer at the README's flagship flags; its width defaults
+# (hidden 128, residual 32, 2 residual blocks, codes 64 x 512) are the
+# flagship width (a rehearsal on the CPU narrows them)
+VQVAE_TRAIN_NOTES = 256
+VQVAE_VALID_NOTES = 64
+VQVAE_BATCH = 64
+VQVAE_FLAGS = ["--use_mel_scale", "--input_normalization",
+               "--resolution_factors", "top=2,bottom=16"]
+VQVAE_MODEL_ARGS: list = []
+SPECTRAL_BATCH = 64        # the flagship batch of 4 s notes
+SPECTRAL_SAMPLES = 65536   # audio decoded from a [2, 1024, 128] spectrogram
 DEVICE = "cuda"
 
 
@@ -1453,9 +1490,11 @@ def epoch_record(run_dir, hier):
             if k.startswith(f"{hier}/")}
 
 
-def phase_train(torch, state, captured):
+def phase_train(torch, state, captured, workdir):
     """The prior trainer at the flagship width; see the module docstring.
-    -> the attention launches of the main path (one epoch of each prior)."""
+    Its runs stay in ``workdir`` (``captured["prior_runs"]``: the VQ-VAE
+    phase serves from them). -> the attention launches of the main path
+    (one epoch of each prior)."""
     import pathlib
     import numpy as np
     from interactive_spectrogram_inpainting_tpu_torch.models.prior import (
@@ -1485,112 +1524,623 @@ def phase_train(torch, state, captured):
                               if not calls else None)
         return out
 
-    with tempfile.TemporaryDirectory() as tmp:
-        store = os.path.join(tmp, "codes")
-        write_train_store(torch, state, store)
-        runs = {name: os.path.join(tmp, name) for name in
-                ("top", "bottom", "bf16", "remat", "resume")}
-        # the main path: one epoch of each prior, kernels counted
-        attention.fused_train_attention = capture
-        reset_attention_launches()
-        try:
-            results = {}
-            for hier in ("top", "bottom"):
-                t0 = time.perf_counter()
-                before = attention_launches()
-                tp.main(train_args(store, runs[hier], hier))
-                after = attention_launches()
-                (run_dir,) = pathlib.Path(runs[hier]).iterdir()
-                results[hier] = dict(epoch_record(run_dir, hier),
-                                     wall_s=round(time.perf_counter() - t0, 2))
-                # every train step and every evaluation batch of the epoch
-                want = (ATTENTION_CALLS * 2 * steps, ATTENTION_CALLS * steps)
-                got = (after[0] - before[0], after[1] - before[1])
-                if got != want:
-                    fail(f"{hier} epoch launched {got} forward/backward "
-                         f"attention kernels, expected {want}")
-                for name in (f"{hier}-model_parameters.json",
-                             f"{hier}-weights.msgpack",
-                             "checkpoints/0/state.pt"):
-                    if not (run_dir / name).exists():
-                        fail(f"the {hier} run wrote no {name}")
-                runs[hier] = run_dir
-            launches = attention_launches()
-        finally:
-            attention.fused_train_attention = ta.fused_train_attention
-        log("train epochs (main path, float32, batch 32): "
-            + json.dumps(results))
-        log(f"train main-path attention launches (forward, backward): "
-            f"{launches}")
-
-        # the other switches of the trainer, a few bottom steps each
-        for name, flag in (("bf16", "--bf16"), ("remat", "--remat")):
-            model = tp.main(train_args(
-                store, runs[name], "bottom", flag, "--num_training_samples",
-                str(3 * TRAIN_BATCH), "--disable_writes_to_disk"))
-            if not all(torch.isfinite(p).all() for p in model.parameters()):
-                fail(f"bottom training with {flag} gave non-finite weights")
-            log(f"bottom training with {flag}: 3 steps, weights finite")
-        tp.main(train_args(store, runs["resume"], "top",
-                           "--resume_training_from", str(runs["top"]),
-                           "--num_training_epochs", "2"))
-        (resumed,) = pathlib.Path(runs["resume"]).iterdir()
-        if checkpoint.Checkpointer(resumed).latest_epoch() != 1:
-            fail("the resumed top run did not train epoch 1")
-        log(f"top resumed from epoch 0: {json.dumps(epoch_record(resumed, 'top'))}")
-
-        check_fused_against_dense(torch, store, "bottom")
-        timing = {}
+    store = os.path.join(workdir, "codes")
+    write_train_store(torch, state, store)
+    runs = {name: os.path.join(workdir, name) for name in
+            ("top", "bottom", "bf16", "remat", "resume")}
+    # the main path: one epoch of each prior, kernels counted
+    attention.fused_train_attention = capture
+    reset_attention_launches()
+    try:
+        results = {}
         for hier in ("top", "bottom"):
-            for bf16 in (False, True):
-                time_train_steps(torch, store, hier, bf16, timing)
-        log("train step timing (batch 32, warm, host clock around "
-            "synchronizes): " + json.dumps(timing))
-        for hier in ("top", "bottom"):
-            for bf16 in (False, True):
-                log(f"train step profile, {hier} "
-                    f"{'bf16' if bf16 else 'f32'} (3 warm steps, "
-                    "torch.profiler, per step): " + json.dumps(
-                        profile_train_step(torch, store, hier, bf16)))
-
-        # the trained priors, from the files the trainer wrote, serve
-        priors = {hier: prior_from_parameters_and_weights(
-            runs[hier] / f"{hier}-model_parameters.json",
-            runs[hier] / f"{hier}-weights.msgpack") for hier in
-            ("top", "bottom")}
-        trained = server.ServerState(
-            state.vqvae, priors["top"], priors["bottom"], state.helper,
-            state.label_encoders, fs_hz=state.fs_hz,
-            max_sound_duration_s=state.max_sound_duration_s,
-            device=state.device, seed=0)
-        top, bottom, mask = request_codes(trained, seed=2)
-        served, server.STATE = server.STATE, trained
-        try:
             t0 = time.perf_counter()
-            response = server.app.dispatch(Request.synthetic(
-                "/timerange-change", "layer=top&temperature=1.0"
-                "&start_index_top=0&pitch=60&instrument_family_str=keyboard",
-                json.dumps({"top_code": top.tolist(),
-                            "bottom_code": bottom.tolist(),
-                            "mask": mask.tolist()}).encode()))
-            ms = (time.perf_counter() - t0) * 1e3
-        finally:
-            server.STATE = served
-        if response.status != 200:
-            fail(f"/timerange-change from the trained priors returned "
-                 f"{response.status}: {response.body[:200]!r}")
-        out = json.loads(response.body)
-        new_top = np.asarray(out["top_code"])
-        if new_top.shape != top.shape or not np.array_equal(
-                new_top[~mask], top[~mask]):
-            fail("/timerange-change from the trained priors returned wrong "
-                 "codemaps")
-        log(f"/timerange-change from the trained priors: "
-            f"{int((new_top != top).sum())} top codes changed, "
-            f"{ms:.1f} ms (cold)")
+            before = attention_launches()
+            tp.main(train_args(store, runs[hier], hier))
+            after = attention_launches()
+            (run_dir,) = pathlib.Path(runs[hier]).iterdir()
+            results[hier] = dict(epoch_record(run_dir, hier),
+                                 wall_s=round(time.perf_counter() - t0, 2))
+            # every train step and every evaluation batch of the epoch
+            want = (ATTENTION_CALLS * 2 * steps, ATTENTION_CALLS * steps)
+            got = (after[0] - before[0], after[1] - before[1])
+            if got != want:
+                fail(f"{hier} epoch launched {got} forward/backward "
+                     f"attention kernels, expected {want}")
+            for name in (f"{hier}-model_parameters.json",
+                         f"{hier}-weights.msgpack",
+                         "checkpoints/0/state.pt"):
+                if not (run_dir / name).exists():
+                    fail(f"the {hier} run wrote no {name}")
+            runs[hier] = run_dir
+        launches = attention_launches()
+    finally:
+        attention.fused_train_attention = ta.fused_train_attention
+    log("train epochs (main path, float32, batch 32): "
+        + json.dumps(results))
+    log(f"train main-path attention launches (forward, backward): "
+        f"{launches}")
+
+    # the other switches of the trainer, a few bottom steps each
+    for name, flag in (("bf16", "--bf16"), ("remat", "--remat")):
+        model = tp.main(train_args(
+            store, runs[name], "bottom", flag, "--num_training_samples",
+            str(3 * TRAIN_BATCH), "--disable_writes_to_disk"))
+        if not all(torch.isfinite(p).all() for p in model.parameters()):
+            fail(f"bottom training with {flag} gave non-finite weights")
+        log(f"bottom training with {flag}: 3 steps, weights finite")
+    tp.main(train_args(store, runs["resume"], "top",
+                       "--resume_training_from", str(runs["top"]),
+                       "--num_training_epochs", "2"))
+    (resumed,) = pathlib.Path(runs["resume"]).iterdir()
+    if checkpoint.Checkpointer(resumed).latest_epoch() != 1:
+        fail("the resumed top run did not train epoch 1")
+    log(f"top resumed from epoch 0: {json.dumps(epoch_record(resumed, 'top'))}")
+
+    check_fused_against_dense(torch, store, "bottom")
+    timing = {}
+    for hier in ("top", "bottom"):
+        for bf16 in (False, True):
+            time_train_steps(torch, store, hier, bf16, timing)
+    log("train step timing (batch 32, warm, host clock around "
+        "synchronizes): " + json.dumps(timing))
+    for hier in ("top", "bottom"):
+        for bf16 in (False, True):
+            log(f"train step profile, {hier} "
+                f"{'bf16' if bf16 else 'f32'} (3 warm steps, "
+                "torch.profiler, per step): " + json.dumps(
+                    profile_train_step(torch, store, hier, bf16)))
+
+    # the trained priors, from the files the trainer wrote, serve
+    priors = {hier: prior_from_parameters_and_weights(
+        runs[hier] / f"{hier}-model_parameters.json",
+        runs[hier] / f"{hier}-weights.msgpack") for hier in
+        ("top", "bottom")}
+    trained = server.ServerState(
+        state.vqvae, priors["top"], priors["bottom"], state.helper,
+        state.label_encoders, fs_hz=state.fs_hz,
+        max_sound_duration_s=state.max_sound_duration_s,
+        device=state.device, seed=0)
+    top, bottom, mask = request_codes(trained, seed=2)
+    served, server.STATE = server.STATE, trained
+    try:
+        t0 = time.perf_counter()
+        response = server.app.dispatch(Request.synthetic(
+            "/timerange-change", "layer=top&temperature=1.0"
+            "&start_index_top=0&pitch=60&instrument_family_str=keyboard",
+            json.dumps({"top_code": top.tolist(),
+                        "bottom_code": bottom.tolist(),
+                        "mask": mask.tolist()}).encode()))
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        server.STATE = served
+    if response.status != 200:
+        fail(f"/timerange-change from the trained priors returned "
+             f"{response.status}: {response.body[:200]!r}")
+    out = json.loads(response.body)
+    new_top = np.asarray(out["top_code"])
+    if new_top.shape != top.shape or not np.array_equal(
+            new_top[~mask], top[~mask]):
+        fail("/timerange-change from the trained priors returned wrong "
+             "codemaps")
+    log(f"/timerange-change from the trained priors: "
+        f"{int((new_top != top).sum())} top codes changed, "
+        f"{ms:.1f} ms (cold)")
+    captured["prior_runs"] = {h: runs[h] for h in ("top", "bottom")}
     if not calls:
         fail("no float32 decoder self-attention was captured")
     return launches
+
+
+def phase_spectral_loss(torch, results):
+    """The spectral-loss kernels against their plain versions at the
+    flagship shapes: every Jukebox and DDSP scale, B = 64 rows of 65 536
+    samples, precision 'high' and 'default'. The value (the total and each
+    row) within rtol 1e-5; the gradient (the kernel's backward of the
+    kernel's U against the plain backward of the plain U) within atol
+    2e-3 x max|grad|; a second forward and backward give the same bits."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        spectral_loss_kernel as sk)
+    from interactive_spectrogram_inpainting_tpu_torch.train import losses
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    pred = 0.3 * torch.randn(SPECTRAL_BATCH, SPECTRAL_SAMPLES, generator=gen,
+                             device=DEVICE)
+    target = pred + 0.05 * torch.randn(pred.shape, generator=gen,
+                                       device=DEVICE)
+    one = torch.ones((), device=DEVICE)
+    errs = []
+    for name, make in (("Jukebox", losses.make_jukebox_loss),
+                       ("DDSP", losses.make_ddsp_loss)):
+        for precision in ("high", "default"):
+            loss = dataclasses.replace(make(), precision=precision)
+            worst = {"value_rel": 0.0, "grad_rel": 0.0}
+            same = True
+            for cfg in loss.scale_configs(*pred.shape):
+                runs = []
+                for _ in range(2):
+                    rows, total, u = sk.scale_loss_forward(pred, target, cfg)
+                    runs.append((rows, total, u, sk.scale_loss_backward(
+                        u, one, cfg, SPECTRAL_SAMPLES)))
+                ref_rows, ref_u = sk.reference_scale_loss(pred, target, cfg)
+                ref_d = sk.reference_scale_loss_backward(
+                    ref_u, one, cfg, SPECTRAL_SAMPLES)
+                torch.cuda.synchronize()
+                rows, total, _, d = runs[0]
+                same = same and all(torch.equal(a, b) for a, b in
+                                    zip(runs[0], runs[1]))
+                ref_total = ref_rows.sum()
+                value_rel = max(float((total - ref_total).abs()
+                                      / ref_total.abs()),
+                                float(((rows - ref_rows).abs()
+                                       / ref_rows.abs()).max()))
+                scale = float(ref_d.abs().max())
+                grad_rel = float((d - ref_d).abs().max()) / scale
+                worst["value_rel"] = max(worst["value_rel"], value_rel)
+                worst["grad_rel"] = max(worst["grad_rel"], grad_rel)
+                if not (value_rel <= 1e-5 and grad_rel <= 2e-3
+                        and bool(torch.isfinite(d).all())):
+                    fail(f"spectral loss {name} {precision} scale "
+                         f"{cfg[:3]}: value rel {value_rel:.3e}, gradient "
+                         f"rel {grad_rel:.3e} against the plain version")
+                if precision == "high":
+                    errs += [float((total - ref_total).abs()),
+                             float((d - ref_d).abs().max())]
+            log(f"spectral loss {name} {precision} (B {SPECTRAL_BATCH}, "
+                f"{SPECTRAL_SAMPLES} samples, {len(loss.n_ffts)} scales): "
+                f"worst value rel err {worst['value_rel']:.3e} (rtol 1e-5), "
+                f"gradient {worst['grad_rel']:.3e} x max (atol 2e-3 x max), "
+                f"second forward and backward identical {same}")
+            if not same:
+                fail(f"spectral loss {name} {precision}: a second call gave "
+                     "other bits")
+    results["fused_multiscale_loss"] = errs
+
+
+def write_nsynth_split(torch, root, fs_hz):
+    """VQVAE_TRAIN_NOTES + VQVAE_VALID_NOTES seeded 4 s harmonic notes as an
+    NSynth-shaped directory: ``audio/*.wav``, ``train.json``,
+    ``train_small.json`` (the first two batches) and ``valid.json``."""
+    from interactive_spectrogram_inpainting_tpu_torch.data.wav import (
+        write_wav)
+    families = ["bass", "flute", "keyboard", "organ"]
+    os.makedirs(os.path.join(root, "audio"))
+    splits = {"train": {}, "valid": {}}
+    for i in range(VQVAE_TRAIN_NOTES + VQVAE_VALID_NOTES):
+        pitch = 36 + i % 48
+        name = f"{families[i % 4]}_synthetic_{i:03d}-{pitch:03d}-100"
+        write_wav(os.path.join(root, "audio", f"{name}.wav"),
+                  harmonic_note(300 + i, NOTE_SECONDS, fs_hz, pitch), fs_hz)
+        split = "train" if i < VQVAE_TRAIN_NOTES else "valid"
+        splits[split][name] = {"pitch": pitch, "note_str": name,
+                               "instrument_family_str": families[i % 4]}
+    small = dict(list(splits["train"].items())[:2 * VQVAE_BATCH])
+    for name, meta in (("train", splits["train"]), ("valid", splits["valid"]),
+                       ("train_small", small)):
+        with open(os.path.join(root, f"{name}.json"), "w") as f:
+            json.dump(meta, f)
+
+
+def vqvae_args(data, runs, *extra, split="train"):
+    return (["--dataset_audio_directory_paths", os.path.join(data, "audio"),
+             "--train_dataset_json_data_path",
+             os.path.join(data, f"{split}.json"),
+             "--validation_dataset_json_data_path",
+             os.path.join(data, "valid.json"), "--runs_directory", runs,
+             "--num_training_epochs", "1", "--batch_size", str(VQVAE_BATCH),
+             "--reconstruction_criterion", "spectral_jukebox", "--pallas_vq",
+             "--train_logs_frequency_batches", "1", "--device", DEVICE]
+            + VQVAE_FLAGS + VQVAE_MODEL_ARGS + list(extra))
+
+
+def vqvae_step_setup(torch, data, *extra, seed=0):
+    """(model, train_step, audio batches on the card) of the VQ-VAE trainer
+    at the flagship flags, weights from ``seed``, the normalization
+    statistics of the first batch."""
+    from interactive_spectrogram_inpainting_tpu_torch.data.loader import (
+        BatchLoader)
+    from interactive_spectrogram_inpainting_tpu_torch.data.nsynth import NSynth
+    from interactive_spectrogram_inpainting_tpu_torch.models.vqvae.vqvae \
+        import VQVAE
+    from interactive_spectrogram_inpainting_tpu_torch.signal.spectrogram \
+        import get_spectrograms_helper
+    from interactive_spectrogram_inpainting_tpu_torch.train import (
+        losses, scheduler, train_vqvae as tv)
+    from interactive_spectrogram_inpainting_tpu_torch.utils.weights import (
+        init_like_flax)
+    args = tv.make_parser().parse_args(vqvae_args(data, "", *extra,
+                                                  split="train_small"))
+    helper = get_spectrograms_helper(**vars(args))
+    loader = BatchLoader(NSynth(
+        args.dataset_audio_directory_paths,
+        args.train_dataset_json_data_path,
+        categorical_field_list=["pitch", "instrument_family_str"],
+        duration_seconds=NOTE_SECONDS), VQVAE_BATCH, shuffle=False,
+        prefetch=0)
+    batches = [torch.as_tensor(b[0] if isinstance(b, tuple) else b).to(DEVICE)
+               for b in loader]
+    stats = tv.compute_normalization_statistics(helper, [batches[0]],
+                                                device=DEVICE)
+    config = dataclasses.replace(tv.build_config(args),
+                                 normalizer_statistics=dataclasses.asdict(
+                                     stats))
+    model = init_like_flax(VQVAE(config), torch.Generator().manual_seed(
+        seed)).to(DEVICE)
+    optimizer = scheduler.get_optimizer(model.parameters(), "adam", None,
+                                        args.lr, 100)
+    criterion = losses.get_reconstruction_criterion(
+        args.reconstruction_criterion, helper,
+        precision=args.spectral_precision)
+    step = tv.make_train_step(model, optimizer, criterion, 0.25, helper,
+                              bf16=args.bf16)
+    return model, step, batches
+
+
+def spectral_launches():
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        spectral_loss_kernel as sk)
+    return sk.scale_loss_forward.launches, sk.scale_loss_backward.launches
+
+
+def check_vqvae_kernel_against_plain(torch, data):
+    """One step with the spectral-loss kernels against one with the plain
+    float32 loss (``--spectral_precision highest``: the scales through
+    ``reference_scale_loss`` and autograd), same weights and batch: loss
+    within rtol 1e-5, every gradient within atol 5e-3 x max|grad| (the
+    kernel's U is bfloat16). Then 20 steps on that batch with the kernels:
+    the loss falls."""
+    out = {}
+    for precision in ("high", "highest"):
+        model, step, batches = vqvae_step_setup(
+            torch, data, "--spectral_precision", precision)
+        metrics = step(batches[0], torch.Generator(device=DEVICE))
+        out[precision] = (model, step, batches, metrics)
+    (m_k, step_k, batches, met_k), (m_p, _, _, met_p) = (out["high"],
+                                                         out["highest"])
+    torch.cuda.synchronize()
+    largest = max(float(p.grad.abs().max()) for p in m_p.parameters())
+    loss_k, loss_p = float(met_k["vqvae_loss"]), float(met_p["vqvae_loss"])
+    worst = max((max_err(a.grad, b.grad), name) for (name, a), b in zip(
+        m_k.named_parameters(), m_p.parameters()))
+    log(f"VQ-VAE step, spectral-loss kernels against the plain float32 "
+        f"loss (one batch of {VQVAE_BATCH}): loss {loss_k:.7f} / "
+        f"{loss_p:.7f}; largest gradient difference {worst[0]:.3e} "
+        f"({worst[1]}) against max|grad| {largest:.3e} (atol 5e-3 x max)")
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or \
+            worst[0] > 5e-3 * largest:
+        fail("the VQ-VAE step with the spectral-loss kernels disagrees with "
+             "the plain loss")
+    del out, m_p
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    losses_ = [loss_k] + [float(step_k(batches[0], gen)["vqvae_loss"])
+                          for _ in range(19)]
+    log("VQ-VAE step, 20 steps on one batch: loss "
+        + " ".join(f"{x:.4f}" for x in losses_))
+    if not (losses_[-1] < losses_[0]
+            and min(losses_[-5:]) < min(losses_[:5])):
+        fail("the VQ-VAE loss did not fall over 20 steps on one batch")
+
+
+def time_vqvae_steps(torch, data, criterion, bf16, timing):
+    """Warm ms of one VQ-VAE step at batch 64 (without the metric trio)."""
+    extra = ["--reconstruction_criterion", criterion] + (
+        ["--bf16"] if bf16 else [])
+    model, step, batches = vqvae_step_setup(torch, data, *extra)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    for batch in batches:
+        step(batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = batches * 3
+    t0 = time.perf_counter()
+    for batch in timed:
+        metrics = step(batch, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(timed)
+    if not torch.isfinite(metrics["vqvae_loss"]):
+        fail(f"VQ-VAE {criterion} step loss is not finite")
+    timing[f"{criterion} {'bf16' if bf16 else 'f32'}"] = {
+        "warm_step_ms": round(ms, 3), "steps_timed": len(timed),
+        "max_memory_allocated_gib": round(
+            torch.cuda.max_memory_allocated() / 2 ** 30, 3)}
+    return model, step, batches
+
+
+def vqvae_kernel_family(name):
+    lowered = name.lower()
+    if "spectral_" in lowered:
+        return "spectral-loss kernels"
+    if "vq_" in lowered:
+        return "VQ-lookup kernels"
+    if "fft" in lowered:
+        return "FFT kernels (cuFFT; cuDNN's FFT convolutions)"
+    if any(k in lowered for k in ("conv", "cudnn", "implicit", "winograd",
+                                  "wgrad", "dgrad", "xmma")):
+        return "cuDNN convolutions"
+    return kernel_family(name)
+
+
+def profile_vqvae_step(torch, model, step, batches):
+    """Where one warm VQ-VAE step's device time goes."""
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    it = iter(batches * 3)
+    kernels, wall_ms, busy = profile_kernels(
+        torch, lambda: step(next(it), gen), reps=3)
+    families = {}
+    for name, (ms, count) in kernels.items():
+        fam = families.setdefault(vqvae_kernel_family(name), [0.0, 0.0])
+        fam[0] += ms
+        fam[1] += count
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_ms": round(wall_ms, 3), "device_busy_ms": round(busy, 3),
+            "device_idle_share": round(1.0 - busy / wall_ms, 4),
+            "families_ms_launches": {k: [round(v[0], 3), round(v[1], 1)]
+                                     for k, v in families.items()},
+            "top_kernels_ms": {k[:90]: round(v[0], 3) for k, v in top}}
+
+
+def vqvae_epoch_record(run_dir):
+    import pathlib
+    path = pathlib.Path(run_dir) / "tb" / "metrics.jsonl"
+    records = [json.loads(line) for line in path.read_text().splitlines()]
+    epochs = [r for r in records if "epoch/epoch_s" in r]
+    validation = [r for r in records if "validation/vqvae_loss" in r]
+    if not epochs or not validation:
+        fail(f"{path} holds no epoch or validation record")
+    return {k: round(v, 4) for k, v in {**epochs[-1],
+                                         **validation[-1]}.items()
+            if k.startswith(("epoch/", "validation/"))}
+
+
+def phase_train_vqvae(torch, state, captured, workdir):
+    """The VQ-VAE trainer at the flagship width; see the module docstring.
+    -> (spectral-loss launches of the main path, forward + backward)."""
+    import pathlib
+    import numpy as np
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        spectral_loss_kernel as sk, vq_lookup as vql)
+    from interactive_spectrogram_inpainting_tpu_torch.serve import server
+    from interactive_spectrogram_inpainting_tpu_torch.serve.http_app import (
+        Request)
+    from interactive_spectrogram_inpainting_tpu_torch.train import (
+        checkpoint, losses, train_vqvae as tv)
+    from interactive_spectrogram_inpainting_tpu_torch.data.wav import (
+        write_wav)
+    data = os.path.join(workdir, "nsynth")
+    t0 = time.perf_counter()
+    write_nsynth_split(torch, data, state.fs_hz)
+    log(f"VQ-VAE data: {VQVAE_TRAIN_NOTES} + {VQVAE_VALID_NOTES} notes of "
+        f"{NOTE_SECONDS:g} s written in {time.perf_counter() - t0:.2f} s")
+    runs = {name: os.path.join(workdir, f"vqvae-{name}") for name in
+            ("main", "bf16", "resume", "mse")}
+    calls = captured.setdefault("fused_multiscale_loss", [])
+
+    def capture(pred, target, cfg, reduction="mean"):
+        # keep the three scales of the first Jukebox criterion call of the
+        # main path (the inputs a step's kernels get) for the kernels line
+        if (reduction == "mean" and pred.requires_grad and cfg.mse
+                and cfg.precision == "high" and len(calls) < 3):
+            calls.append(((pred.detach().contiguous(),
+                           target.detach().contiguous(), cfg), {}))
+        return sk.fused_scale_loss(pred, target, cfg, reduction)
+
+    steps = VQVAE_TRAIN_NOTES // VQVAE_BATCH
+    valid_batches = -(-VQVAE_VALID_NOTES // VQVAE_BATCH)
+    n_jukebox, n_ddsp = 3, 6
+    # each train step: the criterion (forward and backward) and the trio's
+    # DDSP and Jukebox forwards; each evaluation batch: criterion and trio
+    want = ((steps + valid_batches) * (n_jukebox + n_ddsp + n_jukebox),
+            steps * n_jukebox)
+    sk.scale_loss_forward.launches = sk.scale_loss_backward.launches = 0
+    vql.fused_vq_lookup.launches = 0
+    losses.fused_scale_loss = capture
+    try:
+        t0 = time.perf_counter()
+        model = tv.main(vqvae_args(data, runs["main"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = spectral_launches()
+        vq_launches = vql.fused_vq_lookup.launches
+    finally:
+        losses.fused_scale_loss = sk.fused_scale_loss
+    (main_run,) = pathlib.Path(runs["main"]).iterdir()
+    log(f"VQ-VAE epoch (main path, spectral_jukebox, float32, batch "
+        f"{VQVAE_BATCH}, {steps} steps + {valid_batches} evaluation batch): "
+        + json.dumps(dict(vqvae_epoch_record(main_run),
+                          wall_s=round(wall, 2))))
+    log(f"VQ-VAE main-path launches: spectral loss forward, backward "
+        f"{launches} (expected {want}), VQ lookup {vq_launches}")
+    if launches != want or vq_launches == 0:
+        fail(f"the VQ-VAE epoch launched {launches} spectral-loss kernels "
+             f"(expected {want}) and {vq_launches} VQ lookups")
+    captured["spectral_launches_main"] = launches
+    for name in ("vqvae-model_parameters.json", "vqvae-weights.msgpack",
+                 "checkpoints/0/state.pt", f"tb/media/original_0-{steps}.wav"):
+        if not (main_run / name).exists():
+            fail(f"the VQ-VAE run wrote no {name}")
+    if not all(torch.isfinite(p).all() for p in model.parameters()):
+        fail("the VQ-VAE epoch gave non-finite weights")
+
+    # the other switches: bf16, resume, the mse criterion
+    model = tv.main(vqvae_args(data, runs["bf16"], "--bf16",
+                               "--disable_writes_to_disk",
+                               split="train_small"))
+    if not all(torch.isfinite(p).all() for p in model.parameters()):
+        fail("VQ-VAE training with --bf16 gave non-finite weights")
+    log("VQ-VAE training with --bf16: 2 steps, weights finite")
+    tv.main(vqvae_args(data, runs["resume"], "--resume_training_from",
+                       str(main_run), "--num_training_epochs", "2",
+                       split="train_small"))
+    (resumed,) = pathlib.Path(runs["resume"]).iterdir()
+    if checkpoint.Checkpointer(resumed).latest_epoch() != 1:
+        fail("the resumed VQ-VAE run did not train epoch 1")
+    log(f"VQ-VAE resumed from epoch 0: "
+        f"{json.dumps(vqvae_epoch_record(resumed))}")
+    tv.main(vqvae_args(data, runs["mse"], "--reconstruction_criterion",
+                       "mse"))
+    (mse_run,) = pathlib.Path(runs["mse"]).iterdir()
+    log(f"VQ-VAE mse epoch: {json.dumps(vqvae_epoch_record(mse_run))}")
+
+    check_vqvae_kernel_against_plain(torch, data)
+    timing = {}
+    for criterion in ("mse", "spectral_jukebox"):
+        for bf16 in (False, True):
+            kept = time_vqvae_steps(torch, data, criterion, bf16, timing)
+            if criterion == "spectral_jukebox" and not bf16:
+                profiled = kept
+            del kept
+    log(f"VQ-VAE step timing (batch {VQVAE_BATCH}, warm, without the metric "
+        "trio, host clock around synchronizes): " + json.dumps(timing))
+    log("VQ-VAE step profile, spectral_jukebox f32 (3 warm steps, "
+        "torch.profiler, per step): "
+        + json.dumps(profile_vqvae_step(torch, *profiled)))
+    del profiled
+
+    # serve: the trained VQ-VAE with the two trained priors
+    priors = captured["prior_runs"]
+    trained = server.load_state_from_checkpoints(
+        main_run / "vqvae-model_parameters.json",
+        main_run / "vqvae-weights.msgpack",
+        main_run / "command_line_parameters.json",
+        priors["top"] / "top-model_parameters.json",
+        priors["top"] / "top-weights.msgpack",
+        priors["bottom"] / "bottom-model_parameters.json",
+        priors["bottom"] / "bottom-weights.msgpack",
+        max_sound_duration_s=state.max_sound_duration_s, device=DEVICE)
+    trained.label_encoders = state.label_encoders
+    cfg_t, cfg_b = trained.top.config, trained.bottom.config
+    n_class = trained.vqvae.config.n_embed_t
+    served, server.STATE = server.STATE, trained
+    try:
+        buf = io.BytesIO()
+        write_wav(buf, harmonic_note(7, NOTE_SECONDS, state.fs_hz),
+                  state.fs_hz)
+        request = Request.synthetic(
+            "/analyze-audio", "pitch=57&instrument_family_str=keyboard")
+        request.files = {"audio": buf.getvalue()}
+        t0 = time.perf_counter()
+        response = server.app.dispatch(request)
+        ms = {"analyze_audio": (time.perf_counter() - t0) * 1e3}
+        if response.status != 200:
+            fail(f"/analyze-audio from the trained VQ-VAE returned "
+                 f"{response.status}: {response.body[:200]!r}")
+        top, bottom = check_codes(np, json.loads(response.body), cfg_t.shape,
+                                  cfg_b.shape, n_class,
+                                  "/analyze-audio (trained VQ-VAE)")
+        mask = np.zeros(cfg_t.shape, bool)
+        mask[:, cfg_t.shape[1] - 2:] = True
+        body = json.dumps({"top_code": top.tolist(),
+                           "bottom_code": bottom.tolist(),
+                           "mask": mask.tolist()}).encode()
+        t0 = time.perf_counter()
+        response = server.app.dispatch(Request.synthetic(
+            "/timerange-change", "layer=top&temperature=1.0"
+            "&start_index_top=0&pitch=57&instrument_family_str=keyboard",
+            body))
+        ms["timerange_change"] = (time.perf_counter() - t0) * 1e3
+        if response.status != 200:
+            fail(f"/timerange-change (trained models) returned "
+                 f"{response.status}: {response.body[:200]!r}")
+        out = json.loads(response.body)
+        new_top, new_bottom = check_codes(np, out, cfg_t.shape, cfg_b.shape,
+                                          n_class, "/timerange-change "
+                                          "(trained models)")
+        if not np.array_equal(new_top[~mask], top[~mask]):
+            fail("/timerange-change (trained models) changed unmasked codes")
+        t0 = time.perf_counter()
+        response = server.app.dispatch(Request.synthetic(
+            "/get-audio", "", json.dumps({
+                "top_code": new_top.tolist(),
+                "bottom_code": new_bottom.tolist()}).encode()))
+        ms["get_audio"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        server.STATE = served
+    from interactive_spectrogram_inpainting_tpu_torch.data.wav import (
+        read_wav)
+    audio, sr = read_wav(io.BytesIO(response.body)) if \
+        response.status == 200 else (np.zeros(0), 0)
+    frames = cfg_b.shape[1] * int(
+        trained.vqvae.config.resolution_factors["bottom"])
+    if sr != state.fs_hz or audio.shape[-1] != \
+            trained.helper.num_samples(frames) \
+            or not np.isfinite(audio).all():
+        fail(f"/get-audio (trained models) returned {response.status}, "
+             f"{audio.shape} at {sr} Hz")
+    log(f"trained VQ-VAE + trained priors served: /analyze-audio, "
+        f"/timerange-change ({int((new_top != top).sum())} top codes "
+        f"changed), /get-audio; ms (cold) "
+        + json.dumps({k: round(v, 1) for k, v in ms.items()}))
+    if len(calls) != 3:
+        fail(f"captured {len(calls)} Jukebox scales of the main path")
+    return sum(launches)
+
+
+def spectral_bound(pred, target, cfg):
+    """(bytes, ops) of one scale's forward (pred and target -> the loss
+    and U) and backward (U -> the gradient): each half's inputs read once
+    and outputs written once; the operations as an FFT needs them, 2.5
+    n_fft log2 n_fft a real transform of one frame, two transforms a frame
+    forward (pred and target) and one backward (the transposed transform
+    of U). The window, the magnitudes and the distances are O(n_fft) a
+    frame and left out: a lower bound."""
+    batch, length = pred.shape
+    frames = 1 + (length - cfg.n_fft) // cfg.hop
+    u = batch * frames * 2 * (cfg.n_fft // 2 + 1) * 2
+    fft = batch * frames * 2.5 * cfg.n_fft * math.log2(cfg.n_fft)
+    fwd = (2 * nbytes(pred) + u + 4 * (batch + 1), 2 * fft)
+    bwd = (u + nbytes(pred) + 4, fft)
+    return fwd, bwd
+
+
+def spectral_pair_bound(args, kwargs):
+    """The pair as one function of the audio: pred and target read, the
+    loss and the gradient written (U is the halves' own intermediate)."""
+    fwd, bwd = spectral_bound(*args)
+    return 3 * nbytes(args[0]) + 4, fwd[1] + bwd[1]
+
+
+def spectral_pair(pred, target, cfg):
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        spectral_loss_kernel as sk)
+    _, _, u = sk.scale_loss_forward(pred, target, cfg)
+    return sk.scale_loss_backward(u, spectral_one(pred), cfg,
+                                  pred.shape[-1])
+
+
+def plain_spectral_pair(pred, target, cfg):
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        spectral_loss_kernel as sk)
+    _, u = sk.reference_scale_loss(pred, target, cfg)
+    return sk.reference_scale_loss_backward(u, spectral_one(pred), cfg,
+                                            pred.shape[-1])
+
+
+def spectral_one(like):
+    import torch
+    return torch.ones((), device=like.device)
+
+
+def stft_spectral_pair(pred, target, cfg):
+    """The same scale's loss and gradient as library calls: ``torch.stft``
+    (cuFFT, ``center=False``, the Hann window centred in n_fft) of pred and
+    target, magnitudes, the squared or L1 distance, the backward by
+    autograd; timed as ``library_ms``, the port never calls it."""
+    import torch
+    window = torch.hann_window(cfg.win, device=pred.device)
+    leaf = pred.detach().requires_grad_()
+
+    def mag(x):
+        s = torch.stft(x, cfg.n_fft, cfg.hop, cfg.win, window=window,
+                       center=False, return_complex=True)
+        return torch.sqrt(s.real ** 2 + s.imag ** 2 + 1e-12)
+
+    mp, mt = mag(leaf), mag(target)
+    d = mp - mt
+    loss = cfg.lin_w * ((d * d).sum() if cfg.mse else d.abs().sum())
+    if cfg.log_w:
+        dl = torch.log(mp + cfg.log_eps) - torch.log(mt + cfg.log_eps)
+        loss = loss + cfg.log_w * ((dl * dl).sum() if cfg.mse
+                                   else dl.abs().sum())
+    return torch.autograd.grad(loss, leaf)
 
 
 def train_attention_bound(q, k, v, ab, dout):
@@ -1821,6 +2371,7 @@ def spaced(calls, n):
 
 
 def phase_kernels(torch, card, captured, launches, errors, state):
+    spectral_launches_main = captured["spectral_launches_main"]
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
         decode_attention as dat, decode_scan_kernel as dsk,
         decode_step_batched as dsb, decode_step_kernel as dst,
@@ -1868,7 +2419,10 @@ def phase_kernels(torch, card, captured, launches, errors, state):
             ("fused_train_attention", train_attention_pair,
              plain_train_attention_pair, train_attention_pair_bound,
              [(captured["fused_train_attention"][0], {})],
-             sdpa_train_attention)):
+             sdpa_train_attention),
+            ("fused_multiscale_loss", spectral_pair, plain_spectral_pair,
+             spectral_pair_bound, captured["fused_multiscale_loss"],
+             stft_spectral_pair)):
         ms = time_calls(torch, fn, calls, reps=10)
         plain_ms = time_calls(torch, plain, calls, reps=1)
         bounds = [bound(*call) for call in calls]
@@ -1877,7 +2431,8 @@ def phase_kernels(torch, card, captured, launches, errors, state):
         # float32 products on the CUDA cores: the VQ lookup, and the
         # training attention of the float32 main path
         peak_ops = (PEAK_F32_OPS if name in ("fused_vq_lookup",
-                                             "fused_train_attention")
+                                             "fused_train_attention",
+                                             "fused_multiscale_loss")
                     else PEAK_BF16_OPS)
         t_bytes, t_ops = b / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
         detail[name] = {"calls_timed": len(calls), "bytes": b, "ops": ops,
@@ -1936,6 +2491,40 @@ def phase_kernels(torch, card, captured, launches, errors, state):
             detail[name]["profiler_ms_by_kernel"] = {
                 (re.search(r"attn_\w+", key) or re.search(r"\w+", key))
                 .group(0): round(ms, 4) for key, (ms, _) in by_kernel.items()}
+        if name == "fused_multiscale_loss":
+            from interactive_spectrogram_inpainting_tpu_torch.ops import (
+                spectral_loss_kernel as sk)
+            per_scale = []
+            for args, _ in calls:
+                pred, target, cfg = args
+                fwd, bwd = spectral_bound(*args)
+                u = sk.scale_loss_forward(pred, target, cfg)[2]
+                per_scale.append({
+                    "n_fft_hop_win": list(cfg[:3]),
+                    "frames": 1 + (pred.shape[1] - cfg.n_fft) // cfg.hop,
+                    "forward_ms": round(time_calls(
+                        torch, sk.scale_loss_forward, [(args, {})],
+                        reps=10), 4),
+                    "forward_no_u_ms": round(time_calls(
+                        torch, sk.scale_loss_forward,
+                        [(args, {"need_u": False})], reps=10), 4),
+                    "backward_ms": round(time_calls(
+                        torch, sk.scale_loss_backward,
+                        [((u, spectral_one(pred), cfg, pred.shape[1]), {})],
+                        reps=10), 4),
+                    "forward_bound_ms": round(max(
+                        fwd[0] / PEAK_BYTES_PER_S, fwd[1] / peak_ops) * 1e3,
+                        6),
+                    "backward_bound_ms": round(max(
+                        bwd[0] / PEAK_BYTES_PER_S, bwd[1] / peak_ops) * 1e3,
+                        6),
+                    "library_ms": round(time_calls(
+                        torch, stft_spectral_pair, [(args, {})], reps=10),
+                        4)})
+            detail[name]["batch_samples"] = list(calls[0][0][0].shape)
+            detail[name]["per_scale"] = per_scale
+            detail[name]["launches_forward_backward"] = list(
+                spectral_launches_main)
         source, replaces = KERNEL_SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -1967,10 +2556,14 @@ def main():
     phase_flash(torch, errors)
     phase_vq(torch, errors)
     phase_train_attention(torch, state, errors)
+    phase_spectral_loss(torch, errors)
     captured = {}
     launches = phase_server(torch, state, captured)
-    launches["fused_train_attention"] = sum(phase_train(torch, state,
-                                                        captured))
+    with tempfile.TemporaryDirectory() as workdir:
+        launches["fused_train_attention"] = sum(phase_train(
+            torch, state, captured, workdir))
+        launches["fused_multiscale_loss"] = phase_train_vqvae(
+            torch, state, captured, workdir)
     phase_kernels(torch, card, captured, launches, errors, state)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -74,9 +74,14 @@ class QuantizedBottleneck(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False, *,
                 generator: Optional[torch.Generator] = None,
                 shift: Optional[torch.Tensor] = None,
-                restart_src: Optional[torch.Tensor] = None
+                restart_src: Optional[torch.Tensor] = None,
+                per_sample: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
+        """``per_sample``: ``diff`` and ``perplexity`` of each batch row
+        alone (``[B]``), as a forward of that row by itself gives them.
+        The output and ``diff`` are float32, as the codebook is: a bfloat16
+        ``x`` is promoted, as the JAX package promotes it."""
         embed = self.embed
         x_last = x.permute(0, 2, 3, 1)  # [B, f, t, dim]
         # cuDNN may hand over a channels-last tensor: the kernel wants rows
@@ -117,10 +122,17 @@ class QuantizedBottleneck(nn.Module):
                              restart_src)
 
         quantize = quantize_flat.reshape(x_last.shape).permute(0, 3, 1, 2)
-        diff = ((quantize.detach() - x) ** 2).mean()
+        sq = (quantize.detach() - x) ** 2
+        diff = sq.reshape(x.shape[0], -1).mean(1) if per_sample else sq.mean()
         quantize = x + (quantize - x).detach()
+        if per_sample:
+            rows = ids.reshape(x.shape[0], -1).long()
+            probs = torch.zeros(rows.shape[0], self.n_embed,
+                                device=rows.device).scatter_add_(
+                1, rows, torch.ones(rows.shape, device=rows.device)
+            ) / rows.shape[1]
         perplexity = torch.exp(
-            -(probs * torch.log(probs.clamp(min=1e-7))).sum())
+            -(probs * torch.log(probs.clamp(min=1e-7))).sum(-1))
         return quantize, diff, ids.reshape(x_last.shape[:-1]), perplexity
 
     @torch.no_grad()
@@ -173,11 +185,13 @@ class UnquantizedBottleneck(nn.Module):
         self.dim = dim
         self.n_embed = n_embed
 
-    def forward(self, x: torch.Tensor, train: bool = False, **_unused):
-        diff = torch.zeros((), dtype=x.dtype, device=x.device)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                per_sample: bool = False, **_unused):
+        shape = (x.shape[0],) if per_sample else ()
+        diff = torch.zeros(shape, dtype=x.dtype, device=x.device)
         ids = torch.zeros((x.shape[0],) + tuple(x.shape[2:]),
                           dtype=torch.int32, device=x.device)
-        perplexity = torch.tensor(float("inf"), device=x.device)
+        perplexity = torch.full(shape, float("inf"), device=x.device)
         return x, diff, ids, perplexity
 
     def embed_code(self, ids: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ Encode: ``enc_b -> enc_t -> 1x1 -> quantize_t -> dec_t -> concat(enc_b) ->
 1x1 -> quantize_b``. Decode: the top quantized map is upsampled to the
 bottom resolution, concatenated with the bottom quantized map and decoded to
 a ``[B, C, F, T]`` spectrogram, then post-processed (denormalized,
-optionally phase-masked). All tensors are channel-first. ``VQVAEConfig``
+optionally phase-masked). ``use_resnet`` swaps the encoders and decoders
+for those of ``resnet.py``. All tensors are channel-first. ``VQVAEConfig``
 reads and writes the JAX package's JSON keys; saving and loading the
 two-file checkpoints is in ``utils/checkpoint_io.py``.
 """
@@ -23,6 +24,7 @@ from ...signal.normalizer import DataNormalizer
 from ...signal.spectrogram import make_masked_phase_transform
 from .bottleneck import QuantizedBottleneck, UnquantizedBottleneck
 from .encoder_decoder import Decoder, Encoder, UpsampleStack
+from .resnet import get_xresnet_unet
 
 
 def _log2_int(x: int) -> int:
@@ -102,10 +104,6 @@ class VQVAE(nn.Module):
     def __init__(self, config: VQVAEConfig):
         super().__init__()
         cfg = self.config = config
-        if cfg.use_resnet:
-            raise NotImplementedError(
-                "the ResNet encoders and decoders (use_resnet) are not "
-                "ported")
         bottleneck_cls = (UnquantizedBottleneck if cfg.disable_quantization
                           else QuantizedBottleneck)
         bottleneck_kwargs = dict(
@@ -121,18 +119,26 @@ class VQVAE(nn.Module):
         factor_b = int(cfg.resolution_factors["bottom"])
         factor_t = int(cfg.resolution_factors["top"])
 
-        self.enc_b = Encoder(in_channel=cfg.in_channel,
-                             resolution_factor=factor_b, **stack_kwargs)
-        self.enc_t = Encoder(in_channel=cfg.num_hidden_channels,
-                             resolution_factor=factor_t, **stack_kwargs)
+        if cfg.use_resnet:
+            encoders, decoders = get_xresnet_unet(
+                cfg.in_channel, cfg.resolution_factors,
+                cfg.num_hidden_channels, cfg.embed_dim,
+                cfg.resnet_layers_per_downsampling_block,
+                cfg.resnet_expansion)
+            self.enc_b, self.enc_t = encoders["bottom"], encoders["top"]
+        else:
+            self.enc_b = Encoder(in_channel=cfg.in_channel,
+                                 resolution_factor=factor_b, **stack_kwargs)
+            self.enc_t = Encoder(in_channel=cfg.num_hidden_channels,
+                                 resolution_factor=factor_t, **stack_kwargs)
         self.quantize_conv_t = nn.Conv2d(cfg.num_hidden_channels,
                                          cfg.embed_dim, 1)
         self.quantize_t = bottleneck_cls(
             n_embed=cfg.n_embed_t,
             corruption_weights=corruption.get("top"), **bottleneck_kwargs)
-        self.dec_t = Decoder(in_channel=cfg.embed_dim,
-                             out_channel=cfg.embed_dim,
-                             resolution_factor=factor_t, **stack_kwargs)
+        self.dec_t = (decoders["top"] if cfg.use_resnet else Decoder(
+            in_channel=cfg.embed_dim, out_channel=cfg.embed_dim,
+            resolution_factor=factor_t, **stack_kwargs))
         self.quantize_conv_b = nn.Conv2d(
             cfg.embed_dim + cfg.num_hidden_channels, cfg.embed_dim, 1)
         self.quantize_b = bottleneck_cls(
@@ -141,9 +147,9 @@ class VQVAE(nn.Module):
         self.upsample_top_to_bottom = UpsampleStack(
             cfg.embed_dim, _log2_int(factor_t),
             use_local_kernels=cfg.use_local_kernels)
-        self.dec = Decoder(in_channel=2 * cfg.embed_dim,
-                           out_channel=cfg.in_channel,
-                           resolution_factor=factor_b, **stack_kwargs)
+        self.dec = (decoders["bottom"] if cfg.use_resnet else Decoder(
+            in_channel=2 * cfg.embed_dim, out_channel=cfg.in_channel,
+            resolution_factor=factor_b, **stack_kwargs))
         self.normalizer = (DataNormalizer(cfg.normalizer_statistics)
                            if cfg.normalizer_statistics else None)
         self.output_transform = (
@@ -151,17 +157,22 @@ class VQVAE(nn.Module):
             if cfg.output_spectrogram_min_magnitude is not None else None)
 
     def forward(self, input: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                per_sample: bool = False):
         """[B, C, F, T] -> (dec, diff, perplexity_t, perplexity_b, id_t,
-        id_b)."""
+        id_b). ``per_sample``: ``diff`` and the perplexities of each row
+        alone, ``[B]`` (what a forward of each row by itself gives; the
+        trainer's exact-count evaluation)."""
         (quant_t, quant_b, diff, id_t, id_b,
          perplexity_t, perplexity_b) = self.encode(input, train=train,
-                                                   generator=generator)
+                                                   generator=generator,
+                                                   per_sample=per_sample)
         dec = self.decode(quant_t, quant_b)
         return dec, diff, perplexity_t, perplexity_b, id_t, id_b
 
     def encode(self, input: torch.Tensor, train: bool = False,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               per_sample: bool = False):
         """[B, C, F, T] -> (quant_t, quant_b, diff, id_t, id_b, perp_t,
         perp_b); quantized maps [B, D, f, t]. ``generator`` feeds the
         bottlenecks' training-time draws (corruption, restarts)."""
@@ -170,11 +181,12 @@ class VQVAE(nn.Module):
         enc_b = self.enc_b(input)
         enc_t = self.enc_t(enc_b)
         quant_t, diff_t, id_t, perplexity_t = self.quantize_t(
-            self.quantize_conv_t(enc_t), train=train, generator=generator)
+            self.quantize_conv_t(enc_t), train=train, generator=generator,
+            per_sample=per_sample)
         dec_t = self.dec_t(quant_t)
         qb_in = self.quantize_conv_b(torch.cat([dec_t, enc_b], dim=1))
         quant_b, diff_b, id_b, perplexity_b = self.quantize_b(
-            qb_in, train=train, generator=generator)
+            qb_in, train=train, generator=generator, per_sample=per_sample)
         return (quant_t, quant_b, diff_t + diff_b, id_t, id_b,
                 perplexity_t, perplexity_b)
 

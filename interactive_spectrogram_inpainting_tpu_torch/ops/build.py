@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Optional
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("decode_scan", "prefix_prime", "decode_step",
            "decode_step_batched", "decode_attention", "vq_lookup",
-           "train_attention")
+           "train_attention", "spectral_loss")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

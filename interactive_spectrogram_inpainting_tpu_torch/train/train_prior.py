@@ -245,21 +245,37 @@ def build_model(args, dataset, fused_attention: bool) -> VQNSynthTransformer:
 
 
 @contextmanager
-def bfloat16_parameters(model: nn.Module):
+def bfloat16_parameters(model: nn.Module, promote: bool = False):
     """Inside the block every floating parameter of ``model`` reads as its
     bfloat16 cast (``p.to(torch.bfloat16)``, differentiable: gradients land
     on the float32 parameter). A backward run inside the block, remat's
-    recomputation included, sees the same casts."""
-    saved = []
+    recomputation included, sees the same casts.
+
+    ``promote``: a module whose input is float32 reads that cast taken back
+    to float32 instead, and computes in float32 on the bfloat16-rounded
+    values: what flax does with a bfloat16 parameter and a float32 input
+    (``jnp.result_type`` promotes both)."""
+    saved, hooks = [], []
     for module in model.modules():
+        casts = {}
         for name, p in list(module._parameters.items()):
             if p is not None and p.is_floating_point():
                 saved.append((module, name, p))
                 del module._parameters[name]
-                setattr(module, name, p.to(torch.bfloat16))
+                half = p.to(torch.bfloat16)
+                casts[name] = (half, half.float() if promote else half)
+                setattr(module, name, half)
+        if promote and casts:
+            def pick(mod, args, casts=casts):
+                i = 0 if args[0].dtype == torch.bfloat16 else 1
+                for name, pair in casts.items():
+                    setattr(mod, name, pair[i])
+            hooks.append(module.register_forward_pre_hook(pick))
     try:
         yield
     finally:
+        for hook in hooks:
+            hook.remove()
         for module, name, p in saved:
             delattr(module, name)
             module._parameters[name] = p

@@ -1,5 +1,6 @@
-"""Scalar metrics of the trainers: a JSONL file always, TensorBoard too when
-``torch.utils.tensorboard`` imports.
+"""Metrics of the trainers: scalars to a JSONL file always, TensorBoard too
+when ``torch.utils.tensorboard`` imports; audio as wav files and images as
+``.npy`` arrays under ``<directory>/media``.
 
 Port of ``interactive_spectrogram_inpainting_tpu/utils/metrics.py`` (the
 metric names are the same, so dashboards carry over). Only process 0
@@ -25,10 +26,14 @@ def process_index() -> int:
     return 0
 
 
-def _float(v) -> float:
+def _numpy(v):
     if isinstance(v, torch.Tensor):
-        return float(v.detach().float().cpu())
-    return float(np.asarray(v))
+        return v.detach().float().cpu().numpy()
+    return v
+
+
+def _float(v) -> float:
+    return float(np.asarray(_numpy(v)))
 
 
 class MetricsWriter:
@@ -58,6 +63,28 @@ class MetricsWriter:
         if self._tb is not None:
             for k, v in values.items():
                 self._tb.add_scalar(f"{tag_prefix}/{k}", v, step)
+
+    def audio(self, tag: str, audio, step: int,
+              sample_rate: int = 16000) -> None:
+        if not self.enabled:
+            return
+        from ..data.wav import write_wav
+        audio = np.asarray(_numpy(audio), np.float32)
+        media = self.directory / "media"
+        media.mkdir(exist_ok=True)
+        write_wav(media / f"{tag.replace('/', '_')}-{step}.wav", audio,
+                  sample_rate)
+        if self._tb is not None:
+            self._tb.add_audio(tag, torch.from_numpy(audio.reshape(1, -1)),
+                               step, sample_rate=sample_rate)
+
+    def image(self, tag: str, image, step: int) -> None:
+        if not self.enabled:
+            return
+        media = self.directory / "media"
+        media.mkdir(exist_ok=True)
+        np.save(media / f"{tag.replace('/', '_')}-{step}.npy",
+                np.asarray(_numpy(image)))
 
     def close(self) -> None:
         if self.enabled:

@@ -8,7 +8,8 @@ the same function:
 - Dense kernels ``[in, out]`` become ``nn.Linear`` weights ``[out, in]``;
   ``DenseGeneral`` q/k/v kernels ``[d, H, Dh]`` and o kernels ``[H, Dh, d]``
   flatten the head axes first;
-- Conv kernels HWIO become OIHW;
+- Conv kernels HWIO become OIHW; LayerNorm and GroupNorm ``scale`` become
+  ``weight``;
 - ConvTranspose kernels ``[kH, kW, I, O]`` (flax, ``padding='SAME'``)
   become ``nn.ConvTranspose2d`` weights ``[I, O, kH, kW]`` with both
   spatial axes flipped (flax's transposed conv correlates, PyTorch's
@@ -164,15 +165,53 @@ def _encoder_state_dict(sd: Dict, prefix: str, node: Mapping) -> None:
         r += 1
 
 
+def _n_convs(node: Mapping) -> int:
+    return sum(1 for key in node if key.startswith("Conv_"))
+
+
+def _resnet_encoder_state_dict(sd: Dict, prefix: str, node: Mapping) -> None:
+    """``XResNetEncoder``: the stem convs, then the residual blocks, then the
+    1x1 output conv (flax numbers the convs in call order)."""
+    n_convs = _n_convs(node)
+    for i in range(n_convs - 1):
+        _conv(sd, f"{prefix}.stem.{i}", node[f"Conv_{i}"])
+    _conv(sd, f"{prefix}.conv_out", node[f"Conv_{n_convs - 1}"])
+    r = 0
+    while f"ResNetBlock_{r}" in node:
+        block, pre = node[f"ResNetBlock_{r}"], f"{prefix}.blocks.{r}"
+        for i in (0, 1):
+            sd[f"{pre}.norm{i + 1}.weight"] = _t(
+                block[f"GroupNorm_{i}"]["scale"])
+            sd[f"{pre}.norm{i + 1}.bias"] = _t(
+                block[f"GroupNorm_{i}"]["bias"])
+            _conv(sd, f"{pre}.conv{i + 1}", block[f"Conv_{i}"])
+        if "Conv_2" in block:
+            _conv(sd, f"{pre}.shortcut", block["Conv_2"])
+        r += 1
+
+
+def _resnet_decoder_state_dict(sd: Dict, prefix: str, node: Mapping) -> None:
+    """``NoSkipUnetDecoder``: three convs per stage, then the output conv."""
+    n_convs = _n_convs(node)
+    for i in range(n_convs - 1):
+        _conv(sd, f"{prefix}.convs.{i}", node[f"Conv_{i}"])
+    _conv(sd, f"{prefix}.conv_out", node[f"Conv_{n_convs - 1}"])
+
+
 def _vqvae_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     p = variables["params"]
     sd: Dict[str, torch.Tensor] = {}
-    _encoder_state_dict(sd, "enc_b", p["enc_b"])
-    _encoder_state_dict(sd, "enc_t", p["enc_t"])
+    # the transposed-conv decoder always upsamples; the ResNet one never
+    # has a ConvTranspose
+    resnet = "ConvTranspose_0" not in p["dec"]
+    encoder = _resnet_encoder_state_dict if resnet else _encoder_state_dict
+    decoder = _resnet_decoder_state_dict if resnet else _decoder_state_dict
+    encoder(sd, "enc_b", p["enc_b"])
+    encoder(sd, "enc_t", p["enc_t"])
     _conv(sd, "quantize_conv_t", p["quantize_conv_t"])
     _conv(sd, "quantize_conv_b", p["quantize_conv_b"])
-    _decoder_state_dict(sd, "dec_t", p["dec_t"])
-    _decoder_state_dict(sd, "dec", p["dec"])
+    decoder(sd, "dec_t", p["dec_t"])
+    decoder(sd, "dec", p["dec"])
     ups = p["upsample_top_to_bottom"]
     i = 0
     while f"ConvTranspose_{i}" in ups:
@@ -313,15 +352,53 @@ def _decoder_node(sd: Mapping, prefix: str) -> Dict:
     return node
 
 
+def _numbered_convs(sd: Mapping, prefix: str, node: Dict) -> int:
+    i = 0
+    while f"{prefix}.{i}.weight" in sd:
+        node[f"Conv_{i}"] = _conv_node(sd, f"{prefix}.{i}")
+        i += 1
+    return i
+
+
+def _resnet_encoder_node(sd: Mapping, prefix: str) -> Dict:
+    node: Dict[str, Any] = {}
+    n = _numbered_convs(sd, f"{prefix}.stem", node)
+    node[f"Conv_{n}"] = _conv_node(sd, f"{prefix}.conv_out")
+    r = 0
+    while f"{prefix}.blocks.{r}.conv1.weight" in sd:
+        pre = f"{prefix}.blocks.{r}"
+        block = {}
+        for i in (0, 1):
+            block[f"GroupNorm_{i}"] = {
+                "scale": _n(sd[f"{pre}.norm{i + 1}.weight"]),
+                "bias": _n(sd[f"{pre}.norm{i + 1}.bias"])}
+            block[f"Conv_{i}"] = _conv_node(sd, f"{pre}.conv{i + 1}")
+        if f"{pre}.shortcut.weight" in sd:
+            block["Conv_2"] = _conv_node(sd, f"{pre}.shortcut")
+        node[f"ResNetBlock_{r}"] = block
+        r += 1
+    return node
+
+
+def _resnet_decoder_node(sd: Mapping, prefix: str) -> Dict:
+    node: Dict[str, Any] = {}
+    n = _numbered_convs(sd, f"{prefix}.convs", node)
+    node[f"Conv_{n}"] = _conv_node(sd, f"{prefix}.conv_out")
+    return node
+
+
 def _vqvae_tree(sd: Mapping) -> Dict:
     ups: Dict[str, Any] = {}
     _upsample_nodes(sd, "upsample_top_to_bottom.layers", ups)
-    params = {"enc_b": _encoder_node(sd, "enc_b"),
-              "enc_t": _encoder_node(sd, "enc_t"),
+    resnet = "enc_b.stem.0.weight" in sd
+    encoder = _resnet_encoder_node if resnet else _encoder_node
+    decoder = _resnet_decoder_node if resnet else _decoder_node
+    params = {"enc_b": encoder(sd, "enc_b"),
+              "enc_t": encoder(sd, "enc_t"),
               "quantize_conv_t": _conv_node(sd, "quantize_conv_t"),
               "quantize_conv_b": _conv_node(sd, "quantize_conv_b"),
-              "dec_t": _decoder_node(sd, "dec_t"),
-              "dec": _decoder_node(sd, "dec"),
+              "dec_t": decoder(sd, "dec_t"),
+              "dec": decoder(sd, "dec"),
               "upsample_top_to_bottom": ups}
     codebook = {
         level: {name: _n(sd[f"{level}.{name}"])
@@ -365,7 +442,7 @@ def init_like_flax(module: nn.Module,
             nn.init.zeros_(sub.bias)
         elif isinstance(sub, nn.Embedding):
             normal_(sub.weight, 1.0 / math.sqrt(sub.embedding_dim))
-        elif isinstance(sub, nn.LayerNorm):
+        elif isinstance(sub, (nn.LayerNorm, nn.GroupNorm)):
             nn.init.ones_(sub.weight)
             nn.init.zeros_(sub.bias)
         elif isinstance(sub, nn.ConvTranspose2d):

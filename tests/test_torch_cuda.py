@@ -512,3 +512,81 @@ def test_train_prior_two_steps_on_the_card(device, tmp_path):
     assert all(torch.isfinite(p).all() for p in model.parameters())
     (run_dir,) = (tmp_path / "runs").iterdir()
     assert (run_dir / "bottom-weights.msgpack").exists()
+
+
+# -- spectral loss ------------------------------------------------------------
+
+SPECTRAL_SCALES = [  # (n_fft, hop, win): Jukebox's three, DDSP's extremes
+    (2048, 240, 1200), (1024, 120, 600), (512, 48, 240), (64, 16, 64),
+    (2048, 512, 2048)]
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("mse", [True, False])
+@pytest.mark.parametrize("scale", SPECTRAL_SCALES)
+def test_spectral_loss_kernels_match_plain(device, scale, mse, precision):
+    """The forward (per-row sums, total, U) and the backward against their
+    plain versions on one scale, 3 rows of 9000 samples; a second call
+    gives the same bits."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        spectral_loss_kernel as sk)
+    n_fft, hop, win = scale
+    gen = torch.Generator().manual_seed(n_fft + hop)
+    pred = (0.3 * torch.randn(3, 9000, generator=gen)).to(device)
+    target = (pred + 0.05 * torch.randn(3, 9000, generator=gen).to(device))
+    cfg = sk.ScaleConfig(n_fft, hop, win, mse, 1e-4, 0.0 if mse else 1e-4,
+                         1e-6, precision)
+    launches = (sk.scale_loss_forward.launches,
+                sk.scale_loss_backward.launches)
+    rows, total, u = sk.scale_loss_forward(pred, target, cfg)
+    rows2, total2, u2 = sk.scale_loss_forward(pred, target, cfg)
+    grad = torch.tensor(0.7, device=device)
+    d = sk.scale_loss_backward(u, grad, cfg, 9000)
+    d2 = sk.scale_loss_backward(u, grad, cfg, 9000)
+    ref_rows, ref_u = sk.reference_scale_loss(pred, target, cfg)
+    ref_d = sk.reference_scale_loss_backward(u, grad, cfg, 9000)
+    torch.cuda.synchronize()
+    assert (sk.scale_loss_forward.launches,
+            sk.scale_loss_backward.launches) == (launches[0] + 2,
+                                                 launches[1] + 2)
+    assert torch.equal(rows, rows2) and torch.equal(total, total2)
+    assert torch.equal(u, u2) and torch.equal(d, d2)
+    torch.testing.assert_close(rows, ref_rows, atol=0, rtol=1e-5)
+    torch.testing.assert_close(total, ref_rows.sum(), atol=0, rtol=1e-5)
+    # U: bf16 of float32 values that differ in their last bits (another
+    # summation order) rounds at most one bf16 step apart
+    scale_u = float(ref_u.float().abs().max())
+    torch.testing.assert_close(u.float(), ref_u.float(), rtol=1e-2,
+                               atol=1e-2 * scale_u)
+    torch.testing.assert_close(d, ref_d, rtol=0,
+                               atol=1e-5 * float(ref_d.abs().max()))
+
+
+def test_spectral_loss_autograd_on_the_card(device):
+    """The multiscale losses on the card: one forward launch per scale,
+    one backward per scale, and the CPU values."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        spectral_loss_kernel as sk)
+    from interactive_spectrogram_inpainting_tpu_torch.train import losses
+    gen = torch.Generator().manual_seed(1)
+    a = 0.3 * torch.randn(2, 8000, generator=gen)
+    b = a + 0.05 * torch.randn(2, 8000, generator=gen)
+    for loss in (losses.make_jukebox_loss(), losses.make_ddsp_loss()):
+        n = len(loss.n_ffts)
+        before = (sk.scale_loss_forward.launches,
+                  sk.scale_loss_backward.launches)
+        x = a.to(device).requires_grad_()
+        value = loss(x, b.to(device))
+        value.backward()
+        assert (sk.scale_loss_forward.launches - before[0],
+                sk.scale_loss_backward.launches - before[1]) == (n, n)
+        xc = a.clone().requires_grad_()
+        ref = loss(xc, b)
+        ref.backward()
+        torch.testing.assert_close(value.detach().cpu(), ref.detach(),
+                                   rtol=1e-5, atol=0)
+        torch.testing.assert_close(x.grad.cpu(), xc.grad, rtol=0,
+                                   atol=2e-3 * float(xc.grad.abs().max()))
+        rows = loss(a.to(device), b.to(device), "none")
+        torch.testing.assert_close(rows.cpu(), loss(a, b, "none"),
+                                   rtol=1e-5, atol=0)

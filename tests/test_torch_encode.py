@@ -426,8 +426,14 @@ def test_vqvae_training_step_updates_both_codebooks_like_jax():
 
 
 def test_vqvae_refuses_only_the_resnet_variant():
-    with pytest.raises(NotImplementedError, match="use_resnet"):
-        tv.VQVAE(tv.VQVAEConfig(use_resnet=True))
+    # the name is kept from when the ResNet variant raised: it is ported now
+    # (models/vqvae/resnet.py) and no variant is refused; the ResNet model
+    # is held against the JAX package in tests/test_torch_vqvae_resnet.py
+    from interactive_spectrogram_inpainting_tpu_torch.models.vqvae import (
+        resnet as tres)
+    model = tv.VQVAE(tv.VQVAEConfig(use_resnet=True))
+    assert isinstance(model.enc_b, tres.XResNetEncoder)
+    assert isinstance(model.dec, tres.NoSkipUnetDecoder)
     tv.VQVAE(tv.VQVAEConfig(num_hidden_channels=8, num_residual_channels=4,
                             embed_dim=4, num_embeddings=8,
                             disable_quantization=True))
