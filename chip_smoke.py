@@ -6,7 +6,9 @@ CUDA device and the CUDA toolkit (``nvcc``); it imports nothing of JAX.
 Phases, each failing the run with a nonzero exit:
 
 1. print the card (``nvidia-smi`` name and power limit), build the kernels
-   from ``interactive_spectrogram_inpainting_tpu_torch/ops/csrc``;
+   from ``interactive_spectrogram_inpainting_tpu_torch/ops/csrc``, and count
+   the tensor-core instructions (HMMA, HGMMA) in the training attention's
+   library with ``cuobjdump -sass`` (none fails the run);
 2. prefix-prime: the kernel against its plain PyTorch version at the full
    priors' width (top prior: relative-bias cross attention; bottom prior:
    aligned), in float32 and in bfloat16;
@@ -25,14 +27,19 @@ Phases, each failing the run with a nonzero exit:
    teacher-forced caches in bfloat16 and float32, greedy float32 tokens
    equal; ``flash_decode_attention`` against ``reference_decode_attention``
    at batch 1 and 16 with ``pos`` in the first, a middle and the last
-   chunk;
+   chunk; the bottom prior sampled fused with one pitch per batch row under
+   one top codemap at B = 2 (``fused_decode_step``) and B = 16
+   (``fused_decode_step_batched``), float32 and greedy: the tokens equal
+   the dense sampler's;
 6. server: the port's server with the full-width test models on the card
    (``use_pallas_lookup=True``: the encode runs the VQ lookup kernel),
    on localhost: three ``/timerange-change`` (``layer=top``, the last two
    of the four top columns masked, so both priors are primed), then three
    ``/get-audio`` (prefix-prime and decode-scan counters must grow); one
    ``/generate`` and two ``/top-conditioned-sample`` of 10 pitches (batch
-   bucket 16: the batched step kernel runs 515 steps per request); then
+   bucket 16: the batched step kernel runs 515 steps per request), and a
+   ``/generate`` from scratch as a server started with
+   ``--use_predictive_sampling`` serves it (the predictive sampler); then
    ``sample_model`` at batch 2 on the bottom prior (half mask, primed) and
    on the top prior (the small-batch step kernel), and the dense sampler
    with ``top_p=0.9, use_flash=True`` at batch 2 (the flash attention
@@ -53,7 +60,8 @@ Phases, each failing the run with a nonzero exit:
    versions at the three attention shapes of the priors' training step
    (decoder self 516 x 516 causal, cross 516 x 129 aligned, encoder self
    129 x 129 anti-causal; B = 32, H = 8, Dh = 64), in float32 and
-   bfloat16, a second backward bit-identical to the first;
+   bfloat16, a second backward bit-identical to the first (the kernels skip
+   the tiles the masks leave empty);
 8. spectral loss: the forward and backward kernels against their plain
    versions at the flagship shapes (every Jukebox and DDSP scale, B = 64
    rows of 65 536 samples, precision 'high' and 'default': value rtol 1e-5,
@@ -90,7 +98,10 @@ Phases, each failing the run with a nonzero exit:
    on the main path's shapes, its bound on this card and, where PyTorch
    has one, the library's time on the same inputs
    (``F.scaled_dot_product_attention`` for the flash attention and, forward
-   and backward, for the training attention; for the VQ lookup the dense
+   and backward, for the training attention, in float32 and in bfloat16
+   (``fused_train_attention_bf16``, the ``--bf16`` run's launches; float32
+   is bound by its three TF32 passes at the TF32 rate); for the VQ lookup
+   the dense
    path ``torch.matmul`` + ``argmin`` + ``F.embedding``, a composition of
    calls that gives ids and quantize only; for the spectral loss
    ``torch.stft`` + magnitudes + distance, forward and backward by
@@ -121,6 +132,7 @@ PKG = "interactive_spectrogram_inpainting_tpu_torch"
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_OPS = 989e12       # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_OPS = 67e12         # H100 SXM float32 outside the tensor cores
+PEAK_TF32_OPS = 495e12       # H100 SXM dense TF32 tensor-core rate
 KERNEL_SOURCES = {
     "fused_prefix_prime": (
         f"{PKG}/ops/csrc/prefix_prime.cu",
@@ -141,6 +153,9 @@ KERNEL_SOURCES = {
         f"{PKG}/ops/csrc/vq_lookup.cu",
         "interactive_spectrogram_inpainting_tpu/ops/vq_lookup.py:94"),
     "fused_train_attention": (
+        f"{PKG}/ops/csrc/train_attention.cu",
+        "interactive_spectrogram_inpainting_tpu/ops/train_attention.py:309"),
+    "fused_train_attention_bf16": (
         f"{PKG}/ops/csrc/train_attention.cu",
         "interactive_spectrogram_inpainting_tpu/ops/train_attention.py:309"),
     "fused_multiscale_loss": (
@@ -262,12 +277,12 @@ def scan_inputs(torch, model, decode_state, codemap, condition, mask,
                                            device=dev, dtype=torch.long),
                                 tokens.long()], dim=1)
         x_prefix = (params["emb_padded"][with_start[:, :p0]].float()
-                    + posfull[:p0].float()).to(dtype)
+                    + posfull[:, :p0].float()).to(dtype)
         kv_shape = (cfg.conditional_model_num_decoder_layers, 2, batch,
                     decode_state["bias_hm"].shape[3], cfg.d_model)
         if not batched:
             mem = (mem[0][:, 0], mem[1][:, 0])
-            tokens, x_prefix = tokens[0], x_prefix[0]
+            tokens, x_prefix, posfull = tokens[0], x_prefix[0], posfull[0]
             kv_shape = kv_shape[:2] + kv_shape[3:]
     return dict(params=params, bias_hm=decode_state["bias_hm"],
                 cross_hm=decode_state["cross_hm"], posfull=posfull, mem=mem,
@@ -380,6 +395,19 @@ def phase_build():
     seconds = build.build()
     log(f"build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})}"
         f" total {time.perf_counter() - t0:.2f} s")
+    # the training attention runs its products on the tensor cores: its
+    # library must hold HMMA (mma.sync) or HGMMA (wgmma) instructions
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
+         "-sass", str(build._library_path("train_attention"))],
+        capture_output=True, text=True)
+    counts = {op: len(re.findall(rf"\b{op}\b", sass.stdout))
+              for op in ("HMMA", "HGMMA")}
+    log(f"train_attention tensor-core instructions (cuobjdump -sass): "
+        f"{json.dumps(counts)}")
+    if sass.returncode != 0 or not sum(counts.values()):
+        fail("the train_attention library holds no HMMA/HGMMA instruction "
+             f"(cuobjdump: {sass.stderr.strip()[:200]})")
     return card
 
 
@@ -533,6 +561,53 @@ def phase_step(torch, state, results):
                     "changed")
                 if diff or not changed:
                     fail(f"{tag}: greedy token streams differ")
+
+
+def phase_per_row_labels(torch, state):
+    """Fused sampling with one pitch per batch row, the bottom prior at full
+    width under one top codemap (as ``/top-conditioned-sample`` samples
+    it): at B = 2 (``fused_decode_step``) and B = 16
+    (``fused_decode_step_batched``), float32 and greedy, the fused tokens
+    must equal the dense sampler's, each row decoded from its own start
+    rows."""
+    import numpy as np
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        decode_step_batched as dsb, decode_step_kernel as dsk)
+    from interactive_spectrogram_inpainting_tpu_torch.sampling.sample import (
+        precompute_decode_state, sample_model, scan_range)
+    model = state.bottom
+    cfg_t, cfg_b = state.top.config, model.config
+    rng = np.random.default_rng(6)
+    decode_state = precompute_decode_state(model, torch.float32)
+    p0, steps = scan_range(model, None, None)
+    for batch, kernel in ((2, dsk.fused_decode_step),
+                          (16, dsb.fused_decode_step_batched)):
+        tops = np.repeat(rng.integers(0, cfg_t.n_class,
+                                      (1,) + tuple(cfg_t.shape)), batch, 0)
+        pitches = list(range(60, 60 + batch))
+        cc = {"pitch": state.label_encoders["pitch"].transform(pitches),
+              "instrument_family_str": state.label_encoders[
+                  "instrument_family_str"].transform(["keyboard"] * batch)}
+        zeros = torch.zeros(steps - p0, batch, cfg_b.n_class, device=DEVICE)
+        before = kernel.launches
+        t0 = time.perf_counter()
+        fused = sample_model(model, None, batch, condition=tops,
+                             class_conditioning=cc, gumbel=zeros,
+                             decode_state=decode_state).cpu().numpy()
+        fused_s = time.perf_counter() - t0
+        launched = kernel.launches - before
+        dense = sample_model(model, None, batch, condition=tops,
+                             class_conditioning=cc, gumbel=zeros,
+                             use_fused_step=False).cpu().numpy()
+        diff = int((fused != dense).sum())
+        distinct = len({row.tobytes() for row in fused})
+        log(f"per-row pitches {pitches[0]}..{pitches[-1]}, bottom prior B="
+            f"{batch} float32 greedy: {kernel.__name__} x {launched} "
+            f"({fused_s:.2f} s), {diff} of {fused.size} tokens differ from "
+            f"the dense sampler, {distinct} distinct rows")
+        if diff or launched != steps - p0 or distinct < 2:
+            fail(f"fused sampling with per-row pitches at B={batch} "
+                 "disagrees with the dense sampler")
 
 
 def phase_flash(torch, results):
@@ -823,6 +898,28 @@ def serve_generation(torch, state, base, reset, read, top_code, latencies):
                     and (gen_bottom >= 0).all()
                     and (gen_bottom < cfg_b.n_class).all()):
         fail(f"/generate returned {status} or malformed codemaps")
+
+    # a server started with --use_predictive_sampling: /generate samples
+    # both priors from scratch with the predictive sampler (the top prior's
+    # codemap starts as the mask token)
+    served = state.sampling_options
+    state.sampling_options = {"predictive": True}
+    try:
+        status, _, data, ms = post(
+            base + "/generate?pitch=60&instrument_family_str=keyboard", {})
+    finally:
+        state.sampling_options = served
+    out = json.loads(data) if status == 200 else {}
+    pred_top = np.asarray(out.get("top_code", []))
+    pred_bottom = np.asarray(out.get("bottom_code", []))
+    if status != 200 or pred_top.shape != tuple(cfg_t.shape) \
+            or pred_bottom.shape != tuple(cfg_b.shape) \
+            or not ((pred_top >= 0).all() and (pred_top < cfg_t.n_class).all()
+                    and (pred_bottom >= 0).all()
+                    and (pred_bottom < cfg_b.n_class).all()):
+        fail(f"predictive /generate returned {status} or malformed codemaps")
+    log(f"/generate under --use_predictive_sampling: {status} in "
+        f"{ms:.1f} ms (cold, full forwards)")
 
     expected = state.helper.num_samples(
         cfg_t.shape[1] * state.vqvae.config.total_resolution_factor)
@@ -1266,9 +1363,9 @@ def phase_train_attention(torch, state, results):
             if not (ok and same):
                 fail(f"train_attention {name} {dtype} disagrees with the "
                      "plain version")
-            if dtype == torch.float32:
-                results.setdefault("fused_train_attention", []).extend(
-                    errs.values())
+            key = ("fused_train_attention" if dtype == torch.float32
+                   else "fused_train_attention_bf16")
+            results.setdefault(key, []).extend(errs.values())
 
 
 def write_train_store(torch, state, path):
@@ -1512,16 +1609,19 @@ def phase_train(torch, state, captured, workdir):
     l_self = cfg_b.target_sequence_length + cfg_b.target_num_channels
     steps = TRAIN_RECORDS // TRAIN_BATCH
     calls = captured.setdefault("fused_train_attention", [])
+    calls_bf16 = captured.setdefault("fused_train_attention_bf16", [])
 
     def capture(q, k, v, ab):
-        # keep one float32 decoder self-attention of the main path (forward
-        # inputs and the backward's output cotangent) for the kernels line
+        # keep one decoder self-attention of each dtype (forward inputs and
+        # the backward's output cotangent) for the kernels line: float32
+        # from the main path, bfloat16 from the --bf16 run
         out = ta.fused_train_attention(q, k, v, ab)
-        if not calls and q.dtype == torch.float32 \
-                and q.shape[1] == k.shape[1] == l_self:
+        kept_calls = calls if q.dtype == torch.float32 else calls_bf16
+        if not kept_calls and q.shape[1] == k.shape[1] == l_self:
             kept = tuple(t.detach() for t in (q, k, v, ab))
-            out.register_hook(lambda g: calls.append(kept + (g.contiguous(),))
-                              if not calls else None)
+            out.register_hook(
+                lambda g: kept_calls.append(kept + (g.contiguous(),))
+                if not kept_calls else None)
         return out
 
     store = os.path.join(workdir, "codes")
@@ -1561,14 +1661,23 @@ def phase_train(torch, state, captured, workdir):
     log(f"train main-path attention launches (forward, backward): "
         f"{launches}")
 
-    # the other switches of the trainer, a few bottom steps each
+    # the other switches of the trainer, a few bottom steps each; the bf16
+    # run's attention launches are the bf16 kernels' main path
     for name, flag in (("bf16", "--bf16"), ("remat", "--remat")):
-        model = tp.main(train_args(
-            store, runs[name], "bottom", flag, "--num_training_samples",
-            str(3 * TRAIN_BATCH), "--disable_writes_to_disk"))
+        attention.fused_train_attention = capture
+        reset_attention_launches()
+        try:
+            model = tp.main(train_args(
+                store, runs[name], "bottom", flag, "--num_training_samples",
+                str(3 * TRAIN_BATCH), "--disable_writes_to_disk"))
+        finally:
+            attention.fused_train_attention = ta.fused_train_attention
+        if name == "bf16":
+            captured["bf16_attention_launches"] = sum(attention_launches())
         if not all(torch.isfinite(p).all() for p in model.parameters()):
             fail(f"bottom training with {flag} gave non-finite weights")
-        log(f"bottom training with {flag}: 3 steps, weights finite")
+        log(f"bottom training with {flag}: 3 steps, weights finite, "
+            f"attention launches (forward, backward) {attention_launches()}")
     tp.main(train_args(store, runs["resume"], "top",
                        "--resume_training_from", str(runs["top"]),
                        "--num_training_epochs", "2"))
@@ -1627,8 +1736,8 @@ def phase_train(torch, state, captured, workdir):
         f"{int((new_top != top).sum())} top codes changed, "
         f"{ms:.1f} ms (cold)")
     captured["prior_runs"] = {h: runs[h] for h in ("top", "bottom")}
-    if not calls:
-        fail("no float32 decoder self-attention was captured")
+    if not calls or not calls_bf16:
+        fail("no float32 or bfloat16 decoder self-attention was captured")
     return launches
 
 
@@ -2165,16 +2274,18 @@ def sdpa_train_attention(q, k, v, ab, dout):
     import torch.nn.functional as F
     leaves = [t.detach().requires_grad_() for t in
               (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), ab)]
-    out = F.scaled_dot_product_attention(*leaves[:3],
-                                         attn_mask=leaves[3][None])
+    # SDPA takes the mask in the query's dtype
+    out = F.scaled_dot_product_attention(
+        *leaves[:3], attn_mask=leaves[3][None].to(q.dtype))
     return torch.autograd.grad(out, leaves, dout.transpose(1, 2))
 
 
 def train_attention_pair(q, k, v, ab, dout):
+    """One forward and the backward from its state, as autograd runs them."""
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
         train_attention as ta)
-    ta.train_attention_forward(q, k, v, ab)
-    return ta.train_attention_backward(q, k, v, ab, dout)
+    state = ta.train_attention_forward(q, k, v, ab, keep_state=True)
+    return ta.train_attention_backward(q, k, v, ab, dout, state)
 
 
 def plain_train_attention_pair(q, k, v, ab, dout):
@@ -2185,8 +2296,11 @@ def plain_train_attention_pair(q, k, v, ab, dout):
 
 
 def train_attention_pair_bound(args, kwargs):
+    """float32 runs as split TF32, three tensor-core products per product:
+    its operations count three times at the TF32 rate."""
     fwd, bwd = train_attention_bound(*args)
-    return fwd[0] + bwd[0], fwd[1] + bwd[1]
+    passes = 3 if args[0].dtype.itemsize == 4 else 1
+    return fwd[0] + bwd[0], passes * (fwd[1] + bwd[1])
 
 
 def time_calls(torch, fn, calls, reps):
@@ -2304,7 +2418,7 @@ def step_bound(args, kwargs):
             "b2", "ln", "w_logits", "b_logits", "ln_final") + (
         ("wq_c", "bq_c") if cross is not None else ())
     b = sum(nbytes(params[k]) for k in keys)
-    b += (batch + 1) * d * es                       # emb rows + posfull row
+    b += 2 * batch * d * es                         # emb + posfull rows
     b += n * nh * (pos + 1) * 4                     # bias entries used
     b += n * 2 * batch * (pos + 1) * d * es         # cache in (pos) + out (1)
     b += nbytes(gumbel) + 3 * batch * 4             # noise, tokens in/cur/out
@@ -2420,6 +2534,10 @@ def phase_kernels(torch, card, captured, launches, errors, state):
              plain_train_attention_pair, train_attention_pair_bound,
              [(captured["fused_train_attention"][0], {})],
              sdpa_train_attention),
+            ("fused_train_attention_bf16", train_attention_pair,
+             plain_train_attention_pair, train_attention_pair_bound,
+             [(captured["fused_train_attention_bf16"][0], {})],
+             sdpa_train_attention),
             ("fused_multiscale_loss", spectral_pair, plain_spectral_pair,
              spectral_pair_bound, captured["fused_multiscale_loss"],
              stft_spectral_pair)):
@@ -2428,11 +2546,12 @@ def phase_kernels(torch, card, captured, launches, errors, state):
         bounds = [bound(*call) for call in calls]
         b = sum(x[0] for x in bounds)
         ops = sum(x[1] for x in bounds)
-        # float32 products on the CUDA cores: the VQ lookup, and the
-        # training attention of the float32 main path
+        # float32 products on the CUDA cores: the VQ lookup and the
+        # spectral loss; the training attention's float32 as split TF32 on
+        # the tensor cores (train_attention_pair_bound counts its passes)
         peak_ops = (PEAK_F32_OPS if name in ("fused_vq_lookup",
-                                             "fused_train_attention",
                                              "fused_multiscale_loss")
+                    else PEAK_TF32_OPS if name == "fused_train_attention"
                     else PEAK_BF16_OPS)
         t_bytes, t_ops = b / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
         detail[name] = {"calls_timed": len(calls), "bytes": b, "ops": ops,
@@ -2468,23 +2587,36 @@ def phase_kernels(torch, card, captured, launches, errors, state):
             detail[name]["per_call_bound_ms"] = [
                 round(max(x[0] / PEAK_BYTES_PER_S, x[1] / peak_ops) * 1e3, 6)
                 for x in bounds]
-        if name == "fused_train_attention":
+        if name.startswith("fused_train_attention"):
             q, k, v, ab, dout = calls[0][0]
             fwd, bwd = train_attention_bound(q, k, v, ab, dout)
+            passes = 3 if q.dtype == torch.float32 else 1
+            state = ta.train_attention_forward(q, k, v, ab, keep_state=True)
+            live = ta.live_tiles(ab)
             detail[name].update({
+                "dtype": str(q.dtype)[6:],
                 "shape_b_lq_lk_h_dh": [q.shape[0], q.shape[1], k.shape[1],
                                        q.shape[2], q.shape[3]],
+                "live_tiles": [int(live.sum()), live.numel()],
                 "forward_ms": round(time_calls(
                     torch, ta.train_attention_forward,
                     [((q, k, v, ab), {})], reps=10), 4),
                 "backward_ms": round(time_calls(
-                    torch, ta.train_attention_backward, calls, reps=10), 4),
+                    torch, ta.train_attention_backward,
+                    [((q, k, v, ab, dout, state), {})], reps=10), 4),
                 "forward_bound_ms": round(max(
-                    fwd[0] / PEAK_BYTES_PER_S, fwd[1] / peak_ops) * 1e3, 6),
+                    fwd[0] / PEAK_BYTES_PER_S,
+                    passes * fwd[1] / peak_ops) * 1e3, 6),
                 "backward_bound_ms": round(max(
-                    bwd[0] / PEAK_BYTES_PER_S, bwd[1] / peak_ops) * 1e3, 6),
+                    bwd[0] / PEAK_BYTES_PER_S,
+                    passes * bwd[1] / peak_ops) * 1e3, 6),
                 "launches_per_step_forward_backward": [ATTENTION_CALLS,
                                                        ATTENTION_CALLS]})
+            if q.dtype == torch.float32:
+                # the same operations on the CUDA cores, the first
+                # version's route
+                detail[name]["cuda_core_bound_ms"] = round(
+                    (fwd[1] + bwd[1]) / PEAK_F32_OPS * 1e3, 6)
             by_kernel, _, _ = profile_kernels(
                 torch, lambda: train_attention_pair(q, k, v, ab, dout),
                 reps=5)
@@ -2553,6 +2685,7 @@ def main():
     phase_prime(torch, state, errors)
     phase_scan(torch, state, errors)
     phase_step(torch, state, errors)
+    phase_per_row_labels(torch, state)
     phase_flash(torch, errors)
     phase_vq(torch, errors)
     phase_train_attention(torch, state, errors)
@@ -2562,6 +2695,8 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         launches["fused_train_attention"] = sum(phase_train(
             torch, state, captured, workdir))
+        launches["fused_train_attention_bf16"] = captured[
+            "bf16_attention_launches"]
         launches["fused_multiscale_loss"] = phase_train_vqvae(
             torch, state, captured, workdir)
     phase_kernels(torch, card, captured, launches, errors, state)

@@ -175,16 +175,17 @@ __global__ void __launch_bounds__(kDhMax)
         from_f<T>(acc / fmaxf(den, 1e-20f));
 }
 
-// x[b, :] = emb[token[b], :] + posfull[pos, :]   (float32)
+// x[b, :] = emb[token[b], :] + posfull[b, pos, :]   (float32): each batch
+// row reads its own start rows (class labels) from posfull [B, steps_pad, d]
 template <typename T>
 __global__ void embed_rows_kernel(const T* emb, const T* posfull,
-                                  const int* token, int pos, int d,
-                                  float* x) {
+                                  const int* token, int pos, int steps_pad,
+                                  int d, float* x) {
   const int b = blockIdx.x;
   const size_t tok = token[b];
+  const T* row = posfull + ((size_t)b * steps_pad + pos) * d;
   for (int t = threadIdx.x; t < d; t += blockDim.x)
-    x[(size_t)b * d + t] =
-        to_f(emb[tok * d + t]) + to_f(posfull[(size_t)pos * d + t]);
+    x[(size_t)b * d + t] = to_f(emb[tok * d + t]) + to_f(row[t]);
 }
 
 // out[b, :] = mem[b, row, :] (zeros when row lies past the memory's rows)
@@ -378,7 +379,7 @@ struct StepParams {
   const float* ln;        // [n_layers, 6, d]
   const float* ln_final;  // [2, d]
   const void* emb;        // [emb_rows, d], T (row n_class is zeros)
-  const void* posfull;    // [steps_pad, d], T
+  const void* posfull;    // [B, steps_pad, d], T: each row's start rows
   const void* mem_k;      // [n_layers, B, e_pad, d], T
   const void* mem_v;      // [n_layers, B, e_pad, d], T
   const float* bias_hm;   // [n_layers, steps_pad, H, l_pad]
@@ -443,7 +444,7 @@ static cudaError_t decode_step_run(const StepParams& P, cudaStream_t s) {
 
   embed_rows_kernel<T><<<B, 128, 0, s>>>(
       static_cast<const T*>(P.emb), static_cast<const T*>(P.posfull),
-      P.token_in, pos, d, P.x);
+      P.token_in, pos, P.steps_pad, d, P.x);
   ISI_CHECK();
   for (int l = 0; l < P.n_layers; ++l) {
     const float* ln = P.ln + (size_t)l * 6 * d;

@@ -1,4 +1,4 @@
-// Training attention of the priors and its gradient.
+// Training attention of the priors and its gradient, on the tensor cores.
 //
 // Replaces: interactive_spectrogram_inpainting_tpu/ops/train_attention.py
 //           ::fused_train_attention (Pallas kernels _fwd_kernel /
@@ -10,42 +10,62 @@
 //
 //   forward   P  = softmax(q k^T * scale + ab)            (float32)
 //             o  = T(P) v                                  (T = the dtype)
-//   backward  dP = dO v^T,  dS = P * (dP - rowsum(P * dP))
+//   backward  dP = dO v^T,  dS = P * (dP - delta),  delta = rowsum(dO * o)
+//             (bfloat16: o of the unrounded P, kept in float32)
 //             dq = (T(dS) k) * scale,  dk = (T(dS)^T q) * scale,
 //             dv = T(P)^T dO,          dab = sum over b of dS (float32)
 //
 // rounded where the Pallas kernels round (T(x) is a round trip through the
-// input dtype); every product accumulates in float32, one fmaf per term,
-// never in TF32.
+// input dtype, a no-op for float32); every product accumulates in float32.
 //
-// Bound on the H100: operations. Every product runs in float32 FMA on the
-// CUDA cores (4 B Lq Lk Dh H flops forward, 2.5 times that backward); the
-// bytes of q, k, v, ab and the outputs are tens of times fewer.
+// Bound on the H100: operations (4 B H Lq Lk Dh flops forward, 10 backward;
+// the bytes of q, k, v, ab and the outputs are tens of times fewer). The
+// products run on the tensor cores with mma.sync: bfloat16 as m16n8k16
+// (989 TFLOP/s peak), float32 as split TF32, m16n8k8 three times per
+// product (hi*lo + lo*hi + hi*hi, where hi = tf32(x) and lo = tf32(x - hi):
+// about 21 bits of each operand, so float32's tolerances hold; one TF32
+// pass keeps about three digits).
 //
 // The TPU kernels held a whole (head, batch) attention in VMEM, padded Dh
-// and L to 128 lanes and packed head pairs; the grid walked b innermost so
-// that the dab block stayed resident. Here the port's [B, L, H, Dh]
-// projections are read in place and padded in shared memory only:
-//   attn_fwd     one block per (32 query rows, h, b). The score rows of the
-//                block sit whole in shared memory ([Lk][33], key-major), the
-//                keys pass through in tiles of 64; softmax by rows, P
-//                rounded to T, then P V with V in tiles of 64.
-//   attn_bwd_dq  one block per (16 query rows, h, group of batch rows)
-//                walking its b in order: it recomputes the score rows, dP,
-//                delta and dS, adds dS into the dab rows it alone owns in
-//                device memory (its group's partial sum; coalesced, L2-
-//                resident), and writes dq and the row statistics (max, sum,
-//                delta) for the second kernel. The groups (chosen by the
-//                caller from the shapes: ~528 blocks) keep the grid full at
-//                short sequences; with more than one, attn_dab_sum adds the
-//                partial sums in group order. No float atomics: the same
-//                bits on every run.
-//   attn_bwd_dkv one block per (64 keys, h, b) (32 keys at Dh > 64) walking
-//                the query rows in tiles of 32: it recomputes P and dS from
-//                the statistics (the same fmaf chains, so the same bits) and
-//                accumulates dk and dv in registers.
-// P is recomputed twice and never stored. Tensor cores are for a later
-// version.
+// and L to 128 lanes and packed head pairs. Here a block of 4 warps owns a
+// 64 x 64 tile per step (16 rows per warp); Dh is padded in shared memory to
+// the next multiple of 16 with zeros (64 or 128 columns allocated), and the
+// [B, L, H, Dh] projections are read in place with cp.async. In bfloat16
+// the next tile loads while the current one is multiplied (two stages). In
+// float32 the second stage's buffers hold the lo parts instead: the tiles
+// that serve as B (K and V, or Q and dO in the dk/dv kernel) are split into
+// hi and lo once per block, where every warp splitting every fragment again
+// cost more than the double buffering saved (chip_smoke.py on an H100, B 32,
+// 516 x 516: the float32 pair 2.33 ms against 3.16).
+//
+// Dead tiles are skipped, exactly. ``live`` [H, ceil(Lq/64), ceil(Lk/64)]
+// marks the tiles holding an ab entry above -1e8; a tile whose entries are
+// all masked contributes exp(-1e9 - m) = 0 to every row that has a key,
+// and its dab is 0 (written as such). A query tile holding a row without
+// any live key is live throughout, so that row keeps the dense answer. The
+// causal 516 x 516 self-attention runs 45 of its 81 tiles, the aligned
+// 516 x 129 cross-attention 9 of 27, the anti-causal 129 x 129 encoder 6
+// of 9.
+//
+//   attn_live    block per (64 query rows, h): the map, from one pass over
+//                ab, before the forward (the backward reuses it).
+//   attn_fwd     block per (64 query rows, h, b): online softmax over the
+//                live key tiles in registers, o / l written in T, the row
+//                max and 1 / row sum kept for the backward (stats).
+//   attn_bwd_dq  block per (64 query rows, h, group of batch rows) walking
+//                its b in order: delta from dO and o, then per live key
+//                tile S, P, dP, dS in registers, dq += T(dS) k, and dS added
+//                into the dab rows the block alone owns in device memory
+//                (its group's partial sum; zeros on dead tiles). With more
+//                than one group, attn_dab_sum adds the partial sums in group
+//                order. No float atomics: the same bits on every run.
+//   attn_bwd_dkv block per (64 keys, h, b) walking the live query tiles:
+//                S^T, P^T, dP^T, dS^T from the stats, dv += T(P)^T dO,
+//                dk += T(dS)^T q in registers.
+// P is recomputed in both backward kernels and never stored: writing dS
+// once (float32, for dab) and reading it back would move about 2 x 270 MB
+// at B 32, 516 x 516 (0.16 ms at 3.35 TB/s), more than the bound of the two
+// products it saves (0.03 ms of TF32 operations on the live tiles).
 #include <algorithm>
 
 #include "common.cuh"
@@ -58,417 +78,842 @@ struct TrainAttnParams {
   const void* v;     // [B, Lk, H, Dh]
   const float* ab;   // [H, Lq, Lk]
   const void* dout;  // [B, Lq, H, Dh] (backward)
-  void* out;         // [B, Lq, H, Dh] (forward)
+  void* out;         // [B, Lq, H, Dh] (written forward, read backward)
+  float* out_f;      // [B, Lq, H, Dh] float32 o of unrounded P (bfloat16)
   void* dq;          // [B, Lq, H, Dh]
   void* dk;          // [B, Lk, H, Dh]
   void* dv;          // [B, Lk, H, Dh]
   float* dab;        // [H, Lq, Lk]
   float* dab_parts;  // [groups, H, Lq, Lk] scratch, null for one group
-  float* stats;      // [3, B, H, Lq] scratch: row max, row sum, delta
+  float* stats;      // [3, B, H, Lq]: row max, 1 / row sum, delta
+  unsigned char* live;  // [H, ceil(Lq / 64), ceil(Lk / 64)] (attn_live)
   int batch, lq, lk, heads, dh, groups;
+  int vec;           // 1: every row starts 16-byte aligned (cp.async)
   float scale;
 };
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kKeyTile = 64;   // keys per shared-memory tile (attn_fwd, dq)
-constexpr int kFwdRows = 32;   // query rows per attn_fwd block
-constexpr int kDqRows = 16;    // query rows per attn_bwd_dq block
-constexpr int kDkvRows = 32;   // query rows per step of attn_bwd_dkv
+constexpr int kThreads = 128;  // 4 warps, 16 rows (or keys) each
+constexpr int kTile = 64;      // rows and keys of a tile and of ``live``
+constexpr int kStep = 32;      // queries per step of attn_bwd_dkv
 
-template <int D> __host__ __device__ constexpr int dkv_keys() {
-  return D == 64 ? 64 : 32;
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// shared-memory row stride in elements: rows 16 bytes apart from the next
+// bank group, so that the fragment loads below hit 32 distinct banks
+template <typename T, int D> __host__ __device__ constexpr int row_ld() {
+  return D + 16 / static_cast<int>(sizeof(T));
 }
 
-int round_up(int x, int m) { return (x + m - 1) / m * m; }
+template <typename T, int D> size_t tile_bytes() {
+  return sizeof(T) * static_cast<size_t>(kTile) * row_ld<T, D>();
+}
 
-// rows of D floats in shared memory are D + 4 apart: 16-byte aligned, and
-// eight rows read at one column fall into eight different bank groups
-template <int D> __host__ __device__ constexpr int row_ld() { return D + 4; }
+// -- cp.async -----------------------------------------------------------------
 
-// dst[r][d] = float(src[r * stride + d]) for r < n_rows, d < D; zero past
-// n_valid rows or past dh (the kernels then add zeros, exactly)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// dst[r][c] = src[r * stride + c] for r < n_valid, c < dh; zero for
+// dh <= c < dp and for rows past n_valid (64 rows). With ``vec`` the rows
+// go by cp.async in 16-byte pieces (dh is then a whole number of pieces),
+// else element by element.
 template <typename T, int D>
-__device__ void load_rows(const T* src, int n_valid, size_t stride, int dh,
-                          int n_rows, float* dst) {
-  for (int e = threadIdx.x; e < n_rows * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    float x = 0.f;
-    if (r < n_valid && d < dh) x = to_f(src[r * stride + d]);
-    dst[r * row_ld<D>() + d] = x;
-  }
-}
-
-// acc[i][j] = sum_d A[ty + TY i][d] * B[tx + TX j][d], d = 0 .. D-1 in
-// ascending order, one fmaf per term. A and B are row-major with rows
-// row_ld<D>() apart. Every recomputation of a score goes through here, so
-// the same inputs give the same bits in all three kernels.
-template <int D, int TM, int TN, int TX, int TY>
-__device__ __forceinline__ void dot_rows(const float* A, const float* B,
-                                         float (&acc)[TM][TN]) {
-  constexpr int LD = row_ld<D>();
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 a[TM], b[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ty + TY * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      b[j] = *reinterpret_cast<const float4*>(B + (tx + TX * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        float s = acc[i][j];
-        s = fmaf(a[i].x, b[j].x, s);
-        s = fmaf(a[i].y, b[j].y, s);
-        s = fmaf(a[i].z, b[j].z, s);
-        s = fmaf(a[i].w, b[j].w, s);
-        acc[i][j] = s;
-      }
-  }
-}
-
-// acc[i][e] += sum_{c < n} At[c * lda + ty + TY i] * B[c][4 tx + e], c in
-// ascending order: a product whose left operand is stored contraction-major
-// (score columns, P, dS) and whose right operand is row-major (V, K, dO, Q).
-// TX = D / 4 threads cover one output row.
-template <int D, int TM>
-__device__ __forceinline__ void axpy_rows(const float* At, int lda,
-                                          const float* B, int n,
-                                          float (&acc)[TM][4]) {
-  constexpr int TX = D / 4, TY = kThreads / TX, LD = row_ld<D>();
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-#pragma unroll 4
-  for (int c = 0; c < n; ++c) {
-    const float4 b = *reinterpret_cast<const float4*>(B + c * LD + 4 * tx);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const float a = At[c * lda + ty + TY * i];
-      acc[i][0] = fmaf(a, b.x, acc[i][0]);
-      acc[i][1] = fmaf(a, b.y, acc[i][1]);
-      acc[i][2] = fmaf(a, b.z, acc[i][2]);
-      acc[i][3] = fmaf(a, b.w, acc[i][3]);
+__device__ void load_tile(T* dst, const T* src, int n_valid, size_t stride,
+                          int dh, int dp, bool vec) {
+  constexpr int LD = row_ld<T, D>(), VE = 16 / sizeof(T);
+  if (vec) {
+    const int pieces = dp / VE;
+    for (int e = threadIdx.x; e < kTile * pieces; e += kThreads) {
+      const int r = e / pieces, c = (e % pieces) * VE;
+      const bool ok = r < n_valid && c < dh;
+      cp_async16(dst + r * LD + c, ok ? src + r * stride + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTile * dp; e += kThreads) {
+      const int r = e / dp, c = e % dp;
+      dst[r * LD + c] = r < n_valid && c < dh ? src[r * stride + c]
+                                              : from_f<T>(0.f);
     }
   }
 }
 
-// out[ty + TY i][4 tx + e] = T(acc[i][e] * mul) for rows < n_valid and
-// columns < dh, rows ``stride`` elements apart
-template <typename T, int D, int TM>
-__device__ void store_rows(const float (&acc)[TM][4], float mul, T* out,
-                           int n_valid, size_t stride, int dh) {
-  constexpr int TX = D / 4, TY = kThreads / TX;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+// -- tensor-core products -----------------------------------------------------
+//
+// Lane (g = lane / 4, t = lane % 4) of a warp holds, of a 16 x 8 float32
+// accumulator, c[0] = (g, 2t), c[1] = (g, 2t + 1), c[2] = (g + 8, 2t),
+// c[3] = (g + 8, 2t + 1).
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ int lane_g() { return (threadIdx.x % kWarp) >> 2; }
+__device__ __forceinline__ int lane_t() { return threadIdx.x & 3; }
+
+// Fragments of one warp's product C[16 x 8] += A[16 x KS] B[KS x 8], read
+// from shared memory or taken from accumulators:
+//   load_a(s, ld, k0)         A = s[0..16)[k0..k0 + KS)      (s row-major)
+//   load_b_nk(s, lo, ld, n0, k0)  B[k][n] = s[n0 + n][k0 + k]  (s: [n][k])
+//   load_b_kn(s, lo, ld, k0, n0)  B[k][n] = s[k0 + k][n0 + n]  (s: [k][n])
+//                             (float32: s holds the tf32 hi parts and lo
+//                             the lo parts, split once per block by
+//                             split_tile; bfloat16 ignores lo)
+//   c_to_a(c, j)              A = T(the accumulators of columns
+//                             [j KS, (j + 1) KS)), for P V-like products
+template <typename T> struct Mma;
+
+// float32 as split TF32. c_to_a takes a 16 x 8 accumulator block whose
+// columns lie at 2t and 2t + 1 of lane t, while an m16n8k8 A fragment wants
+// t and t + 4: the contraction order is permuted instead (A's k = t is
+// column 2t, k = t + 4 is column 2t + 1), and load_b_kn reads B's rows in
+// the same permuted order. A sum does not depend on its order of terms
+// but for rounding.
+template <> struct Mma<float> {
+  static constexpr int KS = 8;
+  struct A { uint32_t hi[4], lo[4]; };
+  struct B { uint32_t hi[2], lo[2]; };
+
+  static __device__ __forceinline__ void split(float x, uint32_t& hi,
+                                               uint32_t& lo) {
+    hi = to_tf32(x);
+    lo = to_tf32(x - __uint_as_float(hi));
+  }
+  static __device__ __forceinline__ A make_a(float a0, float a1, float a2,
+                                             float a3) {
+    A a;
+    split(a0, a.hi[0], a.lo[0]);
+    split(a1, a.hi[1], a.lo[1]);
+    split(a2, a.hi[2], a.lo[2]);
+    split(a3, a.hi[3], a.lo[3]);
+    return a;
+  }
+  static __device__ __forceinline__ void run(float (&c)[4], const A& a,
+                                             const B& b) {
+    mma_tf32(c, a.lo, b.hi);
+    mma_tf32(c, a.hi, b.lo);
+    mma_tf32(c, a.hi, b.hi);
+  }
+  static __device__ __forceinline__ A load_a(const float* s, int ld, int k0) {
+    const int g = lane_g(), t = lane_t();
+    const float* p = s + g * ld + k0 + t;
+    return make_a(p[0], p[8 * ld], p[4], p[8 * ld + 4]);
+  }
+  static __device__ __forceinline__ uint32_t bits(float x) {
+    return __float_as_uint(x);
+  }
+  // B from a tile split once per block (split_tile): hi in place, lo beside
+  static __device__ __forceinline__ B load_b_nk(const float* hi,
+                                                const float* lo, int ld,
+                                                int n0, int k0) {
+    const int i = (n0 + lane_g()) * ld + k0 + lane_t();
+    return B{{bits(hi[i]), bits(hi[i + 4])}, {bits(lo[i]), bits(lo[i + 4])}};
+  }
+  static __device__ __forceinline__ B load_b_kn(const float* hi,
+                                                const float* lo, int ld,
+                                                int k0, int n0) {
+    const int i = (k0 + 2 * lane_t()) * ld + n0 + lane_g();
+    return B{{bits(hi[i]), bits(hi[i + ld])},
+             {bits(lo[i]), bits(lo[i + ld])}};
+  }
+  static __device__ __forceinline__ A c_to_a(const float (*c)[4], int j) {
+    return make_a(c[j][0], c[j][2], c[j][1], c[j][3]);
+  }
+};
+
+template <> struct Mma<__nv_bfloat16> {
+  static constexpr int KS = 16;
+  struct A { uint32_t x[4]; };
+  struct B { uint32_t x[2]; };
+  using T = __nv_bfloat16;
+
+  static __device__ __forceinline__ uint32_t word(const T* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+  static __device__ __forceinline__ uint32_t pair(T lo, T hi) {
+    return static_cast<uint32_t>(__bfloat16_as_ushort(lo))
+           | (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+  }
+  static __device__ __forceinline__ uint32_t pair(float lo, float hi) {
+    return pair(__float2bfloat16(lo), __float2bfloat16(hi));
+  }
+  static __device__ __forceinline__ void run(float (&c)[4], const A& a,
+                                             const B& b) {
+    mma_bf16(c, a.x, b.x);
+  }
+  static __device__ __forceinline__ A load_a(const T* s, int ld, int k0) {
+    const T* p = s + lane_g() * ld + k0 + 2 * lane_t();
+    return A{{word(p), word(p + 8 * ld), word(p + 8), word(p + 8 * ld + 8)}};
+  }
+  static __device__ __forceinline__ B load_b_nk(const T* s, const T*, int ld,
+                                                int n0, int k0) {
+    const T* p = s + (n0 + lane_g()) * ld + k0 + 2 * lane_t();
+    return B{{word(p), word(p + 8)}};
+  }
+  static __device__ __forceinline__ B load_b_kn(const T* s, const T*, int ld,
+                                                int k0, int n0) {
+    const T* p = s + (k0 + 2 * lane_t()) * ld + n0 + lane_g();
+    return B{{pair(p[0], p[ld]), pair(p[8 * ld], p[9 * ld])}};
+  }
+  static __device__ __forceinline__ A c_to_a(const float (*c)[4], int j) {
+    const float* x = c[2 * j];
+    const float* y = c[2 * j + 1];
+    return A{{pair(x[0], x[1]), pair(x[2], x[3]), pair(y[0], y[1]),
+              pair(y[2], y[3])}};
+  }
+};
+
+// acc[j] += A (16 rows of ``a`` from row 0) x B over the dp columns of the
+// contraction, B's columns n-block j taken from rows 8 j of ``b`` ([n][k])
+template <typename T, int D, int NB>
+__device__ __forceinline__ void product_nk(const T* a, const T* b,
+                                           const T* b_lo, int dp,
+                                           float (&acc)[NB][4]) {
+  using M = Mma<T>;
+  constexpr int LD = row_ld<T, D>();
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = ty + TY * i;
-    if (r >= n_valid) continue;
+  for (int k0 = 0; k0 < D; k0 += M::KS) {
+    if (k0 < dp) {
+      const typename M::A fa = M::load_a(a, LD, k0);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        M::run(acc[j], fa, M::load_b_nk(b, b_lo, LD, 8 * j, k0));
+    }
+  }
+}
+
+// acc[n] += T(c) x B for the accumulators c of NC columns (the rows of B,
+// [k][n] in ``b``) and B's dp columns
+template <typename T, int D, int NC>
+__device__ __forceinline__ void product_ck(const float (&c)[NC / 8][4],
+                                           const T* b, const T* b_lo, int dp,
+                                           float (&acc)[D / 8][4]) {
+  using M = Mma<T>;
+  constexpr int LD = row_ld<T, D>();
+#pragma unroll
+  for (int j = 0; j < NC / M::KS; ++j) {
+    const typename M::A fa = M::c_to_a(c, j);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      if (8 * n < dp)
+        M::run(acc[n], fa, M::load_b_kn(b, b_lo, LD, j * M::KS, 8 * n));
+  }
+}
+
+// float32 tiles that serve as B: each element split once per block into its
+// tf32 hi part (in place) and lo part (into ``lo``), so that the four warps
+// do not split them again for every fragment. bfloat16: nothing to do.
+template <typename T, int D>
+__device__ void split_tile(T* tile, T* lo, int dp) {
+  if constexpr (sizeof(T) == 4) {
+    constexpr int LD = row_ld<T, D>();
+    const int quads = dp / 4;
+    for (int e = threadIdx.x; e < kTile * quads; e += kThreads) {
+      const int i = (e / quads) * LD + (e % quads) * 4;
+      float4 x = *reinterpret_cast<float4*>(tile + i), h, l;
+      uint32_t a, b;
+      Mma<float>::split(x.x, a, b); h.x = __uint_as_float(a); l.x = __uint_as_float(b);
+      Mma<float>::split(x.y, a, b); h.y = __uint_as_float(a); l.y = __uint_as_float(b);
+      Mma<float>::split(x.z, a, b); h.z = __uint_as_float(a); l.z = __uint_as_float(b);
+      Mma<float>::split(x.w, a, b); h.w = __uint_as_float(a); l.w = __uint_as_float(b);
+      *reinterpret_cast<float4*>(tile + i) = h;
+      *reinterpret_cast<float4*>(lo + i) = l;
+    }
+  }
+}
+
+// acc = acc * alpha[row] + part, in float32. Every product accumulates one
+// tile's terms into a fresh accumulator: the tensor cores add into their
+// accumulator with truncation, so a long chain of k-steps into one
+// accumulator drifts; the tiles' sums are added here with rounding.
+template <int D>
+__device__ __forceinline__ void add_scaled(float (&acc)[D / 8][4],
+                                           const float (&alpha)[2],
+                                           const float (&part)[D / 8][4]) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], part[n][e]);
+}
+
+// the indices i < n with row[i * stride] != 0, in order, into list (the
+// flags read by all threads at once); returns their number (every thread)
+__device__ int live_list(const unsigned char* row, int n, int stride,
+                         int* list) {
+  __shared__ int count;
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    list[i] = row[static_cast<size_t>(i) * stride];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int c = 0;
+    for (int i = 0; i < n; ++i)
+      if (list[i]) list[c++] = i;
+    count = c;
+  }
+  __syncthreads();
+  return count;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// out[row r][col] = T(acc * mul) for the lane's accumulator elements,
+// rows row0 + {g, g + 8} below n_rows, columns below dh
+template <typename T, int D>
+__device__ void store_acc(const float (&acc)[D / 8][4], const float (&mul)[2],
+                          T* out, int row0, int n_rows, size_t stride,
+                          int dh) {
+  const int g = lane_g(), t = lane_t();
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int d = 4 * tx + e;
-      if (d < dh) out[r * stride + d] = from_f<T>(acc[i][e] * mul);
+      const int r = row0 + g + 8 * (e >> 1), c = 8 * n + 2 * t + (e & 1);
+      if (r < n_rows && c < dh)
+        out[r * stride + c] = from_f<T>(acc[n][e] * mul[e >> 1]);
     }
+}
+
+// live[h][qt][kt] = 1 where the 64 x 64 tile of ab holds an entry above
+// -1e8, and on every tile of a query tile that holds a row without one.
+// Block per (query tile, h), a warp per row (coalesced), one pass over ab.
+constexpr float kDead = -1e8f;
+
+__global__ void __launch_bounds__(256) attn_live(TrainAttnParams P) {
+  extern __shared__ int tile_live[];  // [nkt]
+  const int qt = blockIdx.x, h = blockIdx.y, lq = P.lq, lk = P.lk;
+  const int nqt = cdiv(lq, kTile), nkt = cdiv(lk, kTile);
+  const int r0 = qt * kTile, nr = min(kTile, lq - r0);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  for (int kt = threadIdx.x; kt < nkt; kt += blockDim.x) tile_live[kt] = 0;
+  __syncthreads();
+  const float* ab = P.ab + (static_cast<size_t>(h) * lq + r0) * lk;
+  bool dead_row = false;
+  for (int r = warp; r < nr; r += blockDim.x / kWarp) {
+    bool has = false;
+    for (int c = lane; c < lk; c += kWarp)
+      if (ab[static_cast<size_t>(r) * lk + c] > kDead) {
+        has = true;
+        tile_live[c / kTile] = 1;
+      }
+    dead_row |= !__any_sync(0xffffffffu, has);
   }
+  const int whole = __syncthreads_or(dead_row);
+  unsigned char* out = P.live + (static_cast<size_t>(h) * nqt + qt) * nkt;
+  for (int kt = threadIdx.x; kt < nkt; kt += blockDim.x)
+    out[kt] = whole || tile_live[kt] ? 1 : 0;
 }
 
-// Scores of ``rows`` query rows (in qs) against keys [c0, c0 + kKeyTile)
-// (in ts) into st[c][r] (key-major, row stride ldst), scaled, plus ab;
-// zero outside the valid rows and keys.
-template <int D, int ROWS>
-__device__ void score_tile(const float* qs, const float* ts, float* st,
-                           int ldst, int c0, int n_rows, int lk,
-                           const float* ab_rows, float scale) {
-  constexpr int TX = 16, TY = 16, TM = ROWS / TY, TN = kKeyTile / TX;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  float acc[TM][TN];
-  dot_rows<D, TM, TN, TX, TY>(qs, ts, acc);
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int r = ty + TY * i, c = c0 + tx + TX * j;
-      float s = 0.f;
-      if (r < n_rows && c < lk)
-        s = ab_rows == nullptr ? acc[i][j]
-                               : fmaf(acc[i][j], scale,
-                                      ab_rows[static_cast<size_t>(r) * lk + c]);
-      st[c * ldst + r] = s;
-    }
+template <typename T, int D> size_t fwd_smem(int nkt) {
+  return 5 * tile_bytes<T, D>() + sizeof(int) * nkt;
 }
 
-// max and sum of exp over the keys of each row of st[c][r] (ROWS rows,
-// key-major): thread (r, part) takes keys part, part + NP, ...; the parts
-// combine in ascending order. Every thread of row r gets (m, l).
-template <int ROWS>
-__device__ void row_softmax_stats(const float* st, int ldst, int lk,
-                                  float* red, float* m_out, float* l_out) {
-  constexpr int NP = kThreads / ROWS;
-  const int r = threadIdx.x % ROWS, part = threadIdx.x / ROWS;
-  float m = -INFINITY;
-  for (int c = part; c < lk; c += NP) m = fmaxf(m, st[c * ldst + r]);
-  red[part * ROWS + r] = m;
-  __syncthreads();
-  m = red[r];
-  for (int p = 1; p < NP; ++p) m = fmaxf(m, red[p * ROWS + r]);
-  __syncthreads();
-  float l = 0.f;
-  for (int c = part; c < lk; c += NP) l += expf(st[c * ldst + r] - m);
-  red[part * ROWS + r] = l;
-  __syncthreads();
-  l = 0.f;
-  for (int p = 0; p < NP; ++p) l += red[p * ROWS + r];
-  __syncthreads();
-  *m_out = m;
-  *l_out = l;
-}
-
-template <int D> size_t fwd_smem(int lkp) {
-  return sizeof(float) * (static_cast<size_t>(kFwdRows + kKeyTile) * row_ld<D>()
-                          + static_cast<size_t>(lkp) * (kFwdRows + 1)
-                          + kThreads);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) attn_fwd(TrainAttnParams P,
-                                                     int lkp) {
+template <typename T, int D, bool FULL>
+__global__ void __launch_bounds__(kThreads) attn_fwd(TrainAttnParams P) {
+  constexpr int LD = row_ld<T, D>(), NB = kTile / 8;
+  constexpr bool kSplit = sizeof(T) == 4;
   extern __shared__ float4 smem4[];
-  constexpr int BQ = kFwdRows, LD = row_ld<D>(), LDS = BQ + 1;
-  float* qs = reinterpret_cast<float*>(smem4);  // [BQ][LD]
-  float* ts = qs + BQ * LD;                      // [kKeyTile][LD]: K, then V
-  float* st = ts + kKeyTile * LD;                // [lkp][LDS]: scores, then P
-  float* red = st + lkp * LDS;                   // [kThreads]
-  const int b = blockIdx.z, h = blockIdx.y, r0 = blockIdx.x * BQ;
+  T* qs = reinterpret_cast<T*>(smem4);     // [kTile][LD]
+  T* ks = qs + kTile * LD;                 // [2][kTile][LD]
+  T* vs = ks + 2 * kTile * LD;             // [2][kTile][LD]
+  int* list = reinterpret_cast<int*>(vs + 2 * kTile * LD);
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int lq = P.lq, lk = P.lk, dh = P.dh;
+  const int dp = FULL ? D : cdiv(dh, 16) * 16;
+  const int nqt = cdiv(lq, kTile), nkt = cdiv(lk, kTile), r0 = qt * kTile;
   const size_t rs = static_cast<size_t>(P.heads) * dh;
   const size_t head = static_cast<size_t>(h) * dh;
-  const int nq = min(BQ, lq - r0);
   const T* q = static_cast<const T*>(P.q) + (static_cast<size_t>(b) * lq + r0) * rs + head;
   const T* k = static_cast<const T*>(P.k) + static_cast<size_t>(b) * lk * rs + head;
   const T* v = static_cast<const T*>(P.v) + static_cast<size_t>(b) * lk * rs + head;
-  const float* ab = P.ab + (static_cast<size_t>(h) * lq + r0) * lk;
-
-  load_rows<T, D>(q, nq, rs, dh, BQ, qs);
-  for (int c0 = 0; c0 < lkp; c0 += kKeyTile) {
-    __syncthreads();
-    load_rows<T, D>(k + c0 * rs, lk - c0, rs, dh, kKeyTile, ts);
-    __syncthreads();
-    score_tile<D, BQ>(qs, ts, st, LDS, c0, nq, lk, ab, P.scale);
+  const int warp = threadIdx.x / kWarp, g = lane_g(), t = lane_t();
+  const int n_live =
+      live_list(P.live + (static_cast<size_t>(h) * nqt + qt) * nkt, nkt, 1, list);
+  const bool vec = P.vec != 0;
+  load_tile<T, D>(qs, q, lq - r0, rs, dh, dp, vec);
+  if (n_live > 0) {
+    const int c0 = list[0] * kTile;
+    load_tile<T, D>(ks, k + c0 * rs, lk - c0, rs, dh, dp, vec);
+    load_tile<T, D>(vs, v + c0 * rs, lk - c0, rs, dh, dp, vec);
   }
-  __syncthreads();
-  float m, l;
-  row_softmax_stats<BQ>(st, LDS, lk, red, &m, &l);
-  {
-    constexpr int NP = kThreads / BQ;
-    const int r = threadIdx.x % BQ, part = threadIdx.x / BQ;
-    for (int c = part; c < lkp; c += NP)
-      st[c * LDS + r] =
-          c < lk ? round_to<T>(expf(st[c * LDS + r] - m) / l) : 0.f;
+  cp_async_commit();
+  int rows[2];
+  const float* ab_rows[2];
+  for (int r = 0; r < 2; ++r) {
+    rows[r] = r0 + 16 * warp + g + 8 * r;
+    ab_rows[r] = P.ab + (static_cast<size_t>(h) * lq + min(rows[r], lq - 1)) * lk;
   }
-  constexpr int TM = BQ * D / (4 * kThreads);
-  float o[TM][4] = {};
-  for (int c0 = 0; c0 < lkp; c0 += kKeyTile) {
+  float o[D / 8][4] = {}, o_rest[sizeof(T) == 2 ? D / 8 : 1][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int i = 0; i < n_live; ++i) {
+    // bfloat16: two stages, the next tile loading during this one; float32:
+    // one stage, its second buffer holding the lo parts
+    const int st = kSplit ? 0 : i & 1, c0 = list[i] * kTile;
+    if (!kSplit && i + 1 < n_live) {
+      const int c1 = list[i + 1] * kTile;
+      load_tile<T, D>(ks + (st ^ 1) * kTile * LD, k + c1 * rs, lk - c1, rs,
+                      dh, dp, vec);
+      load_tile<T, D>(vs + (st ^ 1) * kTile * LD, v + c1 * rs, lk - c1, rs,
+                      dh, dp, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    load_rows<T, D>(v + c0 * rs, lk - c0, rs, dh, kKeyTile, ts);
-    __syncthreads();
-    axpy_rows<D, TM>(st + c0 * LDS, LDS, ts, kKeyTile, o);
+    T* kst = ks + st * kTile * LD;
+    T* vst = vs + st * kTile * LD;
+    T* klo = ks + kTile * LD;
+    T* vlo = vs + kTile * LD;
+    if constexpr (kSplit) {
+      split_tile<T, D>(kst, klo, dp);
+      split_tile<T, D>(vst, vlo, dp);
+      __syncthreads();
+    }
+    // logits x = s * scale + ab (-inf past the keys, 0 on padding rows),
+    // the online softmax, P v
+    float abv[NB][4];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + 8 * j + 2 * t + (e & 1);
+        abv[j][e] = col < lk ? __ldg(ab_rows[e >> 1] + col) : 0.f;
+      }
+    float s[NB][4] = {};
+    product_nk<T, D, NB>(qs + 16 * warp * LD, kst, klo, dp, s);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, col = c0 + 8 * j + 2 * t + (e & 1);
+        const float x = col >= lk ? -INFINITY
+                        : rows[r] >= lq ? 0.f
+                                        : fmaf(s[j][e], P.scale, abv[j][e]);
+        s[j][e] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+    float pv[D / 8][4] = {};
+    product_ck<T, D, kTile>(s, vst, vlo, dp, pv);
+    add_scaled<D>(o, alpha, pv);
+    if constexpr (sizeof(T) == 2) {
+      // the part of P that T(P) dropped: o_f = (T(P) + rest) v / l, so
+      // that the backward's delta = rowsum(dO * o_f) is rowsum(P * dP)
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] -= round_to<T>(s[j][e]);
+      float rest[D / 8][4] = {};
+      product_ck<T, D, kTile>(s, vst, vlo, dp, rest);
+      add_scaled<D>(o_rest, alpha, rest);
+    }
+    __syncthreads();  // the stage is free for the next load
+    if (kSplit && i + 1 < n_live) {
+      const int c1 = list[i + 1] * kTile;
+      load_tile<T, D>(ks, k + c1 * rs, lk - c1, rs, dh, dp, vec);
+      load_tile<T, D>(vs, v + c1 * rs, lk - c1, rs, dh, dp, vec);
+      cp_async_commit();
+    }
   }
-  T* out = static_cast<T*>(P.out) + (static_cast<size_t>(b) * lq + r0) * rs + head;
-  store_rows<T, D, TM>(o, 1.f, out, nq, rs, dh);
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / quad_sum(l[r]);
+  const size_t ooff = (static_cast<size_t>(b) * lq + r0) * rs + head;
+  store_acc<T, D>(o, inv, static_cast<T*>(P.out) + ooff, 16 * warp, lq - r0,
+                  rs, dh);
+  if constexpr (sizeof(T) == 2) {
+    const float one[2] = {1.f, 1.f};
+    add_scaled<D>(o_rest, one, o);
+    store_acc<float, D>(o_rest, inv, P.out_f + ooff, 16 * warp, lq - r0, rs,
+                        dh);
+  }
+  if (t == 0) {
+    const size_t plane = static_cast<size_t>(P.batch) * P.heads * lq;
+    float* st = P.stats + (static_cast<size_t>(b) * P.heads + h) * lq;
+    for (int r = 0; r < 2; ++r)
+      if (rows[r] < lq) {
+        st[rows[r]] = m[r];
+        st[plane + rows[r]] = inv[r];
+      }
+  }
 }
 
-template <int D> size_t dq_smem(int lkp) {
-  return sizeof(float) * (static_cast<size_t>(2 * kDqRows + kKeyTile) * row_ld<D>()
-                          + 2 * static_cast<size_t>(lkp) * (kDqRows + 1)
-                          + kThreads + 3 * kDqRows);
+template <typename T, int D> size_t dq_smem(int nkt) {
+  return 6 * tile_bytes<T, D>() + sizeof(int) * nkt;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) attn_bwd_dq(TrainAttnParams P,
-                                                        int lkp) {
+template <typename T, int D, bool FULL>
+__global__ void __launch_bounds__(kThreads) attn_bwd_dq(TrainAttnParams P) {
+  constexpr int LD = row_ld<T, D>(), NB = kTile / 8;
+  constexpr bool kSplit = sizeof(T) == 4;
   extern __shared__ float4 smem4[];
-  constexpr int BQ = kDqRows, LD = row_ld<D>(), LDS = BQ + 1;
-  constexpr int NP = kThreads / BQ;
-  float* qs = reinterpret_cast<float*>(smem4);  // [BQ][LD]
-  float* dos = qs + BQ * LD;                     // [BQ][LD]
-  float* ts = dos + BQ * LD;                     // [kKeyTile][LD]: K or V
-  float* st = ts + kKeyTile * LD;                // [lkp][LDS]: scores, P
-  float* dpt = st + lkp * LDS;                   // [lkp][LDS]: dP, T(dS)
-  float* red = dpt + lkp * LDS;                  // [kThreads]
-  float* deltas = red + kThreads;                // [BQ]
-  const int h = blockIdx.y, r0 = blockIdx.x * BQ;
+  T* qs = reinterpret_cast<T*>(smem4);     // [kTile][LD]
+  T* dos = qs + kTile * LD;                // [kTile][LD]
+  T* ks = dos + kTile * LD;                // [2][kTile][LD]
+  T* vs = ks + 2 * kTile * LD;             // [2][kTile][LD]
+  int* list = reinterpret_cast<int*>(vs + 2 * kTile * LD);
+  const int qt = blockIdx.x, h = blockIdx.y;
   const int lq = P.lq, lk = P.lk, dh = P.dh, nh = P.heads;
+  const int dp = FULL ? D : cdiv(dh, 16) * 16;
+  const int nqt = cdiv(lq, kTile), nkt = cdiv(lk, kTile), r0 = qt * kTile;
   const size_t rs = static_cast<size_t>(nh) * dh;
   const size_t head = static_cast<size_t>(h) * dh;
-  const int nq = min(BQ, lq - r0);
-  const float* ab = P.ab + (static_cast<size_t>(h) * lq + r0) * lk;
-  const int r = threadIdx.x % BQ, part = threadIdx.x / BQ;
-  constexpr int TM = BQ * D / (4 * kThreads);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane_g(), t = lane_t();
+  const bool vec = P.vec != 0;
   // this block's batch rows [b0, b1) and the dab rows it owns
-  const int per = (P.batch + P.groups - 1) / P.groups;
+  const int per = cdiv(P.batch, P.groups);
   const int b0 = blockIdx.z * per, b1 = min(P.batch, b0 + per);
   const size_t plane = static_cast<size_t>(nh) * lq * lk;
   float* dab = (P.groups == 1 ? P.dab : P.dab_parts + blockIdx.z * plane)
-               + (static_cast<size_t>(h) * lq + r0) * lk;
+               + static_cast<size_t>(h) * lq * lk;
+  const unsigned char* live = P.live + (static_cast<size_t>(h) * nqt + qt) * nkt;
+  const int n_live = live_list(live, nkt, 1, list);
+  // dead tiles: dS is exactly 0 there
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (live[kt]) continue;
+    const int c0 = kt * kTile, nc = min(kTile, lk - c0);
+    for (int e = threadIdx.x; e < kTile * nc; e += kThreads) {
+      const int r = r0 + e / nc, c = c0 + e % nc;
+      if (r < lq) dab[static_cast<size_t>(r) * lk + c] = 0.f;
+    }
+  }
+  int rows[2];
+  const float* ab_rows[2];
+  float* dab_rows[2];
+  for (int r = 0; r < 2; ++r) {
+    rows[r] = r0 + 16 * warp + g + 8 * r;
+    const size_t off = static_cast<size_t>(min(rows[r], lq - 1)) * lk;
+    ab_rows[r] = P.ab + static_cast<size_t>(h) * lq * lk + off;
+    dab_rows[r] = dab + off;
+  }
+  const size_t splane = static_cast<size_t>(P.batch) * nh * lq;
 
   for (int b = b0; b < b1; ++b) {
     const size_t qoff = (static_cast<size_t>(b) * lq + r0) * rs + head;
-    const size_t koff = static_cast<size_t>(b) * lk * rs + head;
-    const T* k = static_cast<const T*>(P.k) + koff;
-    const T* v = static_cast<const T*>(P.v) + koff;
-    __syncthreads();
-    load_rows<T, D>(static_cast<const T*>(P.q) + qoff, nq, rs, dh, BQ, qs);
-    load_rows<T, D>(static_cast<const T*>(P.dout) + qoff, nq, rs, dh, BQ, dos);
-    for (int c0 = 0; c0 < lkp; c0 += kKeyTile) {
-      __syncthreads();
-      load_rows<T, D>(k + c0 * rs, lk - c0, rs, dh, kKeyTile, ts);
-      __syncthreads();
-      score_tile<D, BQ>(qs, ts, st, LDS, c0, nq, lk, ab, P.scale);
+    const T* k = static_cast<const T*>(P.k) + static_cast<size_t>(b) * lk * rs + head;
+    const T* v = static_cast<const T*>(P.v) + static_cast<size_t>(b) * lk * rs + head;
+    __syncthreads();  // the previous row's tiles are consumed
+    load_tile<T, D>(qs, static_cast<const T*>(P.q) + qoff, lq - r0, rs, dh,
+                    dp, vec);
+    load_tile<T, D>(dos, static_cast<const T*>(P.dout) + qoff, lq - r0, rs,
+                    dh, dp, vec);
+    if (n_live > 0) {
+      const int c0 = list[0] * kTile;
+      load_tile<T, D>(ks, k + c0 * rs, lk - c0, rs, dh, dp, vec);
+      load_tile<T, D>(vs, v + c0 * rs, lk - c0, rs, dh, dp, vec);
     }
-    for (int c0 = 0; c0 < lkp; c0 += kKeyTile) {
-      __syncthreads();
-      load_rows<T, D>(v + c0 * rs, lk - c0, rs, dh, kKeyTile, ts);
-      __syncthreads();
-      score_tile<D, BQ>(dos, ts, dpt, LDS, c0, nq, lk, nullptr, 0.f);
-    }
-    __syncthreads();
-    float m, l;
-    row_softmax_stats<BQ>(st, LDS, lk, red, &m, &l);
-    float delta = 0.f;
-    for (int c = part; c < lk; c += NP) {
-      const float p = expf(st[c * LDS + r] - m) / l;
-      st[c * LDS + r] = p;
-      delta += p * dpt[c * LDS + r];
-    }
-    red[part * BQ + r] = delta;
-    __syncthreads();
-    delta = 0.f;
-    for (int p = 0; p < NP; ++p) delta += red[p * BQ + r];
-    if (part == 0) {
-      deltas[r] = delta;
-      if (r < nq) {
-        const size_t rows = static_cast<size_t>(P.batch) * nh * lq;
-        const size_t i = (static_cast<size_t>(b) * nh + h) * lq + r0 + r;
-        P.stats[i] = m;
-        P.stats[rows + i] = l;
-        P.stats[2 * rows + i] = delta;
-      }
-    }
-    __syncthreads();
-    // dS row by row, the threads along the keys: the dab update is one
-    // coalesced read-modify-write of rows no other block touches
-    for (int rr = 0; rr < BQ; ++rr)
-      for (int c = threadIdx.x; c < lkp; c += kThreads) {
-        float ds = 0.f;
-        if (c < lk) {
-          ds = st[c * LDS + rr] * (dpt[c * LDS + rr] - deltas[rr]);
-          if (rr < nq) {
-            float* cell = dab + static_cast<size_t>(rr) * lk + c;
-            *cell = b == b0 ? ds : *cell + ds;
-          }
+    cp_async_commit();
+    // delta = rowsum(dO * o): two lanes per row of the warp's 16
+    float* stb = P.stats + (static_cast<size_t>(b) * nh + h) * lq;
+    float delta_row = 0.f;
+    {
+      const int rr = r0 + 16 * warp + (lane >> 1);
+      if (rr < lq) {
+        const size_t off = (static_cast<size_t>(b) * lq + rr) * rs + head;
+        const T* dorow = static_cast<const T*>(P.dout) + off;
+        if (sizeof(T) == 2) {
+          const float* orow = P.out_f + off;
+          for (int d = lane & 1; d < dh; d += 2)
+            delta_row = fmaf(to_f(dorow[d]), orow[d], delta_row);
+        } else {
+          const T* orow = static_cast<const T*>(P.out) + off;
+          for (int d = lane & 1; d < dh; d += 2)
+            delta_row = fmaf(to_f(dorow[d]), to_f(orow[d]), delta_row);
         }
-        dpt[c * LDS + rr] = round_to<T>(ds);
       }
-    float acc[TM][4] = {};
-    for (int c0 = 0; c0 < lkp; c0 += kKeyTile) {
-      __syncthreads();
-      load_rows<T, D>(k + c0 * rs, lk - c0, rs, dh, kKeyTile, ts);
-      __syncthreads();
-      axpy_rows<D, TM>(dpt + c0 * LDS, LDS, ts, kKeyTile, acc);
+      delta_row += __shfl_xor_sync(0xffffffffu, delta_row, 1);
+      if (rr < lq && (lane & 1) == 0) stb[2 * splane + rr] = delta_row;
     }
-    store_rows<T, D, TM>(acc, P.scale, static_cast<T*>(P.dq) + qoff, nq, rs,
-                         dh);
+    float mrow[2], inv[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      delta[r] = __shfl_sync(0xffffffffu, delta_row, 2 * (g + 8 * r));
+      const bool ok = rows[r] < lq;
+      mrow[r] = ok ? stb[rows[r]] : 0.f;
+      inv[r] = ok ? stb[splane + rows[r]] : 0.f;
+    }
+    float dq[D / 8][4] = {};
+    const float one[2] = {1.f, 1.f};
+    for (int i = 0; i < n_live; ++i) {
+      const int st = kSplit ? 0 : i & 1, c0 = list[i] * kTile;
+      if (!kSplit && i + 1 < n_live) {
+        const int c1 = list[i + 1] * kTile;
+        load_tile<T, D>(ks + (st ^ 1) * kTile * LD, k + c1 * rs, lk - c1, rs,
+                        dh, dp, vec);
+        load_tile<T, D>(vs + (st ^ 1) * kTile * LD, v + c1 * rs, lk - c1, rs,
+                        dh, dp, vec);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      T* kst = ks + st * kTile * LD;
+      T* vst = vs + st * kTile * LD;
+      T* klo = ks + kTile * LD;
+      T* vlo = vs + kTile * LD;
+      if constexpr (kSplit) {
+        split_tile<T, D>(kst, klo, dp);
+        split_tile<T, D>(vst, vlo, dp);
+        __syncthreads();
+      }
+      // P (in s), then the old dab cells and dP, then dS (in s) and dab,
+      // each of ab and dab loaded ahead of a product that hides it; dq's
+      // terms go to a fresh accumulator
+      float part[D / 8][4] = {};
+      float s[NB][4] = {};
+      {
+        float abv[NB][4];
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + 8 * j + 2 * t + (e & 1);
+            abv[j][e] = col < lk ? __ldg(ab_rows[e >> 1] + col) : 0.f;
+          }
+        product_nk<T, D, NB>(qs + 16 * warp * LD, kst, klo, dp, s);
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, col = c0 + 8 * j + 2 * t + (e & 1);
+            s[j][e] = col < lk && rows[r] < lq
+                ? expf(fmaf(s[j][e], P.scale, abv[j][e]) - mrow[r]) * inv[r]
+                : 0.f;
+          }
+      }
+      float old[NB][4] = {};
+      if (b != b0) {
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = c0 + 8 * j + 2 * t + (e & 1);
+            if (col < lk) old[j][e] = dab_rows[e >> 1][col];
+          }
+      }
+      float dpv[NB][4] = {};
+      product_nk<T, D, NB>(dos + 16 * warp * LD, vst, vlo, dp, dpv);
+      // dS into s; dab rows (b0 writes, later rows add)
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, col = c0 + 8 * j + 2 * t + (e & 1);
+          const float ds = s[j][e] * (dpv[j][e] - delta[r]);
+          if (col < lk && rows[r] < lq) dab_rows[r][col] = old[j][e] + ds;
+          s[j][e] = ds;
+        }
+      product_ck<T, D, kTile>(s, kst, klo, dp, part);
+      add_scaled<D>(dq, one, part);
+      __syncthreads();
+      if (kSplit && i + 1 < n_live) {
+        const int c1 = list[i + 1] * kTile;
+        load_tile<T, D>(ks, k + c1 * rs, lk - c1, rs, dh, dp, vec);
+        load_tile<T, D>(vs, v + c1 * rs, lk - c1, rs, dh, dp, vec);
+        cp_async_commit();
+      }
+    }
+    const float mul[2] = {P.scale, P.scale};
+    store_acc<T, D>(dq, mul, static_cast<T*>(P.dq) + qoff, 16 * warp,
+                    lq - r0, rs, dh);
   }
 }
 
 // dab = the groups' partial sums added in group order
-__global__ void __launch_bounds__(kThreads) attn_dab_sum(TrainAttnParams P) {
+__global__ void __launch_bounds__(256) attn_dab_sum(TrainAttnParams P) {
   const size_t n = static_cast<size_t>(P.heads) * P.lq * P.lk;
-  for (size_t i = blockIdx.x * static_cast<size_t>(kThreads) + threadIdx.x;
-       i < n; i += static_cast<size_t>(gridDim.x) * kThreads) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float s = P.dab_parts[i];
     for (int g = 1; g < P.groups; ++g) s += P.dab_parts[g * n + i];
     P.dab[i] = s;
   }
 }
 
-template <int D> size_t dkv_smem() {
-  constexpr int BK = dkv_keys<D>();
-  return sizeof(float) * (static_cast<size_t>(2 * BK + 2 * kDkvRows) * row_ld<D>()
-                          + 2 * static_cast<size_t>(kDkvRows) * (BK + 1)
-                          + 3 * kDkvRows);
+template <typename T, int D> size_t dkv_smem(int nqt) {
+  return 6 * tile_bytes<T, D>() + sizeof(int) * nqt;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 __global__ void __launch_bounds__(kThreads) attn_bwd_dkv(TrainAttnParams P) {
+  constexpr int LD = row_ld<T, D>(), NB = kStep / 8;
+  constexpr bool kSplit = sizeof(T) == 4;
   extern __shared__ float4 smem4[];
-  constexpr int BK = dkv_keys<D>(), BQ = kDkvRows, LD = row_ld<D>();
-  constexpr int LDP = BK + 1;
-  float* ks = reinterpret_cast<float*>(smem4);  // [BK][LD]
-  float* vs = ks + BK * LD;                      // [BK][LD]
-  float* qs = vs + BK * LD;                      // [BQ][LD]
-  float* dos = qs + BQ * LD;                     // [BQ][LD]
-  float* ps = dos + BQ * LD;                     // [BQ][LDP]: T(P)
-  float* dss = ps + BQ * LDP;                    // [BQ][LDP]: T(dS)
-  float* rst = dss + BQ * LDP;                   // [3][BQ]: max, sum, delta
-  const int b = blockIdx.z, h = blockIdx.y, c0 = blockIdx.x * BK;
+  T* ks = reinterpret_cast<T*>(smem4);     // [kTile][LD]
+  T* vs = ks + kTile * LD;                 // [kTile][LD]
+  T* qs = vs + kTile * LD;                 // [2][kTile][LD]
+  T* dos = qs + 2 * kTile * LD;            // [2][kTile][LD]
+  int* list = reinterpret_cast<int*>(dos + 2 * kTile * LD);
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int lq = P.lq, lk = P.lk, dh = P.dh, nh = P.heads;
+  const int dp = FULL ? D : cdiv(dh, 16) * 16;
+  const int nqt = cdiv(lq, kTile), nkt = cdiv(lk, kTile), c0 = kt * kTile;
   const size_t rs = static_cast<size_t>(nh) * dh;
   const size_t head = static_cast<size_t>(h) * dh;
-  const int nk = min(BK, lk - c0);
+  const int warp = threadIdx.x / kWarp, g = lane_g(), t = lane_t();
+  const bool vec = P.vec != 0;
+  const int n_live = live_list(
+      P.live + static_cast<size_t>(h) * nqt * nkt + kt, nqt, nkt, list);
   const size_t koff = (static_cast<size_t>(b) * lk + c0) * rs + head;
-  load_rows<T, D>(static_cast<const T*>(P.k) + koff, nk, rs, dh, BK, ks);
-  load_rows<T, D>(static_cast<const T*>(P.v) + koff, nk, rs, dh, BK, vs);
-  constexpr int TX = 16, TY = 16, TM = BQ / TY, TN = BK / TX;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  constexpr int KTM = BK * D / (4 * kThreads);
-  float dk[KTM][4] = {}, dv[KTM][4] = {};
-  const size_t plane = static_cast<size_t>(P.batch) * nh * lq;
-  const float* stats = P.stats + (static_cast<size_t>(b) * nh + h) * lq;
-
-  for (int r0 = 0; r0 < lq; r0 += BQ) {
-    const int nq = min(BQ, lq - r0);
-    const size_t qoff = (static_cast<size_t>(b) * lq + r0) * rs + head;
-    __syncthreads();
-    load_rows<T, D>(static_cast<const T*>(P.q) + qoff, nq, rs, dh, BQ, qs);
-    load_rows<T, D>(static_cast<const T*>(P.dout) + qoff, nq, rs, dh, BQ, dos);
-    for (int e = threadIdx.x; e < 3 * BQ; e += kThreads) {
-      const int s = e / BQ, rr = e % BQ;
-      rst[e] = rr < nq ? stats[s * plane + r0 + rr] : 0.f;
+  const T* q = static_cast<const T*>(P.q) + static_cast<size_t>(b) * lq * rs + head;
+  const T* dout = static_cast<const T*>(P.dout) + static_cast<size_t>(b) * lq * rs + head;
+  load_tile<T, D>(ks, static_cast<const T*>(P.k) + koff, lk - c0, rs, dh, dp,
+                  vec);
+  load_tile<T, D>(vs, static_cast<const T*>(P.v) + koff, lk - c0, rs, dh, dp,
+                  vec);
+  if (n_live > 0) {
+    const int r0 = list[0] * kTile;
+    load_tile<T, D>(qs, q + r0 * rs, lq - r0, rs, dh, dp, vec);
+    load_tile<T, D>(dos, dout + r0 * rs, lq - r0, rs, dh, dp, vec);
+  }
+  cp_async_commit();
+  int keys[2];
+  for (int r = 0; r < 2; ++r) keys[r] = c0 + 16 * warp + g + 8 * r;
+  const float* ab = P.ab + static_cast<size_t>(h) * lq * lk;
+  const size_t splane = static_cast<size_t>(P.batch) * nh * lq;
+  const float* stb = P.stats + (static_cast<size_t>(b) * nh + h) * lq;
+  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+  for (int i = 0; i < n_live; ++i) {
+    const int st = kSplit ? 0 : i & 1, r0 = list[i] * kTile;
+    if (!kSplit && i + 1 < n_live) {
+      const int r1 = list[i + 1] * kTile;
+      load_tile<T, D>(qs + (st ^ 1) * kTile * LD, q + r1 * rs, lq - r1, rs,
+                      dh, dp, vec);
+      load_tile<T, D>(dos + (st ^ 1) * kTile * LD, dout + r1 * rs, lq - r1,
+                      rs, dh, dp, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    float s[TM][TN], dp[TM][TN];
-    dot_rows<D, TM, TN, TX, TY>(qs, ks, s);
-    dot_rows<D, TM, TN, TX, TY>(dos, vs, dp);
+    T* qst = qs + st * kTile * LD;
+    T* dost = dos + st * kTile * LD;
+    T* qlo = qs + kTile * LD;
+    T* dolo = dos + kTile * LD;
+    if constexpr (kSplit) {
+      split_tile<T, D>(qst, qlo, dp);
+      split_tile<T, D>(dost, dolo, dp);
+      __syncthreads();
+    }
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int q0 = 0; q0 < kTile; q0 += kStep) {
+      // per query column: ab, the row max, 1 / row sum, delta
+      float abv[NB][4], sm[NB][2], si[NB][2], sd[NB][2];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int rr = ty + TY * i, c = tx + TX * j;
-        float p = 0.f, ds = 0.f;
-        if (rr < nq && c < nk) {
-          const float x = fmaf(
-              s[i][j], P.scale,
-              P.ab[(static_cast<size_t>(h) * lq + r0 + rr) * lk + c0 + c]);
-          p = expf(x - rst[rr]) / rst[BQ + rr];
-          ds = p * (dp[i][j] - rst[2 * BQ + rr]);
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qr = r0 + q0 + 8 * j + 2 * t + e;
+          const bool ok = qr < lq;
+          sm[j][e] = ok ? stb[qr] : 0.f;
+          si[j][e] = ok ? stb[splane + qr] : 0.f;
+          sd[j][e] = ok ? stb[2 * splane + qr] : 0.f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            abv[j][2 * r + e] = ok && keys[r] < lk
+                ? __ldg(ab + static_cast<size_t>(qr) * lk + keys[r]) : 0.f;
         }
-        ps[rr * LDP + c] = round_to<T>(p);
-        dss[rr * LDP + c] = round_to<T>(ds);
+      float s[NB][4] = {}, dpv[NB][4] = {};
+      product_nk<T, D, NB>(ks + 16 * warp * LD, qst + q0 * LD,
+                           qlo + q0 * LD, dp, s);
+      product_nk<T, D, NB>(vs + 16 * warp * LD, dost + q0 * LD,
+                           dolo + q0 * LD, dp, dpv);
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, qc = e & 1;
+          const int qr = r0 + q0 + 8 * j + 2 * t + qc;
+          float p = 0.f, ds = 0.f;
+          if (qr < lq && keys[r] < lk) {
+            p = expf(fmaf(s[j][e], P.scale, abv[j][e]) - sm[j][qc]) * si[j][qc];
+            ds = p * (dpv[j][e] - sd[j][qc]);
+          }
+          s[j][e] = p;
+          dpv[j][e] = ds;
+        }
+      const float one[2] = {1.f, 1.f};
+      {
+        float part[D / 8][4] = {};
+        product_ck<T, D, kStep>(s, dost + q0 * LD, dolo + q0 * LD, dp, part);
+        add_scaled<D>(dv, one, part);
       }
+      {
+        float part[D / 8][4] = {};
+        product_ck<T, D, kStep>(dpv, qst + q0 * LD, qlo + q0 * LD, dp, part);
+        add_scaled<D>(dk, one, part);
+      }
+    }
     __syncthreads();
-    axpy_rows<D, KTM>(ps, LDP, dos, BQ, dv);
-    axpy_rows<D, KTM>(dss, LDP, qs, BQ, dk);
+    if (kSplit && i + 1 < n_live) {
+      const int r1 = list[i + 1] * kTile;
+      load_tile<T, D>(qs, q + r1 * rs, lq - r1, rs, dh, dp, vec);
+      load_tile<T, D>(dos, dout + r1 * rs, lq - r1, rs, dh, dp, vec);
+      cp_async_commit();
+    }
   }
-  store_rows<T, D, KTM>(dk, P.scale, static_cast<T*>(P.dk) + koff, nk, rs, dh);
-  store_rows<T, D, KTM>(dv, 1.f, static_cast<T*>(P.dv) + koff, nk, rs, dh);
+  const float mul_k[2] = {P.scale, P.scale}, one[2] = {1.f, 1.f};
+  store_acc<T, D>(dk, mul_k, static_cast<T*>(P.dk) + koff, 16 * warp, lk - c0,
+                  rs, dh);
+  store_acc<T, D>(dv, one, static_cast<T*>(P.dv) + koff, 16 * warp, lk - c0,
+                  rs, dh);
 }
 
 template <typename K>
@@ -478,48 +923,52 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 cudaError_t forward(const TrainAttnParams& P, cudaStream_t s) {
-  const int lkp = round_up(P.lk, kKeyTile);
-  const size_t bytes = fwd_smem<D>(lkp);
-  cudaError_t e = allow_smem(attn_fwd<T, D>, bytes);
+  const int nqt = cdiv(P.lq, kTile), nkt = cdiv(P.lk, kTile);
+  const size_t bytes = fwd_smem<T, D>(nkt);
+  cudaError_t e = allow_smem(attn_fwd<T, D, FULL>, bytes);
   if (e != cudaSuccess) return e;
-  const dim3 grid((P.lq + kFwdRows - 1) / kFwdRows, P.heads, P.batch);
-  attn_fwd<T, D><<<grid, kThreads, bytes, s>>>(P, lkp);
+  attn_live<<<dim3(nqt, P.heads), 256, sizeof(int) * nkt, s>>>(P);
+  ISI_CHECK();
+  attn_fwd<T, D, FULL><<<dim3(nqt, P.heads, P.batch), kThreads, bytes, s>>>(P);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FULL>
 cudaError_t backward(const TrainAttnParams& P, cudaStream_t s) {
-  const int lkp = round_up(P.lk, kKeyTile);
-  const size_t dq_bytes = dq_smem<D>(lkp), dkv_bytes = dkv_smem<D>();
-  cudaError_t e = allow_smem(attn_bwd_dq<T, D>, dq_bytes);
+  const int nqt = cdiv(P.lq, kTile), nkt = cdiv(P.lk, kTile);
+  const size_t dq_bytes = dq_smem<T, D>(nkt), dkv_bytes = dkv_smem<T, D>(nqt);
+  cudaError_t e = allow_smem(attn_bwd_dq<T, D, FULL>, dq_bytes);
   if (e != cudaSuccess) return e;
-  e = allow_smem(attn_bwd_dkv<T, D>, dkv_bytes);
+  e = allow_smem(attn_bwd_dkv<T, D, FULL>, dkv_bytes);
   if (e != cudaSuccess) return e;
   if (P.groups < 1 || P.groups > P.batch
       || (P.groups > 1 && P.dab_parts == nullptr))
     return cudaErrorInvalidValue;
-  const dim3 grid_dq((P.lq + kDqRows - 1) / kDqRows, P.heads, P.groups);
-  attn_bwd_dq<T, D><<<grid_dq, kThreads, dq_bytes, s>>>(P, lkp);
+  attn_bwd_dq<T, D, FULL><<<dim3(nqt, P.heads, P.groups), kThreads, dq_bytes, s>>>(P);
   ISI_CHECK();
   if (P.groups > 1) {
     const size_t n = static_cast<size_t>(P.heads) * P.lq * P.lk;
-    const int blocks = static_cast<int>(
-        std::min<size_t>((n + kThreads - 1) / kThreads, 4096));
-    attn_dab_sum<<<blocks, kThreads, 0, s>>>(P);
+    const int blocks = static_cast<int>(std::min<size_t>((n + 255) / 256, 4096));
+    attn_dab_sum<<<blocks, 256, 0, s>>>(P);
     ISI_CHECK();
   }
-  constexpr int BK = dkv_keys<D>();
-  const dim3 grid_dkv((P.lk + BK - 1) / BK, P.heads, P.batch);
-  attn_bwd_dkv<T, D><<<grid_dkv, kThreads, dkv_bytes, s>>>(P);
+  attn_bwd_dkv<T, D, FULL><<<dim3(nkt, P.heads, P.batch), kThreads, dkv_bytes, s>>>(P);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const TrainAttnParams& P, bool fwd, cudaStream_t s) {
-  if (P.dh <= 64) return fwd ? forward<T, 64>(P, s) : backward<T, 64>(P, s);
-  if (P.dh <= 128) return fwd ? forward<T, 128>(P, s) : backward<T, 128>(P, s);
+  if (P.dh < 1 || P.lq < 1 || P.lk < 1) return cudaErrorInvalidValue;
+  // the priors' heads of 64 fill the tiles: their products run without
+  // the guards of the padded columns
+  if (P.dh > 48 && P.dh <= 64)
+    return fwd ? forward<T, 64, true>(P, s) : backward<T, 64, true>(P, s);
+  if (P.dh <= 64)
+    return fwd ? forward<T, 64, false>(P, s) : backward<T, 64, false>(P, s);
+  if (P.dh <= 128)
+    return fwd ? forward<T, 128, false>(P, s) : backward<T, 128, false>(P, s);
   return cudaErrorInvalidValue;
 }
 

@@ -145,9 +145,10 @@ def fused_decode_scan(params: Dict[str, torch.Tensor],
     """Run the sampling loop over [p0, steps) for one sequence.
 
     params: ``pack_decode_params`` tables; bias_hm [n_layers, steps_pad, H,
-    l_pad] float32; posfull [steps_pad, d]; mem_kv (mem_k, mem_v)
-    [n_layers, E_pad, d]; kv [n_layers, 2, l_pad, d] (a primed cache,
-    updated in place) or None (zeros); tokens [L] int32; mask [L] bool;
+    l_pad] float32; posfull [steps_pad, d] (row 0 of
+    ``precompute_position_features``); mem_kv (mem_k, mem_v) [n_layers,
+    E_pad, d]; kv [n_layers, 2, l_pad, d] (a primed cache, updated in
+    place) or None (zeros); tokens [L] int32; mask [L] bool;
     gumbel [steps - p0, n_class] float32 (row r: noise of step p0 + r);
     cross_hm [n_layers, steps_pad, H, E_pad] float32 or None (aligned).
     Returns (tokens [L], final KV cache)."""

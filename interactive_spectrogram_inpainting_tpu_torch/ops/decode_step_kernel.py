@@ -10,8 +10,10 @@ batch (hand-written CUDA for sm_90a, ``csrc/decode_step.cu``).
 One layout differs on purpose: the packed weight matrices are stored
 ``[out, in]`` (``nn.Linear``'s layout), the transpose of the JAX tables'
 ``[in, out]``, so that one warp of the CUDA kernels reads one output row
-as contiguous 16-byte vectors. Every other table is elementwise the JAX
-one. The step kernels take the head-major bias tables
+as contiguous 16-byte vectors. ``posfull`` has a batch dimension, so that
+each sequence starts from its own class labels (the JAX table is row 0's:
+``posfull[0]``). Every other table is elementwise the JAX one. The step
+kernels take the head-major bias tables
 (``bias_hm [n_layers, steps_pad, H, l_pad]``) whole and index them by
 ``pos``, where the JAX step is handed a ``[n_layers, l_pad, H]`` slice.
 
@@ -144,17 +146,21 @@ def precompute_position_features(model, start_block: torch.Tensor,
                                  pos_features: torch.Tensor,
                                  dtype: torch.dtype = torch.bfloat16
                                  ) -> torch.Tensor:
-    """posfull [steps_pad, d]: start rows then positional rows (the token
-    embedding is added separately by the kernels)."""
+    """posfull [B, steps_pad, d]: each batch row's own start rows (from
+    ``start_block [B, c, d]``, which carries that row's class labels), then
+    the shared positional rows (the token embedding is added separately by
+    the kernels). The JAX package builds one [steps_pad, d] table from row
+    0's start rows; that table is ``posfull[0]``."""
     cfg = model.config
     d = cfg.d_model
     c = cfg.target_num_channels
     length = cfg.target_sequence_length
     eff = cfg.embeddings_effective_dim
     steps = _round_up(c + length, LANE)
-    posfull = torch.zeros(steps, d, device=pos_features.device)
-    posfull[:c] = start_block[0].float()
-    posfull[c:c + length, eff:eff + pos_features.shape[-1]] = \
+    batch = start_block.shape[0]
+    posfull = torch.zeros(batch, steps, d, device=pos_features.device)
+    posfull[:, :c] = start_block.float()
+    posfull[:, c:c + length, eff:eff + pos_features.shape[-1]] = \
         pos_features.float()
     return posfull.to(dtype)
 
@@ -243,7 +249,7 @@ def step_plain(params, bias_hm, posfull, mem_kv, kv, token_in, cur_token,
         return t.float()
 
     x = (params["emb_padded"][token_in[:, 0].long()].float()
-         + posfull[pos].float())
+         + posfull[:, pos].float())
     for l in range(n_layers):
         ln = params["ln"][l]
         h1 = round_to(layer_norm(x, ln[0], ln[1]), dtype)
@@ -369,11 +375,12 @@ def launch_step(library: str, symbol: str, kernel: str, params, bias_hm,
     for name, t in (("token_in", token_in), ("cur_token", cur_token),
                     ("out", out)):
         check_shape(t, name, (batch, 1))
+    check_shape(posfull, "posfull", (batch, steps_pad, d))
     if cross_hm is not None:
         check_shape(cross_hm, "cross_hm", (n_layers, steps_pad, nh, e_pad))
     if params["emb_padded"].shape[0] <= n_class:
         raise ValueError("emb_padded needs the all-zeros row n_class")
-    if not 0 <= pos < min(steps_pad, l_pad, posfull.shape[0]):
+    if not 0 <= pos < min(steps_pad, l_pad):
         raise ValueError(f"pos={pos} outside the tables")
     if d % nh or (d // nh) % 2 or d // nh > 64 or d % 8 or d_ff % 8:
         raise ValueError("head_dim must be even and <= 64, and d_model and "
@@ -430,7 +437,8 @@ def fused_decode_step(params: Dict[str, torch.Tensor],
     sequences; more run in groups of 4).
 
     params: ``pack_decode_params`` tables; bias_hm [n_layers, steps_pad, H,
-    l_pad] float32 (row ``pos`` is read); posfull [steps_pad, d]; mem_kv
+    l_pad] float32 (row ``pos`` is read); posfull [B, steps_pad, d] (each
+    row's start rows, then the positional rows); mem_kv
     (mem_k, mem_v) [n_layers, B, E_pad, d]; kv [n_layers, 2, B, l_pad, d],
     updated in place (row ``pos`` of every layer); token_in / cur_token
     [B, 1] int32 (``n_class`` in token_in selects the all-zeros start row);

@@ -241,8 +241,8 @@ def _fused_scan_sample(model: VQNSynthTransformer, memory: torch.Tensor,
     bias_hm = decode_state["bias_hm"]
     cross_hm = decode_state["cross_hm"]
     l_pad = bias_hm.shape[3]
-    # posfull carries the start rows of batch row 0 for the whole batch, as
-    # the JAX package's fused path does (precompute_position_features)
+    # posfull [B, steps_pad, d]: each batch row's own start rows (its class
+    # labels), as the dense sampler embeds them
     posfull = precompute_position_features(model, start_block, pos_features,
                                            dtype=dtype)
     mem_k, mem_v = precompute_mem_values(model, memory.to(dtype))
@@ -264,7 +264,7 @@ def _fused_scan_sample(model: VQNSynthTransformer, memory: torch.Tensor,
             torch.full((batch, c), n_class, dtype=torch.long, device=dev),
             tokens32.long()], dim=1)
         x_prefix = (params["emb_padded"][with_start[:, :p0]].float()
-                    + posfull[:p0].float()).to(dtype)
+                    + posfull[:, :p0].float()).to(dtype)
         if not use_batched:
             fused_prefix_prime(params, bias_hm, x_prefix, (mem_k, mem_v), kv,
                                p0=p0, channels=c, cross_hm=cross_hm,
@@ -282,7 +282,7 @@ def _fused_scan_sample(model: VQNSynthTransformer, memory: torch.Tensor,
         gumbel = _noise(gumbel, (max(steps - p0, 0), n_class), dev,
                         generator)
         tokens, _ = fused_decode_scan(
-            params, bias_hm, posfull, (mem_k[:, 0], mem_v[:, 0]),
+            params, bias_hm, posfull[0], (mem_k[:, 0], mem_v[:, 0]),
             None if kv is None else kv[:, :, 0], tokens32[0].contiguous(),
             mask_seq.to(torch.bool).contiguous(), gumbel, temperature,
             p0=p0, steps=steps, n_class=n_class, channels=c,
@@ -364,6 +364,12 @@ def _predictive_sample(model: VQNSynthTransformer, memory: torch.Tensor,
     positions = torch.arange(length, device=dev)
 
     def forward_tokens(tokens):
+        # a codemap sampled from scratch still holds the mask token
+        # (``n_class``, outside the target embedding) at the cells not
+        # sampled yet: give the target side token 0 there. Position i's
+        # logits see only the tokens before i, so no sample depends on it
+        # (the JAX package embeds NaN there and forces token 0 at i = 0).
+        tokens = torch.where(tokens == cfg.mask_token_index, 0, tokens)
         codemap = helper.to_time_frequency_map(tokens)
         tgt_seq = model.prepare_sequence(
             helper.to_sequence(codemap), "target",

@@ -263,6 +263,38 @@ def test_sample_model_batch_cuda_matches_cpu(prior, batch):
     assert flash_decode_attention.launches > 0
 
 
+@pytest.mark.parametrize("batch", [2, 8])
+def test_fused_per_row_class_labels_match_dense_on_the_card(device, batch):
+    """One pitch per batch row: the fused sampler (the step kernel at 2,
+    the batched kernel at 8) gives the dense sampler's greedy float32
+    tokens on the card, every row from its own start rows."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        decode_step_batched as dsb, decode_step_kernel as dsk)
+    base = tiny_prior("aligned").config
+    cfg = dataclasses.replace(
+        base, class_conditioning_num_classes_per_modality={"pitch": 5},
+        class_conditioning_embedding_dim_per_modality={"pitch": 4},
+        class_conditioning_prepend_to_dummy_input=True)
+    model = init_like_flax(tt.UpsamplingVQTransformer(cfg),
+                           torch.Generator().manual_seed(1)).eval().to(device)
+    rng = np.random.default_rng(9)
+    condition = rng.integers(0, cfg.n_class, (batch,) + cfg.condition_shape)
+    pitches = np.array([1, 3, 0, 4, 2, 3, 1, 0])[:batch]
+    p0, steps = scan_range(model, None, None)
+    gumbel = torch.zeros(steps - p0, batch, cfg.n_class)
+    launches = (dsk.fused_decode_step.launches,
+                dsb.fused_decode_step_batched.launches)
+    fused, dense = (sample_model(
+        model, None, batch, condition=condition,
+        class_conditioning={"pitch": pitches}, gumbel=gumbel,
+        use_fused_step=f, device="cuda").cpu() for f in (True, False))
+    assert torch.equal(fused, dense)
+    grew = (dsk.fused_decode_step.launches > launches[0],
+            dsb.fused_decode_step_batched.launches > launches[1])
+    assert grew == ((True, False) if batch == 2 else (False, True))
+    assert not torch.equal(fused[0], fused[1])
+
+
 # -- fused_vq_lookup ----------------------------------------------------------
 
 def vq_margin_rows(flat, embed, margin=1e-4):
@@ -422,7 +454,14 @@ def aligned_mask(lq, lk, channels):
     ((4, 70, 70, 4, 64), "causal"),
     ((2, 66, 17, 2, 64), "aligned"),    # cross attention, one key per row
     ((2, 40, 40, 2, 80), None),         # Dh above 64
-    ((2, 600, 50, 16, 8), None),        # one batch group (no partial dab)
+    ((2, 600, 50, 16, 8), None),        # two batch groups
+    ((2, 33, 19, 3, 6), None),          # rows not 16-byte pieces: element
+                                        # loads instead of cp.async
+    ((1, 130, 130, 2, 64), "fully_masked_row"),  # one group; row 100 sees
+                                                 # no key: its tile stays
+    ((32, 516, 516, 8, 64), "causal"),  # the three training attentions with
+    ((32, 516, 129, 8, 64), "aligned"),  # their real masks, where most
+    ((32, 129, 129, 8, 64), "anti"),     # tiles are skipped
 ])
 def test_train_attention_kernels_match_plain(device, dtype, shape, mask):
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
@@ -432,7 +471,10 @@ def test_train_attention_kernels_match_plain(device, dtype, shape, mask):
     masks = {None: None,
              "causal": torch.where(i[:, None] >= i[None, :], 0.0, -1e9),
              "anti": torch.where(i[:, None] <= i[None, :], 0.0, -1e9),
-             "aligned": aligned_mask(lq, lk, 4)}
+             "aligned": aligned_mask(lq, lk, 4),
+             "fully_masked_row": torch.where(
+                 (i[:, None] <= i[None, :]) & (i[:, None] != 100), 0.0,
+                 -1e9)}
     q, k, v, ab, dout = attention_inputs(device, *shape, dtype,
                                          masks[mask])
     launches = (ta.train_attention_forward.launches,
@@ -458,6 +500,28 @@ def test_train_attention_kernels_match_plain(device, dtype, shape, mask):
         torch.testing.assert_close(got.float(), want.float(),
                                    atol=grad_tol[0], rtol=grad_tol[1],
                                    msg=name)
+
+
+@pytest.mark.parametrize("lq,lk,mask", [
+    (516, 516, "causal"), (516, 129, "aligned"), (129, 129, "anti"),
+    (130, 130, "fully_masked_row"), (37, 21, None)])
+def test_train_attention_live_map_on_the_card(device, lq, lk, mask):
+    """The map of live tiles the forward kernel builds equals its plain
+    version ``live_tiles``."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        train_attention as ta)
+    i, j = torch.arange(lq), torch.arange(lk)
+    masks = {None: torch.zeros(lq, lk),
+             "causal": torch.where(i[:, None] >= j[None, :], 0.0, -1e9),
+             "anti": torch.where(i[:, None] <= j[None, :], 0.0, -1e9),
+             "aligned": aligned_mask(lq, lk, 4),
+             "fully_masked_row": torch.where(
+                 (i[:, None] <= j[None, :]) & (i[:, None] != 100), 0.0,
+                 -1e9)}
+    q, k, v, ab, _ = attention_inputs(device, 2, lq, lk, 3, 64,
+                                      torch.float32, masks[mask])
+    state = ta.train_attention_forward(q, k, v, ab, keep_state=True)
+    assert torch.equal(state.live, ta.live_tiles(ab))
 
 
 def test_train_attention_autograd_on_the_card(device):

@@ -75,8 +75,9 @@ def setup(request):
         t_params = tdk.pack_decode_params(tm, dtype=torch.float32)
         t_pos = tm._positional_sequence("target")
         t_start = tm._start_block("target", {}, 1)
+        # one sequence: row 0 of the port's [B, steps_pad, d] table
         t_posfull = tdk.precompute_position_features(
-            tm, t_start, t_pos, dtype=torch.float32)
+            tm, t_start, t_pos, dtype=torch.float32)[0]
         t_bias = tdk.precompute_bias_rows(tm, l_pad)
         t_cross = tdk.precompute_cross_bias_rows(tm, e_pad)
         t_mem_k, t_mem_v = tdk.precompute_mem_values(tm, t_memory)

@@ -287,7 +287,7 @@ def test_prefix_prime_batch_matches_jax_kernel(priors, variant):
         e_src_real=tab["e_src"], interpret=True))
 
     t_x = (t["params"]["emb_padded"][torch.as_tensor(with_start[:, :p0])]
-           + t["posfull"][:p0])
+           + t["posfull"][:, :p0])
     with torch.no_grad():
         kv_t = fused_prefix_prime(
             t["params"], t["bias_hm"], t_x, t["mem"],
@@ -351,10 +351,10 @@ def test_fused_sample_model_batch_matches_jax(priors, variant, batch):
     assert not np.array_equal(t_out[0], t_out[1])
 
 
-def test_fused_sample_model_per_row_pitch_uses_row_zero_start(priors):
-    """With one class label per batch row the JAX fused path builds the
-    start rows from row 0's labels for the whole batch
-    (``precompute_position_features``); the port reproduces that."""
+@pytest.fixture(scope="module")
+def pitch_prior():
+    """The tiny aligned bottom prior with a pitch label prepended to its
+    start rows, so that each batch row can start from its own label."""
     from tests.test_transformer import tiny_config
     from interactive_spectrogram_inpainting_tpu.models.prior import (
         UpsamplingVQTransformer)
@@ -372,23 +372,65 @@ def test_fused_sample_model_per_row_pitch_uses_row_zero_start(priors):
         jnp.zeros((1,) + cfg.shape, jnp.int32),
         jnp.zeros((1,) + cfg.condition_shape, jnp.int32),
         class_conditioning=cc)
-    tm = port_prior(jm, variables)
-    batch = 2
+    return jm, variables, port_prior(jm, variables)
+
+
+@pytest.mark.parametrize("batch,inpaint", [(2, False), (2, True), (8, True)],
+                         ids=["step_b2", "step_b2_primed",
+                              "batched_b8_primed"])
+def test_fused_sample_model_per_row_pitch_matches_dense(pitch_prior, batch,
+                                                        inpaint):
+    """With one class label per batch row, the fused sampler's greedy
+    tokens equal the JAX package's *dense* sampler's: every row decodes
+    from its own start rows, at batch 2 (``fused_decode_step``, primed by
+    ``fused_prefix_prime`` when inpainting) and 8
+    (``fused_decode_step_batched``, primed through ``prefix_kv``). (The JAX
+    fused path builds the start rows of row 0 for the whole batch.)"""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        decode_step_batched as tsb)
+    jm, variables, tm = pitch_prior
+    cfg = jm.config
     rng = np.random.default_rng(41)
     condition = rng.integers(0, cfg.n_class,
                              (batch,) + tuple(cfg.condition_shape))
-    pitches = np.array([1, 3])
+    pitches = np.array([1, 3, 0, 4, 2, 3, 1, 0])[:batch]
+    initial = mask = None
+    sf = su = None
+    if inpaint:
+        initial = rng.integers(0, cfg.n_class, (batch,) + tuple(cfg.shape))
+        mask = np.zeros(cfg.shape, bool)
+        mask[:, 1:3] = True
+        sf, su = bounds(tm, mask)
     key = jax.random.PRNGKey(6)
     j_out = np.asarray(jsampling.sample_model(
-        jm, variables, key, batch, condition=condition,
-        class_conditioning={"pitch": jnp.asarray(pitches)},
-        use_fused_step=True))
-    p0, steps = scan_range(tm, None, None)
+        jm, variables, key, batch, condition=condition, initial_code=initial,
+        mask=mask, class_conditioning={"pitch": jnp.asarray(pitches)},
+        temperature=1e-6, use_fused_step=False))
+    p0, steps = scan_range(tm, sf, su)
+    assert (p0 > 0) == inpaint
     gumbel = jax_step_gumbel(key, p0, steps, (batch, cfg.n_class))
-    t_out = sample_model(tm, None, batch, condition=condition,
-                         class_conditioning={"pitch": pitches},
-                         gumbel=gumbel, device="cpu").numpy()
+    calls = []
+    batched = tsb.decode_step_batched_plain
+    tsb.decode_step_batched_plain = lambda *a, **k: (
+        calls.append(1), batched(*a, **k))[1]
+    try:
+        t_out = sample_model(
+            tm, None, batch, condition=condition, initial_code=initial,
+            mask=mask, class_conditioning={"pitch": pitches},
+            temperature=1e-6, gumbel=gumbel, device="cpu").numpy()
+    finally:
+        tsb.decode_step_batched_plain = batched
+    assert bool(calls) == (batch > 4)
     np.testing.assert_array_equal(t_out, j_out)
+    if inpaint:
+        np.testing.assert_array_equal(t_out[:, ~mask], initial[:, ~mask])
+    # the rows' labels matter: row 1 alone under row 0's label differs
+    alone = sample_model(
+        tm, None, 1, condition=condition[1:2],
+        initial_code=None if initial is None else initial[1:2], mask=mask,
+        class_conditioning={"pitch": pitches[:1]}, temperature=1e-6,
+        gumbel=gumbel[:, 1], device="cpu").numpy()
+    assert not np.array_equal(alone[0], t_out[1])
 
 
 @pytest.mark.parametrize("options", [
@@ -462,6 +504,28 @@ def test_predictive_sample_model_matches_jax(priors, variant):
     assert t_diag["num_forwards"] == int(j_diag["num_forwards"])
     assert t_diag["num_steps"] == int(j_diag["num_steps"])
     assert 0 < t_diag["num_forwards"] <= int(mask.sum())
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_predictive_from_scratch_greedy_matches_dense(priors, batch):
+    """Predictive sampling with no initial code on the self-conditional top
+    prior, whose codemap then starts as the mask token everywhere: the
+    greedy tokens equal the JAX dense sampler's (the JAX package's own
+    contract, ``test_predictive_sampling_greedy_matches_scan``). The JAX
+    predictive sampler embeds NaN for the mask token and forces token 0 at
+    position 0 instead."""
+    jm, variables, tm = priors["cross"]
+    cfg = jm.config
+    assert cfg.self_conditional_model
+    key = jax.random.PRNGKey(10)
+    j_out = np.asarray(jsampling.sample_model(
+        jm, variables, key, batch, temperature=1e-6, use_fused_step=False))
+    gumbel = torch.zeros(batch, cfg.target_sequence_length, cfg.n_class)
+    t_out, diag = sample_model(
+        tm, None, batch, temperature=1e-6, use_predictive_sampling=True,
+        return_diagnostics=True, gumbel=gumbel, device="cpu")
+    np.testing.assert_array_equal(t_out.numpy(), j_out)
+    assert 0 < diag["num_forwards"] <= cfg.target_sequence_length
 
 
 def test_top_k_top_p_filtering_matches_jax():

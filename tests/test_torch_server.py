@@ -231,6 +231,24 @@ def test_generate_matches_jax(servers):
     assert data["bottom_conditioning"] == bottom_map
 
 
+def test_generate_predictive_from_scratch(servers, monkeypatch):
+    """``/generate`` on a server started with ``--use_predictive_sampling``:
+    the top prior is sampled from scratch by the predictive sampler (its
+    codemap starts as the mask token everywhere), then the bottom prior
+    under it; the request succeeds with codemaps of the models' shapes
+    and classes."""
+    jsrv, jstate, tsrv, tstate = servers
+    monkeypatch.setattr(tstate, "sampling_options", {"predictive": True})
+    data = json.loads(post(
+        tsrv, "/generate",
+        "pitch=60&instrument_family_str=keyboard&temperature=1.0", {}).body)
+    for name in ("top", "bottom"):
+        code = np.asarray(data[f"{name}_code"])
+        cfg = getattr(tstate, name).config
+        assert code.shape == tuple(cfg.shape)
+        assert ((code >= 0) & (code < cfg.n_class)).all()
+
+
 def test_test_generate(servers):
     jsrv, jstate, tsrv, tstate = servers
     data = json.loads(post(tsrv, "/test-generate",
@@ -250,7 +268,10 @@ def test_test_generate(servers):
 def test_top_conditioned_sample_pads_to_bucket_and_matches_jax(servers):
     """A 3-pitch range runs at the padded batch bucket (16: the batched
     step kernel's path) with one pitch per row, returns exactly 3 wavs named
-    per pitch, and samples the JAX server's codemaps under its noise.
+    per pitch, and samples the JAX server's codemaps under its noise. The
+    JAX fused sampler starts every row from row 0's start rows
+    (``ROADMAP.md`` section 3), so each row is held to the JAX server's
+    request in which the whole batch has that row's pitch.
 
     The server samples in bfloat16, where a float32 sum taken in another
     order can flip the rounding of an activation and, with it, a token
@@ -264,15 +285,21 @@ def test_top_conditioned_sample_pads_to_bucket_and_matches_jax(servers):
     top = np.asarray(body["top_code"], np.int32)[None]
     pitches = [70, 71, 72]
     padded = pitches + [72] * (bucket - 3)
-    cc = {"pitch": jnp.asarray(
-              jstate.label_encoders["pitch"].transform(padded)),
-          "instrument_family_str": jnp.asarray(
-              jstate.label_encoders["instrument_family_str"].transform(
-                  ["keyboard"] * bucket))}
     key = np.array([9, 1], np.uint32)
     condition = jnp.broadcast_to(top, (bucket,) + top.shape[1:])
-    j_bottom = np.asarray(jstate.sample_fn("bottom", bucket)(
-        key, 1.0, condition, None, None, cc, None, None))
+    j_bottom = None
+    for pitch in sorted(set(padded)):
+        cc = {"pitch": jnp.asarray(
+                  jstate.label_encoders["pitch"].transform([pitch] * bucket)),
+              "instrument_family_str": jnp.asarray(
+                  jstate.label_encoders["instrument_family_str"].transform(
+                      ["keyboard"] * bucket))}
+        out = np.asarray(jstate.sample_fn("bottom", bucket)(
+            key, 1.0, condition, None, None, cc, None, None))
+        rows = np.asarray(padded) == pitch
+        if j_bottom is None:
+            j_bottom = out.copy()
+        j_bottom[rows] = out[rows]
 
     model = tstate.bottom
     p0, steps = scan_range(model, None, None)

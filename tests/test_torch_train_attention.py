@@ -175,6 +175,55 @@ def test_wrappers_refuse_bad_inputs():
             ta.train_attention_backward.launches) == before
 
 
+def training_mask(name, lq, lk):
+    """The additive masks of the priors' three training attentions (the
+    bottom prior has 4 channels per event), and an anti-causal mask with
+    one row that sees no key."""
+    from interactive_spectrogram_inpainting_tpu_torch.models.prior import (
+        attention)
+    if name == "causal":
+        return attention.causal_mask(lq)
+    if name == "aligned":
+        e_q = torch.arange(lq) // 4
+        return torch.where(e_q[:, None] == torch.arange(lk)[None, :], 0.0,
+                           -1e9)
+    mask = attention.anti_causal_mask(lq)
+    if name == "fully_masked_row":
+        mask[100] = -1e9
+    return mask
+
+
+@pytest.mark.parametrize("name,lq,lk,live", [
+    ("causal", 516, 516, 45), ("aligned", 516, 129, 9),
+    ("anti_causal", 129, 129, 6), ("fully_masked_row", 130, 130, 7)])
+def test_live_tiles_skip_exactly(name, lq, lk, live):
+    """``live_tiles`` at the training shapes with their real masks: the
+    tiles it leaves out hold only masked scores, so the plain attention and
+    its gradient are the same bits with those tiles removed (-inf). A
+    query tile holding a row with no key stays whole."""
+    heads = 2
+    gen = torch.Generator().manual_seed(7)
+    q, k, v, dout = (torch.randn(2, n, heads, 8, generator=gen)
+                     for n in (lq, lk, lk, lq))
+    ab = torch.randn(heads, lq, lk, generator=gen) \
+        + training_mask(name, lq, lk)[None]
+    tiles = ta.live_tiles(ab)
+    assert tiles.dtype == torch.uint8
+    assert tiles.shape == (heads, -(-lq // ta.TILE), -(-lk // ta.TILE))
+    assert int(tiles.sum()) == heads * live
+    keep = tiles.bool().repeat_interleave(ta.TILE, 1).repeat_interleave(
+        ta.TILE, 2)[:, :lq, :lk]
+    skipped = torch.where(keep, ab, float("-inf"))
+    out = ta.reference_train_attention(q, k, v, ab)
+    assert torch.isfinite(out).all()
+    assert torch.equal(ta.reference_train_attention(q, k, v, skipped), out)
+    grads = ta.reference_train_attention_backward(q, k, v, ab, dout)
+    again = ta.reference_train_attention_backward(q, k, v, skipped, dout)
+    for got, want in zip(again, grads):
+        assert torch.equal(got, want)
+    assert (grads[3][~keep] == 0).all()
+
+
 # -- the prior's layers in training mode --------------------------------------
 
 @pytest.mark.parametrize("hier", ["top", "bottom"])
