@@ -30,10 +30,22 @@ falling back from one to the other. The kernel's sums are taken in a fixed
 order without float atomics: two calls give the same bits. Each half's
 ``launches`` counts its calls that reached the GPU.
 
-Precision: ``"high"`` multiplies in float32 FMA (tighter than the 3-pass
-bfloat16 product it stands for); ``"default"`` rounds the audio and the
-basis to bfloat16 first (the 1-pass product). ``scale_eligible`` says which
-scales the kernel takes: ``win % hop == 0`` and one of those two
+Two routes, fixed by the shape and the precision alone (``fft_route``):
+``"high"`` with ``n_fft`` a power of two from 64 to 4096 (every scale of
+the DDSP and Jukebox presets) runs as an FFT in shared memory, pred and
+target packed as one complex signal; the backward is an inverse real FFT
+of U per frame (two frames a complex transform) and an overlap-add.
+``reference_scale_loss_fft`` / ``reference_scale_loss_fft_backward`` take
+the same steps in ``torch.fft`` (the tests' and ``chip_smoke.py``'s oracle
+of that route); ``reference_scale_loss_float64`` evaluates the formula in
+float64 (their accuracy reference). Every other eligible scale runs the
+DFT product.
+
+Precision: ``"high"`` computes in float32 (an FFT, or float32 FMA on the
+DFT route: tighter than the 3-pass bfloat16 product it stands for);
+``"default"`` rounds the audio and the basis to bfloat16 first (the 1-pass
+product, DFT route only: an FFT cannot round its basis). ``scale_eligible``
+says which scales the kernel takes: ``win % hop == 0`` and one of those two
 precisions. The others (``"highest"``, or a window that is not a whole
 number of hops) go through ``reference_scale_loss`` under autograd in
 ``train/losses.py``, as the JAX package sends them to XLA. The JAX kernel's
@@ -52,9 +64,13 @@ import torch
 
 from .common import check_cuda, ptr, raise_on_error, struct_type
 
-# frames and frequencies of a forward block (kFrames, kFreqs in the source)
+# frames and frequencies of a DFT-route forward block (kFrames, kFreqs in
+# the source)
 FWD_FRAMES = 64
 FWD_FREQS = 64
+# complex values of an FFT-route block, at least (kBlockValues)
+FFT_BLOCK_VALUES = 2048
+FFT_SIZES = tuple(2 ** n for n in range(6, 13))
 
 
 class ScaleConfig(NamedTuple):
@@ -71,9 +87,9 @@ class ScaleConfig(NamedTuple):
 _SpectralParams = struct_type(
     "SpectralParams",
     pointers=("pred", "target", "basis", "grad", "u_in", "u", "partial",
-              "rows", "total", "d_pred"),
+              "rows", "total", "d_pred", "window", "twiddle", "frame_grad"),
     ints=("batch", "length", "hop", "win", "frames", "n_freq", "start",
-          "mse", "round_bf16"),
+          "mse", "round_bf16", "n_fft"),
     floats=("lin_w", "log_w", "log_eps"))
 
 
@@ -81,6 +97,17 @@ def scale_eligible(n_fft: int, hop: int, win: int, precision: str) -> bool:
     """Whether one (n_fft, hop, win) scale runs through ``fused_scale_loss``."""
     return (0 < win <= n_fft and hop > 0 and win % hop == 0
             and precision in ("high", "default"))
+
+
+def fft_route(cfg: ScaleConfig) -> bool:
+    """Whether an eligible scale runs as an FFT (else as the DFT product):
+    precision 'high' and n_fft a power of two from 64 to 4096."""
+    return cfg.precision == "high" and cfg.n_fft in FFT_SIZES
+
+
+def fft_frames_per_block(n_fft: int) -> int:
+    """Frames of an FFT-route forward block (two per transform backward)."""
+    return max(n_fft, FFT_BLOCK_VALUES) // n_fft
 
 
 def frame_geometry(length: int, n_fft: int, hop: int, win: int
@@ -108,33 +135,72 @@ def _basis_numpy(n_fft: int, win: int, round_bf16: bool) -> np.ndarray:
     return np.ascontiguousarray(wb)
 
 
-_BASES = {}
+@functools.lru_cache(maxsize=None)
+def _twiddle_numpy(n_fft: int) -> np.ndarray:
+    """exp(-2 pi i t / n_fft) for t < n_fft as float32 (re, im) pairs, from
+    float64 cos and sin of the exact angles."""
+    ang = np.arange(n_fft, dtype=np.float64) * (2.0 * np.pi / n_fft)
+    return np.ascontiguousarray(
+        np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32))
+
+
+_TABLES = {}
+
+
+def _cached(key, make) -> torch.Tensor:
+    if key not in _TABLES:
+        _TABLES[key] = torch.from_numpy(make()).to(key[-1])
+    return _TABLES[key]
 
 
 def window_basis(n_fft: int, win: int, precision: str,
                  device) -> torch.Tensor:
     """The window-folded basis ``wb [win, 2F]`` float32 (bf16-rounded values
     for ``precision="default"``), built once per device and cached."""
-    key = (n_fft, win, precision == "default", torch.device(device))
-    if key not in _BASES:
-        _BASES[key] = torch.from_numpy(
-            _basis_numpy(n_fft, win, key[2])).to(key[3])
-    return _BASES[key]
+    rounded = precision == "default"
+    return _cached(("basis", n_fft, win, rounded, torch.device(device)),
+                   lambda: _basis_numpy(n_fft, win, rounded))
+
+
+def hann_window(win: int, device) -> torch.Tensor:
+    """The periodic Hann window [win] float32, cached per device."""
+    from ..signal.spectrogram import _hann_window
+    return _cached(("window", win, torch.device(device)),
+                   lambda: _hann_window(win))
+
+
+def twiddles(n_fft: int, device) -> torch.Tensor:
+    """The FFT route's twiddle table [n_fft, 2] float32, cached per
+    device."""
+    return _cached(("twiddle", n_fft, torch.device(device)),
+                   lambda: _twiddle_numpy(n_fft))
+
+
+def _hann_float64(win: int, device) -> torch.Tensor:
+    n = torch.arange(win, dtype=torch.float64, device=device)
+    return 0.5 - 0.5 * torch.cos(2.0 * np.pi * n / win)
 
 
 def _frames(audio: torch.Tensor, cfg: ScaleConfig) -> torch.Tensor:
-    """[B, L] -> [B, frames, win] sliding frames (a view)."""
+    """[B, L] -> [B, frames, win] sliding frames in audio's dtype (a
+    view)."""
     frames, start = frame_geometry(audio.shape[-1], cfg.n_fft, cfg.hop,
                                    cfg.win)
     span = audio[:, start:start + (frames - 1) * cfg.hop + cfg.win]
     return span.unfold(-1, cfg.win, cfg.hop)
 
 
-def _ri(audio: torch.Tensor, cfg: ScaleConfig) -> torch.Tensor:
+def reference_spectrum(audio: torch.Tensor, cfg: ScaleConfig
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(re, im) [B, frames, F] of one scale's STFT as the DFT plain version
+    computes it: float32 frames (bf16-rounded for 'default') times the
+    window-folded basis."""
     x = _frames(audio.float(), cfg)
     if cfg.precision == "default":
         x = x.to(torch.bfloat16).float()
-    return x @ window_basis(cfg.n_fft, cfg.win, cfg.precision, audio.device)
+    ri = x @ window_basis(cfg.n_fft, cfg.win, cfg.precision, audio.device)
+    f = cfg.n_fft // 2 + 1
+    return ri[..., :f], ri[..., f:]
 
 
 def reference_scale_loss(pred: torch.Tensor, target: torch.Tensor,
@@ -142,12 +208,20 @@ def reference_scale_loss(pred: torch.Tensor, target: torch.Tensor,
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain version of the forward: (per-row loss sums [B] float32, U
     [B, frames, 2F] bfloat16 or None)."""
-    f = cfg.n_fft // 2 + 1
-    ri_p, ri_t = _ri(pred, cfg), _ri(target, cfg)
-    re_p, im_p = ri_p[..., :f], ri_p[..., f:]
-    re_t, im_t = ri_t[..., :f], ri_t[..., f:]
-    mag_p = torch.sqrt(re_p * re_p + im_p * im_p + 1e-12)
-    mag_t = torch.sqrt(re_t * re_t + im_t * im_t + 1e-12)
+    return _loss_terms(*reference_spectrum(pred, cfg),
+                       *reference_spectrum(target, cfg), cfg, need_u)
+
+
+def magnitude(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(re * re + im * im + 1e-12)
+
+
+def _loss_terms(re_p, im_p, re_t, im_t, cfg: ScaleConfig, need_u: bool,
+                u_dtype: torch.dtype = torch.bfloat16
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Both spectra -> (per-row loss sums [B], U in ``u_dtype`` or None),
+    in the spectra's dtype."""
+    mag_p, mag_t = magnitude(re_p, im_p), magnitude(re_t, im_t)
     total = torch.zeros_like(mag_p)
     dmag = torch.zeros_like(mag_p)
     if cfg.lin_w:
@@ -170,8 +244,7 @@ def reference_scale_loss(pred: torch.Tensor, target: torch.Tensor,
     u = None
     if need_u:
         scale = dmag / mag_p
-        u = torch.cat([scale * re_p, scale * im_p], dim=-1).to(
-            torch.bfloat16)
+        u = torch.cat([scale * re_p, scale * im_p], dim=-1).to(u_dtype)
     return total.sum((1, 2)), u
 
 
@@ -180,18 +253,91 @@ def reference_scale_loss_backward(u: torch.Tensor, grad: torch.Tensor,
                                   ) -> torch.Tensor:
     """Plain version of the backward: the transposed STFT of U times the
     loss's cotangent ``grad`` -> d_pred [B, L] float32."""
-    batch, frames, _ = u.shape
+    wb = window_basis(cfg.n_fft, cfg.win, cfg.precision, u.device)
+    return _overlap_add(u.float() @ wb.T, grad, cfg, length)
+
+
+def _overlap_add(d_frames: torch.Tensor, grad: torch.Tensor,
+                 cfg: ScaleConfig, length: int) -> torch.Tensor:
+    """[B, frames, win] frame gradients -> d_pred [B, L] in their dtype:
+    each chunk of hop samples sums the frames over it, in the order of c."""
+    batch, frames, _ = d_frames.shape
     _, start = frame_geometry(length, cfg.n_fft, cfg.hop, cfg.win)
     m = cfg.win // cfg.hop
-    wb = window_basis(cfg.n_fft, cfg.win, cfg.precision, u.device)
-    d_frames = (u.float() @ wb.T).reshape(batch, frames, m, cfg.hop)
-    chunks = torch.zeros(batch, frames + m - 1, cfg.hop, device=u.device)
+    d_frames = d_frames.reshape(batch, frames, m, cfg.hop)
+    chunks = d_frames.new_zeros(batch, frames + m - 1, cfg.hop)
     for c in range(m):
         chunks[:, c:c + frames] += d_frames[:, :, c]
-    out = torch.zeros(batch, length, device=u.device)
+    out = d_frames.new_zeros(batch, length)
     out[:, start:start + chunks.shape[1] * cfg.hop] = (
         grad * chunks.reshape(batch, -1))
     return out
+
+
+def reference_spectra_fft(pred: torch.Tensor, target: torch.Tensor,
+                          cfg: ScaleConfig) -> Tuple[torch.Tensor, ...]:
+    """The FFT route's spectra in ``torch.fft``, step by step as the kernel
+    takes them: z = w pred + i w target per frame, zero-padded at the end to
+    n_fft; Z = FFT(z); P = (Z[k] + conj Z[N-k]) / 2, T = (Z[k] - conj
+    Z[N-k]) / 2i; re = Re, im = -Im (the basis's +sin) -> (re_p, im_p,
+    re_t, im_t) [B, frames, F] float32."""
+    window = hann_window(cfg.win, pred.device)
+    z = torch.complex(_frames(pred.float(), cfg) * window,
+                      _frames(target.float(), cfg) * window)
+    spec = torch.fft.fft(z, n=cfg.n_fft)
+    f = cfg.n_fft // 2 + 1
+    zk = spec[..., :f]
+    zn = torch.roll(torch.flip(spec, [-1]), 1, -1)[..., :f]  # Z[(N-k) % N]
+    return (0.5 * (zk.real + zn.real), 0.5 * (zn.imag - zk.imag),
+            0.5 * (zk.imag + zn.imag), 0.5 * (zk.real - zn.real))
+
+
+def reference_scale_loss_fft(pred: torch.Tensor, target: torch.Tensor,
+                             cfg: ScaleConfig, need_u: bool = True
+                             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The FFT route's forward in ``torch.fft``: ``reference_spectra_fft``,
+    then the loss terms and U of ``reference_scale_loss``."""
+    return _loss_terms(*reference_spectra_fft(pred, target, cfg), cfg,
+                       need_u)
+
+
+def reference_scale_loss_fft_backward(u: torch.Tensor, grad: torch.Tensor,
+                                      cfg: ScaleConfig, length: int
+                                      ) -> torch.Tensor:
+    """The FFT route's backward in ``torch.fft``: each frame's transposed
+    STFT is w[n] (N/2) irfft(X, N)[n] for n < win, X[k] = U_re[k] - i
+    U_im[k] with X[0] and X[N/2] doubled; then the overlap-add. In float32,
+    or in float64 (and the float64 window) for a float64 U."""
+    f = cfg.n_fft // 2 + 1
+    wide = u.dtype == torch.float64
+    uf = u if wide else u.float()
+    x = torch.complex(uf[..., :f], -uf[..., f:])
+    x[..., 0] *= 2
+    x[..., f - 1] *= 2
+    frames = torch.fft.irfft(x, n=cfg.n_fft)[..., :cfg.win] * (cfg.n_fft / 2)
+    window = (_hann_float64 if wide else hann_window)(cfg.win, u.device)
+    return _overlap_add(frames * window, grad, cfg, length)
+
+
+def reference_spectrum_float64(audio: torch.Tensor, cfg: ScaleConfig
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(re, im) [B, frames, F] of one scale's STFT in float64: the frames
+    times the float64 periodic Hann window, zero-padded at the end to n_fft,
+    ``torch.fft.rfft``, im = -Im (the basis's +sin)."""
+    spec = torch.fft.rfft(_frames(audio.double(), cfg)
+                          * _hann_float64(cfg.win, audio.device), n=cfg.n_fft)
+    return spec.real, -spec.imag
+
+
+def reference_scale_loss_float64(pred: torch.Tensor, target: torch.Tensor,
+                                 cfg: ScaleConfig
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The formula evaluated in float64, the accuracy reference of the
+    tests and ``chip_smoke.py``: (per-row loss sums [B], U [B, frames, 2F]
+    unrounded), both float64."""
+    return _loss_terms(*reference_spectrum_float64(pred, cfg),
+                       *reference_spectrum_float64(target, cfg), cfg, True,
+                       u_dtype=torch.float64)
 
 
 def _check(pred: torch.Tensor, target: torch.Tensor,
@@ -204,18 +350,24 @@ def _check(pred: torch.Tensor, target: torch.Tensor,
     frame_geometry(pred.shape[-1], cfg.n_fft, cfg.hop, cfg.win)
 
 
-def _params(cfg: ScaleConfig, batch: int, length: int, basis,
+def _params(cfg: ScaleConfig, batch: int, length: int, device,
             **pointers):
+    """The kernel's parameters; the route's tables (basis, or window and
+    twiddles) are added here."""
     frames, start = frame_geometry(length, cfg.n_fft, cfg.hop, cfg.win)
-    fields = dict.fromkeys(("pred", "target", "grad", "u_in", "u", "partial",
-                            "rows", "total", "d_pred"))
-    fields.update(pointers)
+    if fft_route(cfg):
+        pointers.update(window=hann_window(cfg.win, device),
+                        twiddle=twiddles(cfg.n_fft, device))
+    else:
+        pointers["basis"] = window_basis(cfg.n_fft, cfg.win, cfg.precision,
+                                         device)
     return _SpectralParams(
-        basis=ptr(basis), **{key: ptr(t) for key, t in fields.items()},
+        **{key: ptr(t) for key, t in pointers.items()},
         batch=batch, length=length, hop=cfg.hop, win=cfg.win, frames=frames,
         n_freq=cfg.n_fft // 2 + 1, start=start, mse=int(bool(cfg.mse)),
-        round_bf16=int(cfg.precision == "default"), lin_w=float(cfg.lin_w),
-        log_w=float(cfg.log_w), log_eps=float(cfg.log_eps))
+        round_bf16=int(cfg.precision == "default"), n_fft=cfg.n_fft,
+        lin_w=float(cfg.lin_w), log_w=float(cfg.log_w),
+        log_eps=float(cfg.log_eps))
 
 
 def _launch(symbol: str, args, device: torch.device, name: str) -> None:
@@ -242,16 +394,20 @@ def scale_loss_forward(pred: torch.Tensor, target: torch.Tensor,
     batch, length = pred.shape
     frames, _ = frame_geometry(length, cfg.n_fft, cfg.hop, cfg.win)
     n_freq = cfg.n_fft // 2 + 1
-    tiles = -(-frames // FWD_FRAMES) * -(-n_freq // FWD_FREQS)
+    if fft_route(cfg):
+        symbol = "isi_spectral_fft_forward"
+        tiles = -(-frames // fft_frames_per_block(cfg.n_fft))
+    else:
+        symbol = "isi_spectral_loss_forward"
+        tiles = -(-frames // FWD_FRAMES) * -(-n_freq // FWD_FREQS)
     device = pred.device
-    basis = window_basis(cfg.n_fft, cfg.win, cfg.precision, device)
     partial = torch.empty(batch, tiles, device=device)
     rows = torch.empty(batch, device=device)
     total = torch.empty((), device=device)
     u = (torch.empty(batch, frames, 2 * n_freq, device=device,
                      dtype=torch.bfloat16) if need_u else None)
-    _launch("isi_spectral_loss_forward",
-            _params(cfg, batch, length, basis, pred=pred, target=target,
+    _launch(symbol,
+            _params(cfg, batch, length, device, pred=pred, target=target,
                     u=u, partial=partial, rows=rows, total=total),
             device, "fused_scale_loss (forward)")
     scale_loss_forward.launches += 1
@@ -277,11 +433,14 @@ def scale_loss_backward(u: torch.Tensor, grad: torch.Tensor,
     grad = grad.reshape(1).float().contiguous()
     check_cuda({"u": u, "grad": grad}, {"grad": (torch.float32,)})
     batch = u.shape[0]
-    basis = window_basis(cfg.n_fft, cfg.win, cfg.precision, u.device)
     d_pred = torch.zeros(batch, length, device=u.device)
-    _launch("isi_spectral_loss_backward",
-            _params(cfg, batch, length, basis, grad=grad, u_in=u,
-                    d_pred=d_pred),
+    pointers = dict(grad=grad, u_in=u, d_pred=d_pred)
+    symbol = "isi_spectral_loss_backward"
+    if fft_route(cfg):
+        symbol = "isi_spectral_fft_backward"
+        pointers["frame_grad"] = torch.empty(batch, frames, cfg.win,
+                                             device=u.device)
+    _launch(symbol, _params(cfg, batch, length, u.device, **pointers),
             u.device, "fused_scale_loss (backward)")
     scale_loss_backward.launches += 1
     return d_pred

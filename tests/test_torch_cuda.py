@@ -580,18 +580,14 @@ def test_train_prior_two_steps_on_the_card(device, tmp_path):
 
 # -- spectral loss ------------------------------------------------------------
 
-SPECTRAL_SCALES = [  # (n_fft, hop, win): Jukebox's three, DDSP's extremes
+SPECTRAL_SCALES = [  # (n_fft, hop, win): Jukebox's three, DDSP's extremes,
+    # and an n_fft that is not a power of two (the DFT route at 'high')
     (2048, 240, 1200), (1024, 120, 600), (512, 48, 240), (64, 16, 64),
-    (2048, 512, 2048)]
+    (2048, 512, 2048), (1536, 256, 1536)]
+FFT_SCALES = SPECTRAL_SCALES[:5]
 
 
-@pytest.mark.parametrize("precision", ["high", "default"])
-@pytest.mark.parametrize("mse", [True, False])
-@pytest.mark.parametrize("scale", SPECTRAL_SCALES)
-def test_spectral_loss_kernels_match_plain(device, scale, mse, precision):
-    """The forward (per-row sums, total, U) and the backward against their
-    plain versions on one scale, 3 rows of 9000 samples; a second call
-    gives the same bits."""
+def spectral_inputs(device, scale, mse, precision="high"):
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
         spectral_loss_kernel as sk)
     n_fft, hop, win = scale
@@ -600,6 +596,22 @@ def test_spectral_loss_kernels_match_plain(device, scale, mse, precision):
     target = (pred + 0.05 * torch.randn(3, 9000, generator=gen).to(device))
     cfg = sk.ScaleConfig(n_fft, hop, win, mse, 1e-4, 0.0 if mse else 1e-4,
                          1e-6, precision)
+    return pred, target, cfg
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("mse", [True, False])
+@pytest.mark.parametrize("scale", SPECTRAL_SCALES)
+def test_spectral_loss_kernels_match_plain(device, scale, mse, precision):
+    """The forward (per-row sums, total, U) and the backward against their
+    plain versions on one scale, 3 rows of 9000 samples; a second call
+    gives the same bits. 'high' takes the FFT route where n_fft is a power
+    of two, 'default' the DFT route."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        spectral_loss_kernel as sk)
+    pred, target, cfg = spectral_inputs(device, scale, mse, precision)
+    assert sk.fft_route(cfg) == (precision == "high"
+                                 and scale in FFT_SCALES)
     launches = (sk.scale_loss_forward.launches,
                 sk.scale_loss_backward.launches)
     rows, total, u = sk.scale_loss_forward(pred, target, cfg)
@@ -624,6 +636,62 @@ def test_spectral_loss_kernels_match_plain(device, scale, mse, precision):
                                atol=1e-2 * scale_u)
     torch.testing.assert_close(d, ref_d, rtol=0,
                                atol=1e-5 * float(ref_d.abs().max()))
+
+
+@pytest.mark.parametrize("mse", [True, False])
+@pytest.mark.parametrize("scale", FFT_SCALES)
+def test_spectral_fft_kernels_match_their_oracle(device, scale, mse):
+    """The FFT route against ``reference_scale_loss_fft``, the same steps in
+    ``torch.fft``: rows rtol 1e-5; U within one bfloat16 step of the larger
+    value plus 1e-5 x max|U| (values set by nearly equal magnitudes); the
+    backward of the kernel's U atol 1e-5 x max."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        spectral_loss_kernel as sk)
+    pred, target, cfg = spectral_inputs(device, scale, mse)
+    assert sk.fft_route(cfg)
+    rows, total, u = sk.scale_loss_forward(pred, target, cfg)
+    grad = torch.tensor(0.7, device=device)
+    d = sk.scale_loss_backward(u, grad, cfg, 9000)
+    ref_rows, ref_u = sk.reference_scale_loss_fft(pred, target, cfg)
+    ref_d = sk.reference_scale_loss_fft_backward(u, grad, cfg, 9000)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(rows, ref_rows, atol=0, rtol=1e-5)
+    u, ref_u = u.float(), ref_u.float()
+    bigger = torch.maximum(u.abs(), ref_u.abs()).clamp_min(1e-30)
+    step = torch.exp2(torch.floor(torch.log2(bigger)) - 7)
+    assert bool(((u - ref_u).abs()
+                 <= step + 1e-5 * float(ref_u.abs().max())).all())
+    torch.testing.assert_close(d, ref_d, rtol=0,
+                               atol=1e-5 * float(ref_d.abs().max()))
+
+
+@pytest.mark.parametrize("scale", range(3))
+def test_spectral_fft_kernel_no_farther_from_float64(device, scale):
+    """The FFT route's loss (each row and the total) is no farther from the
+    plain formula evaluated in float64 (``reference_scale_loss_float64``)
+    than the float32 DFT plain version is: Jukebox's three scales at the
+    flagship size, 64 rows of 65 536 samples, ``chip_smoke.py``'s audio
+    (the differences are ~1e-7, so a smaller batch holds float32 summation
+    noise more than either algorithm)."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        spectral_loss_kernel as sk)
+    from interactive_spectrogram_inpainting_tpu_torch.train import losses
+    gen = torch.Generator(device=device).manual_seed(6)
+    pred = 0.3 * torch.randn(64, 65536, generator=gen, device=device)
+    target = pred + 0.05 * torch.randn(pred.shape, generator=gen,
+                                       device=device)
+    cfg = losses.make_jukebox_loss().scale_configs(*pred.shape)[scale]
+    assert sk.fft_route(cfg)
+    rows, total, _ = sk.scale_loss_forward(pred, target, cfg, need_u=False)
+    plain, _ = sk.reference_scale_loss(pred, target, cfg, need_u=False)
+    exact = sk.reference_scale_loss_float64(pred, target, cfg)[0]
+
+    def error(r, t):  # worst row or total, relative
+        return max(float(((r.double() - exact).abs() / exact).max()),
+                   float((t.double() - exact.sum()).abs() / exact.sum()))
+
+    kernel_err, plain_err = error(rows, total), error(plain, plain.sum())
+    assert kernel_err <= plain_err, (kernel_err, plain_err)
 
 
 def test_spectral_loss_autograd_on_the_card(device):
