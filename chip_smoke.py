@@ -22,8 +22,9 @@ Phases, each failing the run with a nonzero exit:
    bit for bit, counts exact, embed_sum within atol 1e-3 and rtol 1e-5 of
    a float64 product, and a second call bit-identical to the first;
 5. decode-step: ``fused_decode_step`` at batch 2 (bottom and top prior) and
-   ``fused_decode_step_batched`` at batch 16 (bottom prior) against their
-   plain versions over 32 consecutive positions from a primed cache:
+   3 (top) and ``fused_decode_step_batched`` at batch 5, 16 and 64 (bottom
+   prior) against their plain versions over 32 consecutive positions from
+   a primed cache:
    teacher-forced caches in bfloat16 and float32, greedy float32 tokens
    equal; ``flash_decode_attention`` against ``reference_decode_attention``
    at batch 1 and 16 with ``pos`` in the first, a middle and the last
@@ -36,8 +37,9 @@ Phases, each failing the run with a nonzero exit:
    on localhost: three ``/timerange-change`` (``layer=top``, the last two
    of the four top columns masked, so both priors are primed), then three
    ``/get-audio`` (prefix-prime and decode-scan counters must grow); one
-   ``/generate`` and two ``/top-conditioned-sample`` of 10 pitches (batch
-   bucket 16: the batched step kernel runs 515 steps per request), and a
+   ``/generate``, two ``/top-conditioned-sample`` of 10 pitches (batch
+   bucket 16: the batched step kernel runs 515 steps per request) and two
+   of 60 pitches (bucket 64), and a
    ``/generate`` from scratch as a server started with
    ``--use_predictive_sampling`` serves it (the predictive sampler); then
    ``sample_model`` at batch 2 on the bottom prior (half mask, primed) and
@@ -112,7 +114,12 @@ Phases, each failing the run with a nonzero exit:
    calls that gives ids and quantize only; for the spectral loss
    ``torch.stft`` + magnitudes + distance, forward and backward by
    autograd, on the three Jukebox scales of the main path's first step;
-   its row also gives each half's ms and bound).
+   its row also gives each half's ms and bound). The two step kernels'
+   detail gives, for each plan the timed calls used, the grid, the grid
+   barriers a step, the shared memory and the registers (also from
+   ``-Xptxas -v``), the device kernels ``torch.profiler`` sees in 8 steps
+   (one a step), host enqueue ms, and for the batched kernel one whole
+   generation of each server batch bucket (16 and 64) with its bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -169,6 +176,7 @@ KERNEL_SOURCES = {
         f"{PKG}/ops/csrc/spectral_loss.cu",
         "interactive_spectrogram_inpainting_tpu/ops/spectral_loss_kernel.py:264"),
 }
+STEP_LIBRARIES = ("decode_step", "decode_step_batched")
 STEPS_CHECKED = 32   # consecutive positions a step kernel is checked over
 STEPS_TIMED = 32     # captured steps (evenly spaced) a step kernel is timed on
 VQ_MARGIN = 1e-4     # codes are compared where the two best scores differ more
@@ -400,9 +408,12 @@ def phase_build():
     log(card)
     from interactive_spectrogram_inpainting_tpu_torch.ops import build
     t0 = time.perf_counter()
-    seconds = build.build()
+    seconds = build.build(ptxas=STEP_LIBRARIES)
     log(f"build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})}"
         f" total {time.perf_counter() - t0:.2f} s")
+    log("step kernels' registers a thread (-Xptxas -v): " + json.dumps(
+        {name: ptxas_registers(build.PTXAS_LOGS.get(name, ""))
+         for name in STEP_LIBRARIES}))
     # the training attention runs its products on the tensor cores: its
     # library must hold HMMA (mma.sync) or HGMMA (wgmma) instructions
     sass = subprocess.run(
@@ -417,6 +428,22 @@ def phase_build():
         fail("the train_attention library holds no HMMA/HGMMA instruction "
              f"(cuobjdump: {sass.stderr.strip()[:200]})")
     return card
+
+
+def ptxas_registers(log_text):
+    """{dtype: registers} of the step kernel's instantiations in a
+    ``-Xptxas -v`` report."""
+    out, entry = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry and "decode_step_kernel" in entry:
+            out["bfloat16" if "bfloat16" in entry else "float32"] = int(
+                m.group(1))
+            entry = None
+    return out
 
 
 def max_err(a, b):
@@ -523,13 +550,16 @@ def phase_step(torch, state, results):
         import fused_prefix_prime
     tol = {torch.float32: (3e-4, 1e-3), torch.bfloat16: (5e-2, 5e-2)}
     n = STEPS_CHECKED
-    for kernel, fn, plain, prior, batch in (
-            ("fused_decode_step", dsk.fused_decode_step,
-             dsk.decode_step_plain, "bottom", 2),
-            ("fused_decode_step", dsk.fused_decode_step,
-             dsk.decode_step_plain, "top", 2),
-            ("fused_decode_step_batched", dsb.fused_decode_step_batched,
-             dsb.decode_step_batched_plain, "bottom", 16)):
+    small = ("fused_decode_step", dsk.fused_decode_step,
+             dsk.decode_step_plain)
+    batched = ("fused_decode_step_batched", dsb.fused_decode_step_batched,
+               dsb.decode_step_batched_plain)
+    # B 5: one partial group of the batched kernel; B 64: the server's
+    # second bucket, four groups; top B 3: cross attention, a padded group
+    for (kernel, fn, plain), prior, batch in (
+            (small, "bottom", 2), (small, "top", 2), (small, "top", 3),
+            (batched, "bottom", 5), (batched, "bottom", 16),
+            (batched, "bottom", 64)):
         for dtype in (torch.bfloat16, torch.float32):
             inp = batch_setup(torch, state, prior, batch, dtype)
             dev = inp["tokens"].device
@@ -851,7 +881,7 @@ def phase_server(torch, state, captured):
             if status != 200 or ctype != "audio/wav":
                 fail(f"/get-audio returned {status} {ctype}")
         launches.update(serve_generation(
-            torch, state, base, reset, read, new_top, latencies))
+            torch, state, base, reset, read, new_top, latencies, captured))
         launches.update(serve_encode(
             torch, state, base, reset, read, wav_bytes, (query, body),
             captured))
@@ -873,7 +903,8 @@ def phase_server(torch, state, captured):
         "timerange_change": [round(x, 3) for x in latencies[:3]],
         "get_audio": [round(x, 3) for x in latencies[3:6]],
         "generate": [round(x, 3) for x in latencies[6:7]],
-        "top_conditioned_sample": [round(x, 3) for x in latencies[7:]]}))
+        "top_conditioned_sample": [round(x, 3) for x in latencies[7:9]],
+        "top_conditioned_sample_64": [round(x, 3) for x in latencies[9:]]}))
     log("handler ms, server side, in request order (warmup's included): "
         + json.dumps(handler_ms))
     log(f"main-path launches: {json.dumps(launches)}")
@@ -882,7 +913,8 @@ def phase_server(torch, state, captured):
     return launches
 
 
-def serve_generation(torch, state, base, reset, read, top_code, latencies):
+def serve_generation(torch, state, base, reset, read, top_code, latencies,
+                     captured):
     """The generation paths: ``/generate`` and ``/top-conditioned-sample``
     over HTTP, then the batch-2 fused and the dense flash sampler through
     ``sample_model``. -> the launches of the kernels each path must run."""
@@ -931,31 +963,39 @@ def serve_generation(torch, state, base, reset, read, top_code, latencies):
 
     expected = state.helper.num_samples(
         cfg_t.shape[1] * state.vqvae.config.total_resolution_factor)
-    for _ in range(2):
-        reset("fused_decode_step_batched")
-        status, ctype, blob, ms = post(
-            base + "/top-conditioned-sample?instrument_family_str=keyboard"
-            "&min_pitch=60&max_pitch=70&temperature=1.0",
-            {"top_code": top_code.tolist(),
-             "bottom_code": gen_bottom.tolist()})
-        latencies.append(ms)
-        if status != 200 or ctype != "application/zip":
-            fail(f"/top-conditioned-sample returned {status} {ctype}")
-        with zipfile.ZipFile(io.BytesIO(blob)) as zf:
-            names = zf.namelist()
-            if names != [f"keyboard-{p}.wav" for p in range(60, 70)]:
-                fail(f"/top-conditioned-sample zip holds {names}")
-            for name in names:
-                audio, sr = read_wav(io.BytesIO(zf.read(name)))
-                if sr != state.fs_hz or audio.shape[-1] != expected \
-                        or not np.isfinite(audio).all():
-                    fail(f"/top-conditioned-sample {name}: rate {sr}, "
-                         f"{audio.shape[-1]} samples (expected {expected})")
-        count = read("fused_decode_step_batched")
-        if count["fused_decode_step_batched"] < steps_b:
-            fail(f"/top-conditioned-sample ran {count} batched steps, "
-                 f"expected at least {steps_b}")
-        launches.update(count)
+    # 10 pitches pad to the batch bucket 16, 60 pitches to 64; the batched
+    # step calls of each bucket's last request are kept for the kernels line
+    generations = captured.setdefault("batched_generations", {})
+    for bucket, lo, hi in ((16, 60, 70), (64, 24, 84)):
+        for _ in range(2):
+            reset("fused_decode_step_batched")
+            first = len(captured.get("fused_decode_step_batched", []))
+            status, ctype, blob, ms = post(
+                base + "/top-conditioned-sample?instrument_family_str=keyboard"
+                f"&min_pitch={lo}&max_pitch={hi}&temperature=1.0",
+                {"top_code": top_code.tolist(),
+                 "bottom_code": gen_bottom.tolist()})
+            latencies.append(ms)
+            generations[bucket] = (first,
+                                   len(captured["fused_decode_step_batched"]))
+            if status != 200 or ctype != "application/zip":
+                fail(f"/top-conditioned-sample returned {status} {ctype}")
+            with zipfile.ZipFile(io.BytesIO(blob)) as zf:
+                names = zf.namelist()
+                if names != [f"keyboard-{p}.wav" for p in range(lo, hi)]:
+                    fail(f"/top-conditioned-sample zip holds {names}")
+                for name in names:
+                    audio, sr = read_wav(io.BytesIO(zf.read(name)))
+                    if sr != state.fs_hz or audio.shape[-1] != expected \
+                            or not np.isfinite(audio).all():
+                        fail(f"/top-conditioned-sample {name}: rate "
+                             f"{sr}, {audio.shape[-1]} samples (expected "
+                             f"{expected})")
+            count = read("fused_decode_step_batched")
+            if count["fused_decode_step_batched"] < steps_b:
+                fail(f"/top-conditioned-sample ran {count} batched steps, "
+                     f"expected at least {steps_b}")
+            launches.update(count)
 
     # batch 2 through sample_model: bottom prior primed by a half mask,
     # then the top prior (relative-bias cross attention)
@@ -1117,7 +1157,8 @@ def serve_encode(torch, state, base, reset, read, played_wav, inpaint,
     launches = read("fused_vq_lookup")
     # what follows is held against the main path, not part of it: its
     # kernel calls are neither counted nor kept for timing
-    kept = {name: len(calls) for name, calls in captured.items()}
+    kept = {name: len(calls) for name, calls in captured.items()
+            if isinstance(calls, list)}
 
     for seconds, (top, bottom, wav_bytes) in analyzed.items():
         ref_t, ref_b, (clear_t, clear_b) = flag_off_codes(
@@ -2572,6 +2613,49 @@ def host_ms(torch, fn, calls):
     return total * 1e3
 
 
+def step_plans(name, calls):
+    """The info (grid, threads, shared memory, registers, spilled bytes,
+    barriers a step) of the step plans that ``calls`` of step kernel
+    ``name`` use."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        decode_step_kernel as dst)
+    out = {}
+    for args, kw in calls:
+        mem = args[3] if name == "fused_decode_step" else (args[3], args[3])
+        plan = dst.step_plan(
+            name, args[0], args[1], args[2], mem, args[4],
+            n_class=kw["n_class"], channels=kw["channels"],
+            cross_hm=kw.get("cross_hm"), e_src_real=kw.get("e_src_real"),
+            temperature=args[11])
+        kind = "aligned" if plan.args.aligned else "cross"
+        out[f"B{plan.batch} {kind} {str(plan.dtype)[6:]}"] = plan.info
+    return out
+
+
+def kernels_per_call(torch, fn, calls):
+    """Per call of ``calls`` (after one warm pass): the launches the
+    wrapper counts and the device kernels, by name, in ``torch.profiler``'s
+    event list over the same window."""
+    from torch.profiler import ProfilerActivity, profile
+    for args, kwargs in calls:
+        fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    before = fn.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for args, kwargs in calls:
+            fn(*args, **kwargs)
+        torch.cuda.synchronize()
+    counts = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            key = (re.search(r"\w+<[^>]*>", evt.name)
+                   or re.search(r"\w+", evt.name)).group(0)
+            counts[key] = counts.get(key, 0) + 1
+    return {"launches": (fn.launches - before) / len(calls),
+            "profiler_kernels": {key: n / len(calls)
+                                 for key, n in counts.items()}}
+
+
 def nbytes(t):
     return 0 if t is None else t.numel() * t.element_size()
 
@@ -2724,13 +2808,17 @@ def spaced(calls, n):
 def phase_kernels(torch, card, captured, launches, errors, state):
     spectral_launches_main = captured["spectral_launches_main"]
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
-        decode_attention as dat, decode_scan_kernel as dsk,
+        build, decode_attention as dat, decode_scan_kernel as dsk,
         decode_step_batched as dsb, decode_step_kernel as dst,
         prefix_prime_kernel as ppk, train_attention as ta, vq_lookup as vql)
     cfg_b = state.bottom.config
-    steps_b = cfg_b.target_sequence_length + cfg_b.target_num_channels - 1
     kernels = []
     detail = {}
+    # the batched step calls of the last /top-conditioned-sample of each
+    # batch bucket (16 and 64): one whole generation each
+    generations = {
+        bucket: captured["fused_decode_step_batched"][first:end]
+        for bucket, (first, end) in captured["batched_generations"].items()}
     # prime and scan: one /timerange-change, its top and bottom call of each
     # kernel. Step kernels: STEPS_TIMED steps evenly spaced over one
     # /top-conditioned-sample generation (batched) and over the two batch-2
@@ -2759,8 +2847,7 @@ def phase_kernels(torch, card, captured, launches, errors, state):
              spaced(captured["fused_decode_step"], STEPS_TIMED), None),
             ("fused_decode_step_batched", dsb.fused_decode_step_batched,
              dsb.decode_step_batched_plain, step_bound,
-             spaced(captured["fused_decode_step_batched"][-steps_b:],
-                    STEPS_TIMED), None),
+             spaced(generations[16], STEPS_TIMED), None),
             ("flash_decode_attention", dat.flash_decode_attention,
              dat.reference_decode_attention, flash_bound,
              spaced(captured["flash_decode_attention"], 64),
@@ -2804,14 +2891,33 @@ def phase_kernels(torch, card, captured, launches, errors, state):
             stream = sum(x[2] for x in bounds) / PEAK_BYTES_PER_S * 1e3
             detail[name]["weights_streamed_per_step_ms"] = round(stream, 4)
         if name == "fused_decode_step_batched":
-            # one whole generation: every step of the last request
-            whole = captured[name][-steps_b:]
-            detail[name]["generation_steps"] = len(whole)
-            detail[name]["generation_ms"] = round(
-                time_calls(torch, fn, whole, reps=2), 4)
-            detail[name]["generation_bound_ms"] = round(
-                sum(step_bound(*call)[0] for call in whole)
-                / PEAK_BYTES_PER_S * 1e3, 4)
+            # one whole generation of each bucket: every step of its last
+            # request (the keys without a suffix are bucket 16's)
+            for bucket, whole in sorted(generations.items()):
+                key = "" if bucket == 16 else f"_b{bucket}"
+                detail[name][f"generation_steps{key}"] = len(whole)
+                detail[name][f"generation_ms{key}"] = round(
+                    time_calls(torch, fn, whole, reps=2), 4)
+                detail[name][f"generation_bound_ms{key}"] = round(
+                    sum(step_bound(*call)[0] for call in whole)
+                    / PEAK_BYTES_PER_S * 1e3, 4)
+            b64 = spaced(generations[64], STEPS_TIMED)
+            detail[name]["ms_b64"] = round(time_calls(torch, fn, b64,
+                                                      reps=10), 4)
+            detail[name]["host_enqueue_ms_b64"] = round(
+                host_ms(torch, fn, b64), 4)
+            detail[name]["bound_ms_b64"] = round(
+                sum(step_bound(*call)[0] for call in b64)
+                / PEAK_BYTES_PER_S * 1e3, 6)
+        if name in ("fused_decode_step", "fused_decode_step_batched"):
+            # one cooperative launch a step: its grid, barriers, shared
+            # memory and registers (the plans of the timed calls), and the
+            # device kernels torch.profiler sees in 8 steps
+            detail[name]["kernel"] = step_plans(name, calls)
+            detail[name]["ptxas_registers"] = ptxas_registers(
+                build.PTXAS_LOGS.get(name[6:], ""))
+            detail[name]["device_kernels_per_step"] = kernels_per_call(
+                torch, fn, calls[:8])
         if name == "fused_decode_step":
             detail[name]["positions"] = [call[0][7] for call in calls]
         if name == "fused_vq_lookup":

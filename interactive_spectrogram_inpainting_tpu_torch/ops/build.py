@@ -9,7 +9,8 @@ source is rebuilt and an unchanged one is reused. ``build()`` starts one
 ``nvcc`` per source, all at once.
 
 Set ``ISI_PTXAS_VERBOSE=1`` to print each kernel's registers, shared memory
-and spills (``-Xptxas -v``).
+and spills (``-Xptxas -v``); ``build(ptxas=names)`` asks it for the named
+sources alone and keeps their reports in ``PTXAS_LOGS``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ SOURCES = ("decode_scan", "prefix_prime", "decode_step",
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+PTXAS_LOGS: Dict[str, str] = {}
 
 
 def build_dir() -> pathlib.Path:
@@ -61,11 +63,15 @@ def _library_path(name: str) -> pathlib.Path:
     return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+def build(names: Optional[Iterable[str]] = None,
+          ptxas: Iterable[str] = ()) -> Dict[str, float]:
     """Compile the named kernels (all by default) that are not built yet,
-    in parallel. Returns the wall seconds each build took (0.0 when the
-    library was already there); raises with nvcc's output on failure."""
+    in parallel; those in ``ptxas`` with ``-Xptxas -v``, their report kept
+    in ``PTXAS_LOGS``. Returns the wall seconds each build took (0.0 when
+    the library was already there); raises with nvcc's output on
+    failure."""
     names = list(names or SOURCES)
+    ptxas = set(ptxas)
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     verbose = os.environ.get("ISI_PTXAS_VERBOSE") == "1"
@@ -80,7 +86,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-lineinfo", "-I", str(CSRC),
                "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        if verbose:
+        if verbose or name in ptxas:
             cmd[1:1] = ["-Xptxas", "-v"]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT),
@@ -94,6 +100,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             continue
         if verbose and log:
             print(log)
+        if name in ptxas:
+            PTXAS_LOGS[name] = log
         os.replace(tmp, target)
     if errors:
         raise RuntimeError("\n".join(errors))

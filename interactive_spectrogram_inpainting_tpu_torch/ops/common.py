@@ -27,16 +27,14 @@ def round_to(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return v.to(dtype).float()
 
 
-def check_cuda(tensors: Dict[str, Optional[torch.Tensor]],
-               dtypes: Dict[str, Sequence[torch.dtype]]) -> None:
-    """Every given tensor lies on one CUDA device, is contiguous and has
-    one of its allowed dtypes."""
+def check_tensors(tensors: Dict[str, Optional[torch.Tensor]],
+                  dtypes: Dict[str, Sequence[torch.dtype]]) -> None:
+    """Every given tensor lies on one device, is contiguous and has one of
+    its allowed dtypes."""
     device = None
     for name, t in tensors.items():
         if t is None:
             continue
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if device is None:
             device = t.device
         elif t.device != device:
@@ -46,6 +44,15 @@ def check_cuda(tensors: Dict[str, Optional[torch.Tensor]],
         if name in dtypes and t.dtype not in dtypes[name]:
             raise ValueError(f"{name} has dtype {t.dtype}, expected one of "
                              f"{list(dtypes[name])}")
+
+
+def check_cuda(tensors: Dict[str, Optional[torch.Tensor]],
+               dtypes: Dict[str, Sequence[torch.dtype]]) -> None:
+    """``check_tensors``, and the device is a CUDA one."""
+    for name, t in tensors.items():
+        if t is not None and t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    check_tensors(tensors, dtypes)
 
 
 def check_shape(t: torch.Tensor, name: str, shape: Sequence[int]) -> None:

@@ -82,6 +82,20 @@ __device__ __forceinline__ void load_vec_rw(const __nv_bfloat16* p,
   }
 }
 
+// two neighbouring elements as float32
+__device__ __forceinline__ void load2(const float* p, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float& a,
+                                      float& b) {
+  const float2 v =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  a = v.x;
+  b = v.y;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -130,24 +144,6 @@ __device__ void block_layer_norm(const float* x, const float* scale,
   for (int i = threadIdx.x; i < d; i += blockDim.x)
     out[i] = round_to<T>((x[i] - mu) * rs * scale[i] + bias[i]);
   __syncthreads();
-}
-
-// the same LayerNorm of one row by one warp (no block barrier)
-template <typename T>
-__device__ void warp_layer_norm(const float* x, const float* scale,
-                                const float* bias, int d, float* out) {
-  const int lane = threadIdx.x % kWarp;
-  float s = 0.f;
-  for (int i = lane; i < d; i += kWarp) s += x[i];
-  const float mu = warp_sum(s) / d;
-  float v = 0.f;
-  for (int i = lane; i < d; i += kWarp) {
-    const float dv = x[i] - mu;
-    v += dv * dv;
-  }
-  const float rs = rsqrtf(warp_sum(v) / d + 1e-6f);
-  for (int i = lane; i < d; i += kWarp)
-    out[i] = round_to<T>((x[i] - mu) * rs * scale[i] + bias[i]);
 }
 
 }  // namespace isi

@@ -36,15 +36,14 @@ static cudaError_t attend(const DecodeAttnParams& P, cudaStream_t s) {
   const int n_keys = P.pos + 1;
   const int n_chunks = (n_keys + kAttnChunk - 1) / kAttnChunk;
   const size_t cache_b = (size_t)P.length * d;
-  attend_partial_kernel<T, T>
+  attend_partial_kernel<T>
       <<<dim3(n_chunks, H, P.batch), kAttnWarps * kWarp, 0, s>>>(
           static_cast<const T*>(P.q), (size_t)d, static_cast<const T*>(P.k),
           static_cast<const T*>(P.v), cache_b, d, P.bias, P.length, n_keys,
           dh, P.scale, P.part);
   ISI_CHECK();
   attend_combine_kernel<T><<<dim3(H, P.batch), kDhMax, 0, s>>>(
-      P.part, n_chunks, dh, d, nullptr, nullptr, 0, 0, P.scale,
-      static_cast<T*>(P.out), (size_t)d, (T*)nullptr, (T*)nullptr, 0);
+      P.part, n_chunks, dh, static_cast<T*>(P.out), (size_t)d);
   ISI_CHECK();
   return cudaSuccess;
 }

@@ -14,30 +14,27 @@
 // Bound on the H100: bytes. A step reads every decoder weight once
 // (bottom prior, bf16: ~55 MB) for a few MFLOP per sequence, and the cache
 // rows below pos of every sequence. The TPU kernel staged each layer's
-// weights and the whole cache in VMEM; here every weight product is a
-// GEMV-shaped kernel (decode_common.cuh) in which one warp owns an output
-// row of a weight stored [out, in], reads it once as 16-byte vectors and
-// multiplies it with the inputs of up to 4 sequences held in shared
-// memory, so the weights are streamed once per step for the batches of 2
-// to 4 this kernel is chosen for (a larger batch, as the relative-bias top
-// prior can bring, runs in groups of 4). The LayerNorm in front of a
-// product is computed by every block on its own copy of the inputs (a few
-// KB), one warp per sequence. Attention is flash-decoding: partials per
-// (128-key chunk, head, sequence) and a combine that adds the fresh key
-// and stores the new K/V row. The step is one host call that enqueues
-// ~8 launches per layer on the stream (~11 with cross attention); no value
-// is read back.
-#include "decode_common.cuh"
+// weights and the whole cache in VMEM; no SM holds that, so the weights
+// stream from device memory every step. The step is ONE persistent
+// cooperative launch (decode_step_persistent.cuh): one block per SM, the
+// phases of a layer separated by grid barriers (5 a layer aligned, 8 with
+// cross attention, plus 1); the barriers and each phase's memory round
+// trips, not the bytes, set its pace. This library serves batches of 2 to 4
+// (padded to the 16 rows of a tensor-core product) and the relative-bias
+// top prior at any batch (groups of 16).
+#include "decode_step_persistent.cuh"
 
 using namespace isi;
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t code.
 extern "C" int isi_decode_step(const StepParams* P, int dtype, void* stream) {
-  using Lin = GemvLinear<4, false>;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dtype == 1
-                              ? decode_step_run<__nv_bfloat16, Lin>(*P, s)
-                              : decode_step_run<float, Lin>(*P, s));
+  return step_entry<false>(P, dtype, stream);
+}
+
+// info[6]: see step_info. Returns a cudaError_t code (a refused shape).
+extern "C" int isi_decode_step_info(const StepParams* P, int dtype,
+                                    int* info) {
+  return step_info_entry<false>(P, dtype, info);
 }
 
 extern "C" const char* isi_error_string(int code) {

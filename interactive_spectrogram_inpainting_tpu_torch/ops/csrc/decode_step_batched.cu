@@ -14,33 +14,31 @@
 // B = 16 or 64. The TPU kernel kept the batch's activations in VMEM and
 // streamed the cache in (block_k, B, d) chunks from a [l_pad, B, d] layout
 // chosen for its DMA slices; here the cache keeps the [B, l_pad, d] layout
-// of the small-batch kernel (a head's key row is one coalesced 128-byte
-// load) and attention is flash-decoding over 128-key chunks
-// (decode_common.cuh), which gives B x H x chunks independent blocks; the
-// chunk intermediates are rounded to the cache dtype where the TPU kernel
-// rounds them, so bfloat16 runs sample what the JAX package samples.
-// The weight products take the batch in groups of 16 sequences: a block
-// holds its group's inputs in shared memory (up to 128 KB of float32 for
-// the MLP's second product) and each of its warps streams one weight row
-// against all 16, so B = 16 reads the weights from device memory once and
-// B = 64 four times, mostly out of L2. (A first version ran them as a
-// tiled CUDA-core GEMM over the B rows: with 16 rows it filled 16 to 64
-// blocks that each walked K in 16 to 64 dependent slices, and a step took
-// four times as long; PERF.md.) The step is one host call that enqueues
-// ~9 launches per layer on the stream.
-#include "decode_common.cuh"
+// of the small-batch kernel (a head's key row is 128 contiguous bytes) and
+// the step is the one persistent cooperative launch of
+// decode_step_persistent.cuh. The weight products take the batch in groups
+// of 16 sequences on the tensor cores in bf16, so B = 16 reads the weights
+// from device memory once and B = 64 stages its four groups at once, each
+// warp taking its weight slice through all four (the re-reads hit L1). The
+// attention's chunk intermediates are rounded to the cache dtype where the
+// TPU kernel rounds them, so bfloat16 runs sample what the JAX package
+// samples.
+#include "decode_step_persistent.cuh"
 
 using namespace isi;
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t code.
 extern "C" int isi_decode_step_batched(const StepParams* P, int dtype,
                                        void* stream) {
-  using Lin = GemvLinear<16, true>;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!P->aligned) return cudaErrorInvalidValue;
-  return static_cast<int>(dtype == 1
-                              ? decode_step_run<__nv_bfloat16, Lin>(*P, s)
-                              : decode_step_run<float, Lin>(*P, s));
+  return step_entry<true>(P, dtype, stream);
+}
+
+// info[6]: see step_info. Returns a cudaError_t code (a refused shape).
+extern "C" int isi_decode_step_batched_info(const StepParams* P, int dtype,
+                                            int* info) {
+  if (!P->aligned) return cudaErrorInvalidValue;
+  return step_info_entry<true>(P, dtype, info);
 }
 
 extern "C" const char* isi_error_string(int code) {

@@ -14,10 +14,12 @@ kernel (the JAX kernel's ``[l_pad, B, d]`` order and its ``block_k`` /
 ``block_b`` arguments served its chunk copies), and the memory values come
 as ``mem_v [n_layers, B, E_pad, d]``.
 
-``fused_decode_step_batched`` launches ``csrc/decode_step_batched.cu`` for
-CUDA tensors and runs ``decode_step_batched_plain`` for CPU tensors, never
-falling back from one to the other. ``fused_decode_step_batched.launches``
-counts its kernel launches (one per step that reaches the GPU).
+``fused_decode_step_batched`` launches ``csrc/decode_step_batched.cu`` (one
+persistent cooperative launch a step, through the per-generation
+``StepPlan`` of ``decode_step_kernel.py``) for CUDA tensors and runs
+``decode_step_batched_plain`` for CPU tensors, never falling back from one
+to the other. ``fused_decode_step_batched.launches`` counts its kernel
+launches (one per step that reaches the GPU).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .decode_step_kernel import ATTN_CHUNK, launch_step, step_plain
+from .decode_step_kernel import ATTN_CHUNK, step_plain, step_plan
 
 
 def decode_step_batched_plain(params, bias_hm, posfull, mem_v, kv, token_in,
@@ -60,18 +62,19 @@ def fused_decode_step_batched(params: Dict[str, torch.Tensor],
     mem_v [n_layers, B, E_pad, d] (the value row ``pos // channels`` of
     every sequence is gathered; zeros past ``E_pad``); kv [n_layers, 2, B,
     l_pad, d], updated in place. Returns (new_token [B, 1], kv)."""
-    kwargs = dict(n_class=n_class, channels=channels, out=out)
+    plan = step_plan("fused_decode_step_batched", params, bias_hm, posfull,
+                     (mem_v, mem_v), kv, n_class=n_class, channels=channels,
+                     temperature=temperature)
+    out = plan.bind(token_in, cur_token, pos, i_index, is_masked, gumbel,
+                    out)
     if kv.device.type != "cuda":
         return decode_step_batched_plain(
             params, bias_hm, posfull, mem_v, kv, token_in, cur_token, pos,
-            i_index, is_masked, gumbel, temperature, **kwargs)
-    result = launch_step(
-        "decode_step_batched", "isi_decode_step_batched",
-        "fused_decode_step_batched", params, bias_hm, posfull,
-        (mem_v, mem_v), kv, token_in, cur_token, pos, i_index, is_masked,
-        gumbel, temperature, cross_hm=None, e_src_real=None, **kwargs)
+            i_index, is_masked, gumbel, temperature, n_class=n_class,
+            channels=channels, out=out)
+    plan.launch()
     fused_decode_step_batched.launches += 1
-    return result
+    return out, kv
 
 
 fused_decode_step_batched.launches = 0

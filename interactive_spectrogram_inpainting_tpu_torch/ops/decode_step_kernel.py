@@ -19,18 +19,22 @@ kernels take the head-major bias tables
 
 ``fused_decode_step`` launches the kernel for CUDA tensors and runs
 ``decode_step_plain`` for CPU tensors, never falling back from one to the
-other. ``fused_decode_step.launches`` counts its kernel launches (one per
-step that reaches the GPU).
+other. Both step kernels go through a ``StepPlan``, built by the first step
+of a generation and reused by the others (``step_plan``): the fixed
+tensors are checked and the scratch allocated once, and a step is one
+cooperative launch. ``fused_decode_step.launches`` counts its kernel
+launches (one per step that reaches the GPU).
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from .common import (DTYPE_CODES, NEG_INF, check_cuda, check_shape,
+from .common import (DTYPE_CODES, NEG_INF, check_shape, check_tensors,
                      layer_norm, ptr, raise_on_error, round_to, struct_type)
 
 LANE = 128
@@ -194,10 +198,11 @@ def precompute_bias_rows(model, l_pad: int) -> torch.Tensor:
 
 # -- one decode step ----------------------------------------------------------
 
-ATTN_CHUNK = 128  # keys per attention partial in csrc/decode_common.cuh
-# csrc/decode_step.cu multiplies a weight row with up to this many
-# sequences at once; the sampler hands larger batches of an aligned decoder
-# to the batched kernel
+# keys per chunk of the plain batched version's running softmax (the JAX
+# batched kernel's block_k) and of csrc/decode_common.cuh's partials
+ATTN_CHUNK = 128
+# the sampler hands batches above this size of an aligned decoder to the
+# batched kernel (csrc/decode_step_batched.cu)
 MAX_SMALL_BATCH = 4
 
 _STEP_WEIGHTS = ("wqkv", "bqkv", "wo", "bo", "wo_c", "bo_c", "wq_c", "bq_c",
@@ -208,11 +213,10 @@ _StepParams = struct_type(
     pointers=_STEP_WEIGHTS + (
         "b_logits", "ln", "ln_final", "emb", "posfull", "mem_k", "mem_v",
         "bias_hm", "cross_hm", "gumbel", "token_in", "cur_token",
-        "token_out", "kv", "x", "qkv", "qc", "a", "mid", "logits",
-        "part"),
+        "token_out", "kv", "x", "qkv", "qc", "a", "mid", "logits"),
     ints=("n_layers", "d", "d_ff", "n_heads", "n_class", "batch", "l_pad",
           "e_pad", "steps_pad", "channels", "e_src", "aligned", "pos",
-          "take", "max_chunks"),
+          "take", "grid"),
     floats=("scale", "inv_temperature"))
 
 
@@ -329,97 +333,225 @@ def decode_step_plain(params, bias_hm, posfull, mem_kv, kv, token_in,
     return new_tok, kv
 
 
-def launch_step(library: str, symbol: str, kernel: str, params, bias_hm,
-                posfull, mem_kv, kv, token_in, cur_token, pos, i_index,
-                is_masked, gumbel, temperature, *, n_class, channels,
-                cross_hm, e_src_real, out):
-    """Check the arguments of one decode step and launch it through the C
-    entry point ``symbol`` of kernel library ``library``."""
-    from .build import load
-    mem_k, mem_v = mem_kv
-    dtype = kv.dtype
-    if kv.dim() != 5:
-        raise ValueError("kv must be [n_layers, 2, B, l_pad, d], got "
-                         f"{tuple(kv.shape)}")
-    n_layers, _, batch, l_pad, d = kv.shape
-    d_ff = params["b1"].shape[-1]
-    _, steps_pad, nh, _ = bias_hm.shape
-    e_pad = mem_v.shape[2]
-    e_src = int(e_src_real) if e_src_real is not None else e_pad
-    pos = int(pos)
-    dev = kv.device
-    if out is None:
-        out = torch.empty(batch, 1, dtype=torch.int32, device=dev)
-    check_cuda(
-        {**{k: params[k] for k in _STEP_WEIGHTS},
-         "b_logits": params["b_logits"], "ln": params["ln"],
-         "ln_final": params["ln_final"], "emb": params["emb_padded"],
-         "posfull": posfull, "mem_k": mem_k, "mem_v": mem_v,
-         "bias_hm": bias_hm, "cross_hm": cross_hm, "gumbel": gumbel,
-         "token_in": token_in, "cur_token": cur_token, "out": out,
-         "kv": kv},
-        {**{k: (dtype,) for k in _STEP_WEIGHTS}, "emb": (dtype,),
-         "posfull": (dtype,), "mem_k": (dtype,), "mem_v": (dtype,),
-         "kv": tuple(DTYPE_CODES), "b_logits": (torch.float32,),
-         "ln": (torch.float32,), "ln_final": (torch.float32,),
-         "bias_hm": (torch.float32,), "cross_hm": (torch.float32,),
-         "gumbel": (torch.float32,), "token_in": (torch.int32,),
-         "cur_token": (torch.int32,), "out": (torch.int32,)})
-    check_shape(params["wqkv"], "wqkv", (n_layers, 3 * d, d))
-    check_shape(params["w1"], "w1", (n_layers, d_ff, d))
-    check_shape(params["w_logits"], "w_logits", (n_class, d))
-    check_shape(bias_hm, "bias_hm", (n_layers, steps_pad, nh, l_pad))
-    check_shape(mem_k, "mem_k", (n_layers, batch, e_pad, d))
-    check_shape(mem_v, "mem_v", (n_layers, batch, e_pad, d))
-    check_shape(gumbel, "gumbel", (batch, n_class))
-    for name, t in (("token_in", token_in), ("cur_token", cur_token),
-                    ("out", out)):
-        check_shape(t, name, (batch, 1))
-    check_shape(posfull, "posfull", (batch, steps_pad, d))
-    if cross_hm is not None:
-        check_shape(cross_hm, "cross_hm", (n_layers, steps_pad, nh, e_pad))
-    if params["emb_padded"].shape[0] <= n_class:
-        raise ValueError("emb_padded needs the all-zeros row n_class")
-    if not 0 <= pos < min(steps_pad, l_pad):
-        raise ValueError(f"pos={pos} outside the tables")
-    if d % nh or (d // nh) % 2 or d // nh > 64 or d % 8 or d_ff % 8:
-        raise ValueError("head_dim must be even and <= 64, and d_model and "
-                         "d_ff multiples of 8")
-    max_chunks = (max(l_pad, e_pad) + ATTN_CHUNK - 1) // ATTN_CHUNK
+PLANS_KEPT = 4  # plans cached per step kernel (most recent first)
 
-    def f32(*shape):
-        return torch.empty(shape, device=dev, dtype=torch.float32)
+# kernel -> (library, launch symbol, info symbol)
+_STEP_LIBRARIES = {
+    "fused_decode_step": ("decode_step", "isi_decode_step",
+                          "isi_decode_step_info"),
+    "fused_decode_step_batched": ("decode_step_batched",
+                                  "isi_decode_step_batched",
+                                  "isi_decode_step_batched_info"),
+}
+_INFO_KEYS = ("grid_blocks", "threads", "smem_bytes", "registers",
+              "local_bytes", "barriers_per_step")
 
-    def tdt(*shape):
-        return torch.empty(shape, device=dev, dtype=dtype)
 
-    scratch = {"x": f32(batch, d), "qkv": f32(batch, 3 * d),
-               "qc": f32(batch, d),
-               "a": tdt(batch, d), "mid": tdt(batch, d_ff),
-               "logits": f32(batch, n_class),
-               "part": f32(batch, nh, max_chunks, d // nh + 2)}
-    args = _StepParams(
-        **{k: ptr(params[k]) for k in _STEP_WEIGHTS},
-        b_logits=ptr(params["b_logits"]), ln=ptr(params["ln"]),
-        ln_final=ptr(params["ln_final"]), emb=ptr(params["emb_padded"]),
-        posfull=ptr(posfull), mem_k=ptr(mem_k), mem_v=ptr(mem_v),
-        bias_hm=ptr(bias_hm), cross_hm=ptr(cross_hm), gumbel=ptr(gumbel),
-        token_in=ptr(token_in), cur_token=ptr(cur_token),
-        token_out=ptr(out), kv=ptr(kv),
-        **{k: ptr(v) for k, v in scratch.items()},
-        n_layers=n_layers, d=d, d_ff=d_ff, n_heads=nh, n_class=n_class,
-        batch=batch, l_pad=l_pad, e_pad=e_pad, steps_pad=steps_pad,
-        channels=channels, e_src=e_src, aligned=int(cross_hm is None),
-        pos=pos, take=int(bool(is_masked) and int(i_index) >= 0),
-        max_chunks=max_chunks, scale=1.0 / ((d // nh) ** 0.5),
-        inv_temperature=_inv_temperature(temperature))
-    lib = load(library)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = getattr(lib, symbol)(ctypes.byref(args),
-                                ctypes.c_int(DTYPE_CODES[dtype]),
-                                ctypes.c_void_p(stream))
-    raise_on_error(lib, code, kernel)
-    return out, kv
+def _fixed_tensors(params, bias_hm, posfull, mem_kv, kv, cross_hm):
+    """The tensors that stay the same across the steps of a generation."""
+    return (tuple(params[k] for k in _STEP_WEIGHTS)
+            + (params["b_logits"], params["ln"], params["ln_final"],
+               params["emb_padded"], bias_hm, posfull, mem_kv[0], mem_kv[1],
+               kv, cross_hm))
+
+
+class StepPlan:
+    """The per-generation state of a step kernel: its fixed tensors checked
+    once, its scratch allocated once and its ``StepParams`` built once, so
+    that a step only sets ``pos``, ``take`` and the token and noise
+    pointers (``bind``) and launches.
+
+    A plan holds weak references to its fixed tensors (params, bias_hm,
+    posfull, the memory, kv, cross_hm) and matches a call whose tensors are
+    the same objects at the same addresses, with the same scalars; any
+    other call builds a new plan (``step_plan``). On the CPU a plan holds
+    no scratch and launches nothing: the wrappers run the plain version
+    there. On CUDA the build asks the kernel for its grid and refuses
+    (raises) a shape it does not take. ``StepPlan.builds`` counts the plans
+    built in this process."""
+
+    builds = 0
+
+    def __init__(self, kernel: str, params, bias_hm, posfull, mem_kv, kv, *,
+                 n_class: int, channels: int, cross_hm=None,
+                 e_src_real=None, temperature: float = 1.0):
+        self.kernel = kernel
+        mem_k, mem_v = mem_kv
+        dtype = kv.dtype
+        if kv.dim() != 5:
+            raise ValueError("kv must be [n_layers, 2, B, l_pad, d], got "
+                             f"{tuple(kv.shape)}")
+        n_layers, _, batch, l_pad, d = kv.shape
+        d_ff = params["b1"].shape[-1]
+        _, steps_pad, nh, _ = bias_hm.shape
+        e_pad = mem_v.shape[2]
+        e_src = int(e_src_real) if e_src_real is not None else e_pad
+        check_tensors(
+            {**{k: params[k] for k in _STEP_WEIGHTS},
+             "b_logits": params["b_logits"], "ln": params["ln"],
+             "ln_final": params["ln_final"], "emb": params["emb_padded"],
+             "posfull": posfull, "mem_k": mem_k, "mem_v": mem_v,
+             "bias_hm": bias_hm, "cross_hm": cross_hm, "kv": kv},
+            {**{k: (dtype,) for k in _STEP_WEIGHTS}, "emb": (dtype,),
+             "posfull": (dtype,), "mem_k": (dtype,), "mem_v": (dtype,),
+             "kv": tuple(DTYPE_CODES), "b_logits": (torch.float32,),
+             "ln": (torch.float32,), "ln_final": (torch.float32,),
+             "bias_hm": (torch.float32,), "cross_hm": (torch.float32,)})
+        check_shape(params["wqkv"], "wqkv", (n_layers, 3 * d, d))
+        check_shape(params["w1"], "w1", (n_layers, d_ff, d))
+        check_shape(params["w_logits"], "w_logits", (n_class, d))
+        check_shape(bias_hm, "bias_hm", (n_layers, steps_pad, nh, l_pad))
+        check_shape(mem_k, "mem_k", (n_layers, batch, e_pad, d))
+        check_shape(mem_v, "mem_v", (n_layers, batch, e_pad, d))
+        check_shape(posfull, "posfull", (batch, steps_pad, d))
+        if cross_hm is not None:
+            check_shape(cross_hm, "cross_hm",
+                        (n_layers, steps_pad, nh, e_pad))
+        if params["emb_padded"].shape[0] <= n_class:
+            raise ValueError("emb_padded needs the all-zeros row n_class")
+        if d % nh or (d // nh) % 2 or d // nh > 64 or d % 8 or d_ff % 8:
+            raise ValueError("head_dim must be even and <= 64, and d_model "
+                             "and d_ff multiples of 8")
+        fixed = _fixed_tensors(params, bias_hm, posfull, mem_kv, kv,
+                               cross_hm)
+        self._refs = tuple(None if t is None else (weakref.ref(t),
+                                                   t.data_ptr())
+                           for t in fixed)
+        self.scalars = (n_class, channels, e_src_real, float(temperature))
+        self.device, self.dtype = kv.device, dtype
+        self.batch, self.n_class = batch, n_class
+        self.pos_limit = min(steps_pad, l_pad)
+        self.scratch = {}
+        self.info = None
+        if kv.device.type == "cuda":
+            def f32(*shape):
+                return torch.empty(shape, device=kv.device,
+                                   dtype=torch.float32)
+
+            def tdt(*shape):
+                return torch.empty(shape, device=kv.device, dtype=dtype)
+
+            self.scratch = {
+                "x": f32(batch, d), "qkv": f32(batch, 3 * d),
+                "qc": f32(batch, d), "a": tdt(batch, d),
+                "mid": tdt(batch, d_ff), "logits": f32(batch, n_class)}
+        self.args = _StepParams(
+            **{k: ptr(params[k]) for k in _STEP_WEIGHTS},
+            b_logits=ptr(params["b_logits"]), ln=ptr(params["ln"]),
+            ln_final=ptr(params["ln_final"]),
+            emb=ptr(params["emb_padded"]), posfull=ptr(posfull),
+            mem_k=ptr(mem_k), mem_v=ptr(mem_v), bias_hm=ptr(bias_hm),
+            cross_hm=ptr(cross_hm), kv=ptr(kv),
+            **{k: ptr(v) for k, v in self.scratch.items()},
+            n_layers=n_layers, d=d, d_ff=d_ff, n_heads=nh, n_class=n_class,
+            batch=batch, l_pad=l_pad, e_pad=e_pad, steps_pad=steps_pad,
+            channels=channels, e_src=e_src, aligned=int(cross_hm is None),
+            pos=0, take=0, grid=0,
+            scale=1.0 / ((d // nh) ** 0.5),
+            inv_temperature=_inv_temperature(temperature))
+        self._dtype_code = ctypes.c_int(DTYPE_CODES[dtype])
+        self._launch = None
+        if kv.device.type == "cuda":
+            library, symbol, info_symbol = _STEP_LIBRARIES[kernel]
+            from .build import load
+            lib = load(library)
+            info = (ctypes.c_int * len(_INFO_KEYS))()
+            code = getattr(lib, info_symbol)(ctypes.byref(self.args),
+                                             self._dtype_code, info)
+            if code != 0:
+                lib.isi_error_string.restype = ctypes.c_char_p
+                raise RuntimeError(
+                    f"{kernel} does not take this shape (B {batch}, d {d}, "
+                    f"d_ff {d_ff}, {nh} heads, {dtype}): CUDA error {code} "
+                    f"({lib.isi_error_string(code).decode()})")
+            self.info = dict(zip(_INFO_KEYS, info))
+            self.args.grid = self.info["grid_blocks"]
+            self._lib = lib
+            self._launch = getattr(lib, symbol)
+            self._launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_void_p]
+            self._launch.restype = ctypes.c_int
+        StepPlan.builds += 1
+
+    def matches(self, fixed, scalars) -> bool:
+        if scalars != self.scalars:
+            return False
+        for ref, t in zip(self._refs, fixed):
+            if ref is None or t is None:
+                if ref is not t:
+                    return False
+            elif ref[0]() is not t or ref[1] != t.data_ptr():
+                return False
+        return True
+
+    def bind(self, token_in, cur_token, pos, i_index, is_masked, gumbel,
+             out=None):
+        """Check one step's own arguments and set them in the params:
+        ``pos``, ``take`` and the token_in / cur_token / out / gumbel
+        pointers. -> ``out`` (allocated when None)."""
+        if out is None:
+            out = torch.empty(self.batch, 1, dtype=torch.int32,
+                              device=self.device)
+        for name, t, dt, shape in (
+                ("token_in", token_in, torch.int32, (self.batch, 1)),
+                ("cur_token", cur_token, torch.int32, (self.batch, 1)),
+                ("out", out, torch.int32, (self.batch, 1)),
+                ("gumbel", gumbel, torch.float32,
+                 (self.batch, self.n_class))):
+            if t.device != self.device:
+                raise ValueError(f"{name} is on {t.device}, expected "
+                                 f"{self.device}")
+            if t.dtype != dt:
+                raise ValueError(f"{name} has dtype {t.dtype}, expected "
+                                 f"{dt}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+            check_shape(t, name, shape)
+        pos = int(pos)
+        if not 0 <= pos < self.pos_limit:
+            raise ValueError(f"pos={pos} outside the tables")
+        args = self.args
+        args.pos = pos
+        args.take = int(bool(is_masked) and int(i_index) >= 0)
+        args.token_in = token_in.data_ptr()
+        args.cur_token = cur_token.data_ptr()
+        args.token_out = out.data_ptr()
+        args.gumbel = gumbel.data_ptr()
+        return out
+
+    def launch(self) -> None:
+        """One step on the current stream: a single cooperative launch."""
+        if self._launch is None:
+            raise ValueError(f"{self.kernel} launches only on CUDA tensors")
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        code = self._launch(ctypes.addressof(self.args), self._dtype_code,
+                            stream)
+        raise_on_error(self._lib, code, self.kernel)
+
+
+_PLANS: Dict[str, list] = {}
+
+
+def step_plan(kernel: str, params, bias_hm, posfull, mem_kv, kv, *,
+              n_class: int, channels: int, cross_hm=None, e_src_real=None,
+              temperature: float = 1.0) -> StepPlan:
+    """The plan of step kernel ``kernel`` for these fixed tensors: a cached
+    one when they are the same objects, else a new one (the
+    ``PLANS_KEPT`` most recent are kept)."""
+    fixed = _fixed_tensors(params, bias_hm, posfull, mem_kv, kv, cross_hm)
+    scalars = (n_class, channels, e_src_real, float(temperature))
+    plans = _PLANS.setdefault(kernel, [])
+    for i, plan in enumerate(plans):
+        if plan.matches(fixed, scalars):
+            if i:
+                plans.insert(0, plans.pop(i))
+            return plan
+    plan = StepPlan(kernel, params, bias_hm, posfull, mem_kv, kv,
+                    n_class=n_class, channels=channels, cross_hm=cross_hm,
+                    e_src_real=e_src_real, temperature=temperature)
+    plans.insert(0, plan)
+    del plans[PLANS_KEPT:]
+    return plan
 
 
 def fused_decode_step(params: Dict[str, torch.Tensor],
@@ -433,8 +565,8 @@ def fused_decode_step(params: Dict[str, torch.Tensor],
                       e_src_real: Optional[int] = None,
                       out: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One fused decode step for a small batch (built for 2 to 4
-    sequences; more run in groups of 4).
+    """One fused decode step for a small batch (2 to 4 sequences, and the
+    relative-bias top prior at any batch, in groups of 16).
 
     params: ``pack_decode_params`` tables; bias_hm [n_layers, steps_pad, H,
     l_pad] float32 (row ``pos`` is read); posfull [B, steps_pad, d] (each
@@ -448,18 +580,21 @@ def fused_decode_step(params: Dict[str, torch.Tensor],
     out: optional [B, 1] int32 tensor to write the tokens into (it may be
     ``cur_token`` itself). Returns (new_token [B, 1], kv): the sampled token
     where ``is_masked and i_index >= 0``, else ``cur_token``."""
-    kwargs = dict(n_class=n_class, channels=channels, cross_hm=cross_hm,
-                  e_src_real=e_src_real, out=out)
+    plan = step_plan("fused_decode_step", params, bias_hm, posfull, mem_kv,
+                     kv, n_class=n_class, channels=channels,
+                     cross_hm=cross_hm, e_src_real=e_src_real,
+                     temperature=temperature)
+    out = plan.bind(token_in, cur_token, pos, i_index, is_masked, gumbel,
+                    out)
     if kv.device.type != "cuda":
         return decode_step_plain(
             params, bias_hm, posfull, mem_kv, kv, token_in, cur_token, pos,
-            i_index, is_masked, gumbel, temperature, **kwargs)
-    result = launch_step(
-        "decode_step", "isi_decode_step", "fused_decode_step", params,
-        bias_hm, posfull, mem_kv, kv, token_in, cur_token, pos, i_index,
-        is_masked, gumbel, temperature, **kwargs)
+            i_index, is_masked, gumbel, temperature, n_class=n_class,
+            channels=channels, cross_hm=cross_hm, e_src_real=e_src_real,
+            out=out)
+    plan.launch()
     fused_decode_step.launches += 1
-    return result
+    return out, kv
 
 
 fused_decode_step.launches = 0

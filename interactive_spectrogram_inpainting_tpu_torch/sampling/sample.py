@@ -320,7 +320,9 @@ def step_loop(step, tokens_t: torch.Tensor, mask_host, gumbel: torch.Tensor,
     position are a contiguous [B, 1] view which the kernel reads and
     writes in place; ``mask_host`` is the mask as a host list, known before
     the loop; ``gumbel`` [steps - p0, B, n_class]. Nothing is read back
-    from the device inside the loop."""
+    from the device inside the loop. A step kernel builds its per-generation
+    plan at the first step and reuses it at the others
+    (``ops/decode_step_kernel.py::step_plan``)."""
     length, batch = tokens_t.shape
     c = channels
     start_tokens = torch.full((batch, 1), n_class, dtype=torch.int32,

@@ -171,7 +171,7 @@ def test_prefix_prime_batch_kernel_matches_plain(prior, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("batch", [2, 6])
+@pytest.mark.parametrize("batch", [2, 3, 6, 17])
 def test_decode_step_kernel_matches_plain(prior, dtype, batch):
     import chip_smoke
     inp = batch_inputs(prior[0], batch, dtype)
@@ -195,10 +195,10 @@ def test_decode_step_kernel_matches_plain(prior, dtype, batch):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_step_batched_kernel_matches_plain(device, dtype):
+@pytest.mark.parametrize("batch", [5, 8, 16, 64])
+def test_decode_step_batched_kernel_matches_plain(device, dtype, batch):
     import chip_smoke
     model = tiny_prior("aligned").to(device)
-    batch = 8
     inp = batch_inputs(model, batch, dtype)
     kv0 = chip_smoke.run_prime(torch, fused_prefix_prime, inp, dtype)
     n = inp["steps"] - inp["p0"]
@@ -215,6 +215,59 @@ def test_decode_step_batched_kernel_matches_plain(device, dtype):
     if dtype == torch.float32:
         assert torch.equal(tk, tp)
     assert fused_decode_step_batched.launches >= n
+
+
+def test_decode_step_is_one_launch_per_step(device):
+    """A step is one cooperative launch: the profiler sees one device
+    kernel per step and nothing else."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity, profile
+    model = tiny_prior("aligned").to(device)
+    for fn, batch in ((fused_decode_step, 2),
+                      (fused_decode_step_batched, 16)):
+        inp = batch_inputs(model, batch, torch.bfloat16)
+        kv0 = chip_smoke.run_prime(torch, fused_prefix_prime, inp,
+                                   torch.bfloat16)
+        zeros = torch.zeros(4, batch, inp["n_class"], device=device)
+        chip_smoke.run_steps(torch, fn, inp, kv0, zeros, 1.0, 4)
+        kv = kv0.clone()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            chip_smoke.run_steps(torch, fn, inp, kv, zeros, 1.0, 4)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "decode_step_kernel" in e.name]
+        assert len(names) == 4, names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_step_kernels_refuse_what_they_do_not_take(device, dtype,
+                                                   monkeypatch):
+    """d_ff 8192 needs more shared memory than a block has: both step
+    kernels raise, launch nothing and never run the plain version."""
+    import chip_smoke
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        decode_step_batched as dsb, decode_step_kernel as dsk)
+    base = tiny_prior("aligned").config
+    model = init_like_flax(
+        tt.UpsamplingVQTransformer(dataclasses.replace(base, d_ff=8192)),
+        torch.Generator().manual_seed(0)).eval().to(device)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(dsk, "decode_step_plain", plain)
+    monkeypatch.setattr(dsb, "decode_step_batched_plain", plain)
+    for fn, batch in ((fused_decode_step, 2),
+                      (fused_decode_step_batched, 8)):
+        inp = batch_inputs(model, batch, dtype)
+        kv0 = torch.zeros(inp["kv_shape"], dtype=dtype, device=device)
+        zeros = torch.zeros(1, batch, inp["n_class"], device=device)
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="does not take this shape"):
+            chip_smoke.run_steps(torch, fn, inp, kv0, zeros, 1.0, 1)
+        assert fn.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
