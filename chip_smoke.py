@@ -9,13 +9,20 @@ Phases, each failing the run with a nonzero exit:
    from ``interactive_spectrogram_inpainting_tpu_torch/ops/csrc``, and count
    the tensor-core instructions (HMMA, HGMMA) in the training attention's
    library with ``cuobjdump -sass`` (none fails the run);
-2. prefix-prime: the kernel against its plain PyTorch version at the full
-   priors' width (top prior: relative-bias cross attention; bottom prior:
-   aligned), in float32 and in bfloat16;
-3. decode-scan: the kernel against its plain version at full width:
-   teacher-forced (mask all False: the final caches agree, the tokens are
-   unchanged), greedy top prior in float32 (the token streams are equal),
-   and bfloat16 with Gumbel noise (tokens in range, unmasked unchanged);
+2. prefix-prime: the kernel (one persistent launch a prefix, products on
+   the tensor cores) against its plain PyTorch version at the full priors'
+   width (top prior: relative-bias cross attention; bottom prior: aligned),
+   in float32 and in bfloat16, a second call bit-identical to the first;
+   its launch shape (grid, shared memory, registers, grid barriers);
+3. decode-scan: the kernel (one cooperative launch in thread-block
+   clusters) against its plain version at full width: teacher-forced (mask
+   all False: the final caches agree, the bfloat16 rows' distance in bf16
+   ulps is logged, the tokens are unchanged), greedy top prior in float32
+   (the token streams are equal; the same from an unprimed cache from
+   position 0, its cache rows from p0 on within 3e-4), and bfloat16 with
+   Gumbel noise (tokens in range, unmasked unchanged, a second run
+   bit-identical in tokens and cache); its launch shape (grid, cluster,
+   grid barriers a step, shared memory, registers);
 4. vq-lookup: ``fused_vq_lookup`` against ``reference_vq_lookup`` at dim 64,
    K 512 and N in {128, 512, 700, 65536}: ids equal on every row whose two
    best scores differ by more than 1e-4, quantize equal to the codebook rows
@@ -114,7 +121,12 @@ Phases, each failing the run with a nonzero exit:
    calls that gives ids and quantize only; for the spectral loss
    ``torch.stft`` + magnitudes + distance, forward and backward by
    autograd, on the three Jukebox scales of the main path's first step;
-   its row also gives each half's ms and bound). The two step kernels'
+   its row also gives each half's ms and bound). The flash attention's
+   ``ms`` is device time: its calls are enqueued behind a sleeping kernel,
+   so the card runs them back to back whatever the host's pace (the
+   host-paced time and the host enqueue ms are in its detail; its launches
+   are the opt-in dense sampler's: no serving path runs it). The two step
+   kernels'
    detail gives, for each plan the timed calls used, the grid, the grid
    barriers a step, the shared memory and the registers (also from
    ``-Xptxas -v``), the device kernels ``torch.profiler`` sees in 8 steps
@@ -177,6 +189,11 @@ KERNEL_SOURCES = {
         "interactive_spectrogram_inpainting_tpu/ops/spectral_loss_kernel.py:264"),
 }
 STEP_LIBRARIES = ("decode_step", "decode_step_batched")
+# libraries whose registers a thread -Xptxas -v reports, by kernel name
+PTXAS_KERNELS = {"decode_step": "decode_step_kernel",
+                 "decode_step_batched": "decode_step_kernel",
+                 "decode_scan": "decode_scan_kernel",
+                 "prefix_prime": "prefix_prime_kernel"}
 STEPS_CHECKED = 32   # consecutive positions a step kernel is checked over
 STEPS_TIMED = 32     # captured steps (evenly spaced) a step kernel is timed on
 VQ_MARGIN = 1e-4     # codes are compared where the two best scores differ more
@@ -408,12 +425,13 @@ def phase_build():
     log(card)
     from interactive_spectrogram_inpainting_tpu_torch.ops import build
     t0 = time.perf_counter()
-    seconds = build.build(ptxas=STEP_LIBRARIES)
+    seconds = build.build(ptxas=PTXAS_KERNELS)
     log(f"build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})}"
         f" total {time.perf_counter() - t0:.2f} s")
-    log("step kernels' registers a thread (-Xptxas -v): " + json.dumps(
-        {name: ptxas_registers(build.PTXAS_LOGS.get(name, ""))
-         for name in STEP_LIBRARIES}))
+    log("persistent kernels' registers a thread (-Xptxas -v): "
+        + json.dumps({name: ptxas_registers(build.PTXAS_LOGS.get(name, ""),
+                                            kernel)
+                      for name, kernel in PTXAS_KERNELS.items()}))
     # the training attention runs its products on the tensor cores: its
     # library must hold HMMA (mma.sync) or HGMMA (wgmma) instructions
     sass = subprocess.run(
@@ -430,16 +448,16 @@ def phase_build():
     return card
 
 
-def ptxas_registers(log_text):
-    """{dtype: registers} of the step kernel's instantiations in a
-    ``-Xptxas -v`` report."""
+def ptxas_registers(log_text, kernel="decode_step_kernel"):
+    """{dtype: registers} of ``kernel``'s instantiations in a ``-Xptxas -v``
+    report."""
     out, entry = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             entry = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
-        if m and entry and "decode_step_kernel" in entry:
+        if m and entry and kernel in entry:
             out["bfloat16" if "bfloat16" in entry else "float32"] = int(
                 m.group(1))
             entry = None
@@ -475,8 +493,47 @@ def phase_prime(torch, state, results):
             if not (ok and zero and torch.isfinite(kv_k).all()):
                 fail(f"prefix_prime {name} {dtype} disagrees with the plain "
                      "version")
+            again = run_prime(torch, fused_prefix_prime, inp, dtype)
+            torch.cuda.synchronize()
+            if not torch.equal(kv_k, again):
+                fail(f"prefix_prime {name} {dtype}: a second call differs")
+            log(f"prefix_prime {name} {str(dtype)[6:]} launch: "
+                + json.dumps(prime_info(inp, dtype)))
             if dtype == torch.bfloat16:
                 results.setdefault("fused_prefix_prime", []).append(err)
+
+
+def prime_info(inp, dtype):
+    """The launch shape of the prefix-prime kernel for ``inp``."""
+    import torch
+    from interactive_spectrogram_inpainting_tpu_torch.ops.prefix_prime_kernel \
+        import prefix_prime_info
+    kv = torch.zeros(inp["kv_shape"], dtype=dtype, device="cuda")
+    return prefix_prime_info(
+        inp["params"], inp["bias_hm"], inp["x_prefix"], inp["mem"], kv,
+        p0=inp["p0"], channels=inp["c"], cross_hm=inp["cross_hm"],
+        e_src_real=inp["e_src"])
+
+
+def scan_info(inp, kv, gumbel):
+    """The launch shape of the whole-scan kernel for ``inp``."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops.decode_scan_kernel \
+        import decode_scan_info
+    return decode_scan_info(
+        inp["params"], inp["bias_hm"], inp["posfull"], inp["mem"], kv,
+        inp["tokens"], inp["mask"], gumbel, 1.0, p0=inp["p0"],
+        steps=inp["steps"], n_class=inp["n_class"], channels=inp["c"],
+        cross_hm=inp["cross_hm"], e_src_real=inp["e_src"])
+
+
+def bf16_ulps(torch, a, b):
+    """The distance between a and b in units of the last place, in
+    bfloat16, of the larger of the two (2^(exponent - 7)): its largest
+    value and the share of elements farther apart than one unit."""
+    a, b = a.float(), b.float()
+    big = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    ulps = (a - b).abs() / torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return float(ulps.max()), float((ulps > 1).float().mean())
 
 
 def phase_scan(torch, state, results):
@@ -509,16 +566,25 @@ def phase_scan(torch, state, results):
                                     rtol=5e-2)
                 same = bool((tk == inp["tokens"]).all()
                             and (tp == inp["tokens"]).all())
+                ulps, beyond = bf16_ulps(torch, kvk[:, :, rows],
+                                         kvp[:, :, rows])
                 log(f"decode_scan {tag} teacher-forced: cache max_abs_err "
-                    f"{err:.3e} (atol 5e-2, rtol 5e-2), tokens unchanged "
-                    f"{same}")
+                    f"{err:.3e} (atol 5e-2, rtol 5e-2), bf16 ulps at most "
+                    f"{ulps:g}, {beyond:.2e} of the values more than one "
+                    f"apart, tokens unchanged {same}")
+                log(f"decode_scan {name} {str(dtype)[6:]} launch: "
+                    + json.dumps(scan_info(inp, kv0, noise)))
                 if not (ok and same):
                     fail(f"decode_scan {name} teacher-forced disagrees")
                 results.setdefault("fused_decode_scan", []).append(err)
                 # bf16 with noise: in range, unmasked cells unchanged
-                tk, _ = run_scan(torch, fused_decode_scan, inp, kv0,
-                                 inp["mask"], noise)
+                tk, kv1 = run_scan(torch, fused_decode_scan, inp, kv0,
+                                   inp["mask"], noise)
+                tk2, kv2 = run_scan(torch, fused_decode_scan, inp, kv0,
+                                    inp["mask"], noise)
                 torch.cuda.synchronize()
+                if not (torch.equal(tk, tk2) and torch.equal(kv1, kv2)):
+                    fail(f"decode_scan {name} bf16: a second run differs")
                 keep = ~inp["mask"]
                 in_range = bool(((tk >= 0) & (tk < inp["n_class"])).all())
                 kept = bool((tk[keep] == inp["tokens"][keep]).all())
@@ -539,6 +605,28 @@ def phase_scan(torch, state, results):
                 log(f"decode_scan {tag} greedy: {diff} tokens differ")
                 if diff:
                     fail("decode_scan greedy float32 token streams differ")
+                # unprimed, from position 0 (the known prefix teacher-
+                # forced): the same tokens, the same cache from p0 on
+                zeros0 = torch.zeros(inp["steps"], inp["n_class"],
+                                     device=dev)
+                t0, kv_0 = fused_decode_scan(
+                    inp["params"], inp["bias_hm"], inp["posfull"],
+                    inp["mem"], None, inp["tokens"], inp["mask"], zeros0,
+                    1.0, p0=0, steps=inp["steps"], n_class=inp["n_class"],
+                    channels=inp["c"], cross_hm=inp["cross_hm"],
+                    e_src_real=inp["e_src"])
+                _, kv_p = run_scan(torch, fused_decode_scan, inp, kv0,
+                                   inp["mask"], zeros)
+                torch.cuda.synchronize()
+                p0 = inp["p0"]
+                close = torch.allclose(kv_0.float(), kv_p.float(),
+                                       atol=3e-4, rtol=1e-3)
+                log(f"decode_scan {tag} unprimed from 0: tokens equal "
+                    f"{torch.equal(t0, tk)}, cache max_abs_err "
+                    f"{max_err(kv_0, kv_p):.3e} (rows < p0 {p0} from the "
+                    f"prime)")
+                if not (torch.equal(t0, tk) and close):
+                    fail("decode_scan unprimed and primed runs differ")
 
 
 def phase_step(torch, state, results):
@@ -2598,6 +2686,27 @@ def time_calls(torch, fn, calls, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, calls, reps=2):
+    """Mean device ms of running every call once: the calls are enqueued
+    behind a kernel that sleeps ~50 ms (longer than the host takes to
+    enqueue them all), so the card runs them back to back whatever the
+    host's pace; CUDA events around them."""
+    def run():
+        for args, kwargs in calls:
+            fn(*args, **kwargs)
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def host_ms(torch, fn, calls):
     """ms the host takes to enqueue every call once: its clock around each
     call, started on an idle card and stopped before any synchronize (one
@@ -2866,6 +2975,11 @@ def phase_kernels(torch, card, captured, launches, errors, state):
              spectral_pair_bound, captured["fused_multiscale_loss"],
              stft_spectral_pair)):
         ms = time_calls(torch, fn, calls, reps=10)
+        if name == "flash_decode_attention":
+            # host-paced (the enqueue takes longer than the kernels): the
+            # row's ms is the device's, from a sleeping head start
+            host_paced_ms = ms
+            ms = device_ms(torch, fn, calls)
         plain_ms = time_calls(torch, plain, calls, reps=1)
         bounds = [bound(*call) for call in calls]
         b = sum(x[0] for x in bounds)
@@ -2890,6 +3004,23 @@ def phase_kernels(torch, card, captured, launches, errors, state):
         if name == "fused_decode_scan":
             stream = sum(x[2] for x in bounds) / PEAK_BYTES_PER_S * 1e3
             detail[name]["weights_streamed_per_step_ms"] = round(stream, 4)
+            detail[name]["steps"] = [kw["steps"] - kw["p0"]
+                                     for _, kw in calls]
+            detail[name]["kernel"] = [
+                dsk.decode_scan_info(*args[:9], **kw) for args, kw in calls]
+            detail[name]["ptxas_registers"] = ptxas_registers(
+                build.PTXAS_LOGS.get("decode_scan", ""), "decode_scan_kernel")
+        if name == "fused_prefix_prime":
+            detail[name]["kernel"] = [
+                ppk.prefix_prime_info(*args, **kw) for args, kw in calls]
+            detail[name]["ptxas_registers"] = ptxas_registers(
+                build.PTXAS_LOGS.get("prefix_prime", ""),
+                "prefix_prime_kernel")
+            detail[name]["device_kernels_per_call"] = kernels_per_call(
+                torch, fn, calls)
+        if name == "flash_decode_attention":
+            detail[name]["host_paced_events_ms"] = round(host_paced_ms, 4)
+            detail[name]["serving_path_launches"] = 0
         if name == "fused_decode_step_batched":
             # one whole generation of each bucket: every step of its last
             # request (the keys without a suffix are bucket 16's)

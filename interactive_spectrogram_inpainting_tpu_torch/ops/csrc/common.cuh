@@ -1,6 +1,5 @@
 // Shared device helpers of the port's kernels: bf16/f32 element access,
-// 16-byte vector loads, warp and block reductions, and the flax LayerNorm
-// (epsilon 1e-6).
+// 16-byte vector loads, warp and block reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,13 +18,6 @@
 namespace isi {
 
 constexpr int kWarp = 32;
-
-// epilogues of the weight-product kernels, with C = in . W^T + bias:
-//   kOutF32:    out_f32 = C
-//   kResidual:  out_f32 = out_f32 + C
-//   kReluT:     out_t = T(relu(C))
-//   kScaledF32: out_f32 = C * out_scale
-enum { kOutF32 = 0, kResidual = 1, kReluT = 2, kScaledF32 = 3 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -124,26 +116,6 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   }
   __syncthreads();
   return red[32];
-}
-
-// out[i] = round_to<T>((x[i] - mu) * rsqrt(var + 1e-6) * scale[i] + bias[i])
-// over one row of length d held by the whole block (flax LayerNorm).
-template <typename T>
-__device__ void block_layer_norm(const float* x, const float* scale,
-                                 const float* bias, int d, float* out,
-                                 float* red) {
-  float s = 0.f;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) s += x[i];
-  const float mu = block_sum(s, red) / d;
-  float v = 0.f;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const float dv = x[i] - mu;
-    v += dv * dv;
-  }
-  const float rs = rsqrtf(block_sum(v, red) / d + 1e-6f);
-  for (int i = threadIdx.x; i < d; i += blockDim.x)
-    out[i] = round_to<T>((x[i] - mu) * rs * scale[i] + bias[i]);
-  __syncthreads();
 }
 
 }  // namespace isi

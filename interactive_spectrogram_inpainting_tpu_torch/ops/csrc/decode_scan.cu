@@ -4,34 +4,59 @@
 // Replaces: interactive_spectrogram_inpainting_tpu/ops/decode_scan_kernel.py
 //           ::fused_decode_scan (Pallas kernel _decode_scan_kernel).
 //
-// Bound on the H100: device-memory bandwidth. Each step streams every
-// decoder weight once (bottom prior, bf16: 8 x (1536+512+512+2048+2048) x
-// 512 x 2 B + logits ~ 55 MB; the top prior adds wq_c, ~59 MB), which does
-// not fit the 50 MB L2, against a few MFLOP of arithmetic. The TPU kernel
-// kept all weights and the ~59 MB KV cache resident in VMEM; no SM holds
-// that, so here the weights stream from device memory every step and the
-// cache lives in device memory.
+// Bound on the H100: each step streams every decoder weight once (bottom
+// prior, bf16: 8 x (1536+512+512+2048+2048) x 512 x 2 B + logits ~ 55 MB;
+// the top prior adds wq_c, ~59 MB): 16-18 us at 3.35 TB/s, against a few
+// MFLOP of arithmetic. The TPU kernel kept every weight and the KV cache in
+// VMEM; no SM holds that, so the weights stream from device memory (and
+// L2) every step. What paces a step is latency: each phase waits for a
+// grid barrier (~1.1 us on the H100), then for its inputs, then for its
+// weights. So the design cuts phases and, inside a phase, round trips.
 //
-// Design: one block of 512 threads per SM, alive for the whole scan; the
-// phases of a step are separated by grid-wide barriers
-// (cooperative_groups::this_grid().sync()), so no host round trip and no
-// relaunch happens inside the loop. Within a GEMV phase every warp of the
-// grid owns whole output rows of a weight stored [out, in] and reads them
-// as 16-byte vectors (bf16 weights, float32 accumulation). Self attention
-// runs as flash-decoding partials, one block per (head, 64-key chunk of
-// the cache), combined with the fresh key by every block of the next
-// phase; both stage their inputs in shared memory with cp.async so each
-// costs one memory round trip. The aligned cross attention is a gather of
-// mem_v[p // c] whose projection shares the self-attention output phase.
-// The last phase takes the LayerNorm, the logits GEMV, /temperature plus
-// the Gumbel noise and an argmax; every block computes the same winner,
-// block 0 writes it where mask[i] && i >= 0, and the next step reads it
-// from the block's own copy, so the token never leaves the device.
+// Layout: kBlocks = 120 blocks of 512 threads, one per SM, in kClusters =
+// 15 thread-block clusters of kCluster = 8 (the most clusters of 8 that
+// co-reside on the H100 at one block per SM), all alive for the whole
+// scan: a cooperative launch with a cluster dimension. Cluster h < H is
+// head h's group. Per layer and step:
 //
-// Per-step barriers: 5 per layer (aligned), 8 per layer (cross), +1. A
-// phase costs a few microseconds of latency (barrier, L2 reads of the
-// residual, block reductions, one HBM round trip for the weight rows), so
-// the scan is latency-bound, far from the bandwidth bound above.
+//   ATT   (head clusters) rebuild the residual x from the last phase's
+//         partials (each block its own copy), LN1, the head's q, k, v rows
+//         split over the cluster (dh / 8 of each a block), the fresh K/V
+//         row into the cache | cluster barrier, q, k, v gathered through
+//         distributed shared memory | attention partials over the block's
+//         eighth of the cached keys | cluster barrier | every block combines
+//         the 8 partials with the fresh key, then multiplies the head's
+//         output by its d / 8 rows of the head's columns of wo (aligned: and
+//         of wo_c times the gathered memory row): a [d] partial per head.
+//   CROSS (cross layers, head clusters) the same for LN2, wq_c and the
+//         attention over the source keys, ending in wo_c's partial.
+//   MLP   (all blocks) rebuild x, LN3, the block's d_ff slice of fc1
+//         (+ ReLU, rounded to T), that slice's fc2 partial [d] | cluster
+//         barrier | the cluster's partials added in rank order: a [d]
+//         partial per cluster.
+//   then  LOGITS (all blocks) rebuild x, final LN, the block's logit rows;
+//         the next step's ATT takes the Gumbel argmax (every head block the
+//         same answer, block 0 writes it where mask[i] && i >= 0).
+//
+// Grid barriers a step: 2 per aligned layer, 3 per cross layer, plus 1.
+// No float atomics: every partial is added in a fixed order (heads, then
+// clusters, each in index order, then the bias), so runs repeat bit for
+// bit; decode_scan_plain adds its partials in the same order.
+//
+// Weights and cached keys do not depend on the step's values, so before
+// each grid barrier every block issues cp.async copies of what it will
+// multiply or read in the next phase (its weight slices; its keys and
+// values) into shared memory: the copies fly during the barrier and the
+// residual rebuild. Each phase has its region: R1 for ATT, R2 for MLP and
+// LOGITS, R3 for CROSS (fc2's column slice is staged in bf16 only; float32,
+// the parity dtype, reads it from device memory, for want of shared
+// memory).
+//
+// Measured on the H100 (PERF.md, Findings): a step takes about as long as
+// the 41-phase design it replaces. Each segment between two barriers still
+// costs several microseconds for little work: the phase's weight copies (a
+// head block copies ~56 KB in ATT), an L2 round trip for the partial sums,
+// block and lane reductions.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -68,22 +93,99 @@ struct ScanParams {
   int* tokens;            // [length], updated in place
   void* kv;               // [n_layers, 2, l_pad, d], T, updated in place
   // float32 scratch
-  float* x;       // [d]
-  float* qkv;     // [3d]
-  float* qc;      // [d]
-  float* mid;     // [d_ff]
-  float* logits;  // [n_class]
-  float* part;    // [H, max_chunks, Dh + 4]
+  float* xbuf;        // [2, d]: the residual, published by block 0
+  float* part_att;    // [H, d]: per-head partials of ATT
+  float* part_cross;  // [H, d]: per-head partials of CROSS
+  float* part_mlp;    // [kClusters, d]: per-cluster partials of MLP
+  float* logits;      // [n_class]
   int n_layers, d, d_ff, n_heads, n_class, l_pad, e_pad, steps_pad, length;
-  int channels, p0, steps, e_src, aligned, max_chunks;
+  int channels, p0, steps, e_src, aligned;
   float scale, temperature;
 };
 
-constexpr int kThreads = 512;
-constexpr int kChunk = 64;
+namespace {
 
-// 16-byte asynchronous copy from global to shared memory (sm_80+); the
-// .cg form reads through L2, so it sees what other blocks wrote
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / kWarp;
+constexpr int kCluster = 8;    // blocks of a cluster: one head's group
+constexpr int kClusters = 15;  // clusters of 8 co-resident on the H100
+constexpr int kBlocks = kCluster * kClusters;
+constexpr int kUnit = 8;       // d_ff rows of fc1 (columns of fc2) a unit
+constexpr int kMaxParts = 16;  // partials a rebuild adds (heads, clusters)
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// the next n floats of the scratch, 16-byte aligned
+__host__ __device__ inline int take_floats(int& o, int n) {
+  const int at = o;
+  o += (n + 3) / 4 * 4;
+  return at;
+}
+
+// The shapes of a block's slices and the byte offsets of its shared
+// memory: float32 scratch first, then the two staging regions.
+struct Geometry {
+  int dh, dq, rows_o, kmax, emax, umax, lmax, w2_ld;
+  // float offsets
+  int xs, vin, lnw, rowb, exch, qf, kf, vf, keyb, sc, pv, part, av, mvs, mid,
+      fc2p, red;
+  // byte offsets and sizes of the regions
+  size_t r1, r1_bytes, r2, r2_bytes, r3, r3_bytes, total;
+};
+
+template <typename T>
+__host__ __device__ inline Geometry geometry(const ScanParams& P) {
+  Geometry g;
+  const int d = P.d;
+  g.dh = d / P.n_heads;
+  g.dq = g.dh / kCluster;
+  g.rows_o = d / kCluster;
+  g.kmax = cdiv(P.l_pad, kCluster);
+  g.emax = P.aligned ? 0 : cdiv(P.e_src, kCluster);
+  g.umax = cdiv(P.d_ff / kUnit, kBlocks);
+  g.lmax = cdiv(P.n_class, kBlocks);
+  // a staged fc2 row of umax units, an odd number of 16-byte pieces apart
+  // (thread r reads row r: no bank conflicts)
+  g.w2_ld = g.umax * kUnit + ((g.umax % 2) ? 0 : kUnit);
+  const int rows_b = 3 * g.dq > g.umax * kUnit ? 3 * g.dq : g.umax * kUnit;
+  int o = 0;
+  const int keys = g.kmax > g.emax ? g.kmax : g.emax;
+  g.xs = take_floats(o, d);
+  g.vin = take_floats(o, d);
+  g.lnw = take_floats(o, 2 * d);
+  g.rowb = take_floats(o, rows_b > g.lmax ? rows_b : g.lmax);
+  g.exch = take_floats(o, 3 * g.dq);
+  g.qf = take_floats(o, g.dh);
+  g.kf = take_floats(o, g.dh);
+  g.vf = take_floats(o, g.dh);
+  g.keyb = take_floats(o, keys);
+  g.sc = take_floats(o, keys);
+  g.pv = take_floats(o, kThreads);
+  g.part = take_floats(o, 2 + g.dh);
+  g.av = take_floats(o, g.dh);
+  g.mvs = take_floats(o, g.dh);
+  g.mid = take_floats(o, g.umax * kUnit);
+  g.fc2p = take_floats(o, d);
+  g.red = take_floats(o, 64);
+  const size_t es = sizeof(T);
+  g.r1 = (size_t)o * 4;
+  g.r1_bytes = es * ((size_t)3 * g.dq * d + 2 * (size_t)g.rows_o * g.dh
+                     + 2 * (size_t)g.kmax * g.dh);
+  g.r3_bytes = P.aligned ? 0
+                         : es * ((size_t)g.dq * d + (size_t)g.rows_o * g.dh
+                                 + 2 * (size_t)g.emax * g.dh);
+  size_t mlp = es * (size_t)g.umax * kUnit * d;
+  if (sizeof(T) == 2) mlp += es * (size_t)d * g.w2_ld;
+  const size_t logit = es * (size_t)g.lmax * d;
+  g.r2_bytes = logit > mlp ? logit : mlp;
+  g.r2 = g.r1 + (g.r1_bytes + 15) / 16 * 16;
+  g.r3 = g.r2 + (g.r2_bytes + 15) / 16 * 16;
+  g.total = g.r3 + g.r3_bytes;
+  return g;
+}
+
+// 16-byte asynchronous copy from global to shared memory through L2 (so it
+// sees what other blocks wrote earlier), and the wait for this thread's
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
@@ -94,228 +196,229 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float dot4(const float* w, const float* in,
-                                      float acc) {
-  const float4 a = *reinterpret_cast<const float4*>(in);
-  acc = fmaf(w[0], a.x, acc);
-  acc = fmaf(w[1], a.y, acc);
-  acc = fmaf(w[2], a.z, acc);
-  return fmaf(w[3], a.w, acc);
-}
-
-// out[r] = epi(r, W[r, :] . in) for the rows this warp owns
-template <typename T, typename Epi>
-__device__ __forceinline__ void gemv_rows(const T* __restrict__ W, int rows,
-                                          int cols, const float* in,
-                                          Epi epi) {
+// dst[r * dld + c] = src[r * sld + c] for r < n, c < k (k a whole number
+// of 16-byte pieces), by cp.async
+template <typename T>
+__device__ void stage(T* dst, int dld, const T* src, size_t sld, int n,
+                      int k) {
   constexpr int V = Vec<T>::N;
-  const int lane = threadIdx.x % kWarp;
-  const int wpb = blockDim.x / kWarp;
-  const int n_warps = gridDim.x * wpb;
-  for (int r = blockIdx.x * wpb + threadIdx.x / kWarp; r < rows;
-       r += n_warps) {
-    float acc = 0.f;
-    const T* row = W + (size_t)r * cols;
-#pragma unroll 4
-    for (int c0 = lane * V; c0 < cols; c0 += kWarp * V) {
-      float w[V];
-      load_vec(row + c0, w);
-#pragma unroll
-      for (int j = 0; j < V; j += 4) acc = dot4(w + j, in + c0 + j, acc);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) epi(r, acc);
+  const int per = k / V;
+  for (int e = threadIdx.x; e < n * per; e += kThreads) {
+    const int r = e / per, c = (e % per) * V;
+    cp_async16(dst + (size_t)r * dld + c, src + (size_t)r * sld + c);
   }
 }
 
-// Two GEMVs over the same rows in one pass, their loads issued together:
-// epi(r, W1[r, :] . in1, W2[r, :] . in2)
-template <typename T, typename Epi>
-__device__ __forceinline__ void gemv_rows2(const T* __restrict__ W1,
-                                           const float* in1,
-                                           const T* __restrict__ W2,
-                                           const float* in2, int rows,
-                                           int cols, Epi epi) {
-  constexpr int V = Vec<T>::N;
-  const int lane = threadIdx.x % kWarp;
-  const int wpb = blockDim.x / kWarp;
-  const int n_warps = gridDim.x * wpb;
-  for (int r = blockIdx.x * wpb + threadIdx.x / kWarp; r < rows;
-       r += n_warps) {
-    float a1 = 0.f, a2 = 0.f;
-#pragma unroll 4
-    for (int c0 = lane * V; c0 < cols; c0 += kWarp * V) {
-      float w1[V], w2[V];
-      load_vec(W1 + (size_t)r * cols + c0, w1);
-      load_vec(W2 + (size_t)r * cols + c0, w2);
-#pragma unroll
-      for (int j = 0; j < V; j += 4) {
-        a1 = dot4(w1 + j, in1 + c0 + j, a1);
-        a2 = dot4(w2 + j, in2 + c0 + j, a2);
+__device__ __forceinline__ float dot_vec(const float* w, const float* in,
+                                         int n, float acc) {
+  for (int j = 0; j < n; j += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(in + j);
+    acc = fmaf(w[j], a.x, acc);
+    acc = fmaf(w[j + 1], a.y, acc);
+    acc = fmaf(w[j + 2], a.z, acc);
+    acc = fmaf(w[j + 3], a.w, acc);
+  }
+  return acc;
+}
+
+// epi(r, W[r, :K] . in) for r < rows, LPR lanes a row; W (shared or device
+// memory) rows ldw elements apart, ``in`` float32 in shared memory
+template <int LPR, typename T, typename Epi>
+__device__ __forceinline__ void gemv(const T* W, int ldw, int rows, int K,
+                                     const float* in, Epi epi) {
+  constexpr int V = Vec<T>::N, RPW = kWarp / LPR;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int sub = lane % LPR;
+  for (int r0 = warp * RPW; r0 < rows; r0 += kWarps * RPW) {
+    const int r = r0 + lane / LPR;
+    float acc = 0.f;
+    if (r < rows) {
+      const T* row = W + (size_t)r * ldw;
+      for (int c = sub * V; c < K; c += LPR * V) {
+        float w[V];
+        load_vec_rw(row + c, w);
+        acc = dot_vec(w, in + c, V, acc);
       }
     }
-    a1 = warp_sum(a1);
-    a2 = warp_sum(a2);
-    if (lane == 0) epi(r, a1, a2);
+#pragma unroll
+    for (int o = LPR / 2; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (sub == 0 && r < rows) epi(r, acc);
   }
 }
 
-// Flash-decoding partial of one head over keys [j0, j1) (at most kChunk):
-// s_j = (q . K_j) * scale + bias[j]; part = {max s, sum exp(s - max), -,
-// -, sum exp(s - max) V_j} (rows of Dh + 4 floats, 16-byte aligned).
-// ``sm`` holds Dh + kChunk + blockDim.x floats;
-// ``stage`` holds 2 * kChunk * (Dh + V) elements. Every load (the chunk's
-// key and value rows by cp.async, the bias, q) is issued up front, so the
-// partial costs one memory round trip; then one thread per key takes its
-// dot product from shared memory (rows padded by 16 bytes against bank
-// conflicts) and the P.V sum is spread over every thread.
-template <typename T>
-__device__ void attend_chunk(const float* q, const T* K, const T* Vv,
-                             int stride, int j0, int j1, const float* bias,
-                             float scale, int dh, float* part, float* sm,
-                             T* stage) {
-  constexpr int V = Vec<T>::N;
-  float* qs = sm;
-  float* ps = sm + dh;
-  float* pv = ps + kChunk;
-  const int row = dh + V;
-  T* ks = stage;
-  T* vs = stage + kChunk * row;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n = j1 - j0;
-  const int pieces = dh / V;
-  for (int e = threadIdx.x; e < n * pieces; e += blockDim.x) {
-    const int j = e / pieces, o = (e % pieces) * V;
-    cp_async16(ks + j * row + o, K + (size_t)(j0 + j) * stride + o);
-    cp_async16(vs + j * row + o, Vv + (size_t)(j0 + j) * stride + o);
-  }
-  const float b = threadIdx.x < n ? bias[j0 + threadIdx.x] : 0.f;
-  for (int t = threadIdx.x; t < dh; t += blockDim.x) qs[t] = q[t];
-  cp_async_wait_all();
+// the sum of v over the block, every thread the same (the warps' sums
+// added in warp order); ``red`` holds kWarps floats
+__device__ __forceinline__ float block_total(float v, float* red) {
+  v = warp_sum(v);
+  if (threadIdx.x % kWarp == 0) red[threadIdx.x / kWarp] = v;
   __syncthreads();
-  if (threadIdx.x < n) {
-    const T* kr = ks + threadIdx.x * row;
-    float s = 0.f;
-    for (int t = 0; t < dh; t += V) {
-      float kv[V];
-      load_vec_rw(kr + t, kv);
+  float s = red[0];
 #pragma unroll
-      for (int k = 0; k < V; ++k) s = fmaf(qs[t + k], kv[k], s);
+  for (int w = 1; w < kWarps; ++w) s += red[w];
+  return s;
+}
+
+// LayerNorm of xs [d] into vin, rounded to T (flax LayerNorm). Thread i
+// reads the elements i, i + 512, ... that the rebuild wrote.
+template <typename T>
+__device__ void layer_norm(const float* xs, const float* scale,
+                           const float* bias, int d, float* vin, float* red) {
+  float s = 0.f;
+  for (int i = threadIdx.x; i < d; i += kThreads) s += xs[i];
+  const float mu = block_total(s, red) / d;
+  float v = 0.f;
+  for (int i = threadIdx.x; i < d; i += kThreads) {
+    const float dv = xs[i] - mu;
+    v += dv * dv;
+  }
+  const float rs = rsqrtf(block_total(v, red + kWarps) / d + 1e-6f);
+  for (int i = threadIdx.x; i < d; i += kThreads)
+    vin[i] = round_to<T>((xs[i] - mu) * rs * scale[i] + bias[i]);
+  __syncthreads();
+}
+
+// The attention partial of this block's n keys (staged ks, vs [n][dh]):
+// s_j = (q . K_j) * scale + kb[j]; part = {max s, sum exp(s - max),
+// sum exp(s - max) V_j}. Four threads a key for q . K; thread (g, t) sums
+// dim t over the keys j = g mod (512 / dh).
+template <typename T>
+__device__ void attend_own(const T* ks, const T* vs, int n, const float* q,
+                           const float* kb, int dh, float scale, float* sc,
+                           float* pv, float* part) {
+  constexpr int V = Vec<T>::N;
+  const int tid = threadIdx.x;
+  const int pieces = dh / V;
+  for (int j0 = 0; j0 < n; j0 += kThreads / 4) {
+    const int j = j0 + tid / 4, s = tid % 4;
+    float a = 0.f;
+    if (j < n) {
+      for (int pc = s; pc < pieces; pc += 4) {
+        float kk[V];
+        load_vec_rw(ks + (size_t)j * dh + pc * V, kk);
+        a = dot_vec(kk, q + pc * V, V, a);
+      }
     }
-    ps[threadIdx.x] = s * scale + b;
+    a += __shfl_xor_sync(0xffffffffu, a, 2);
+    a += __shfl_xor_sync(0xffffffffu, a, 1);
+    if (j < n && s == 0) sc[j] = a * scale + kb[j];
   }
   __syncthreads();
-  if (warp == 0) {
+  if (tid < kWarp) {
     float m = -INFINITY;
-    for (int t = lane; t < n; t += kWarp) m = fmaxf(m, ps[t]);
+    for (int t = tid; t < n; t += kWarp) m = fmaxf(m, sc[t]);
     m = warp_max(m);
     float l = 0.f;
-    for (int t = lane; t < n; t += kWarp) {
-      const float e = expf(ps[t] - m);
-      ps[t] = e;
+    for (int t = tid; t < n; t += kWarp) {
+      const float e = expf(sc[t] - m);
+      sc[t] = e;
       l += e;
     }
     l = warp_sum(l);
-    if (lane == 0) {
+    if (tid == 0) {
       part[0] = m;
       part[1] = l;
     }
   }
   __syncthreads();
-  // thread (g, t) sums dim t over the keys j = g mod groups
-  const int groups = blockDim.x / dh;
-  if (threadIdx.x < groups * dh) {
-    const int t = threadIdx.x % dh, g = threadIdx.x / dh;
+  const int groups = kThreads / dh;
+  if (tid < groups * dh) {
+    const int t = tid % dh, g = tid / dh;
     float a = 0.f;
     for (int j = g; j < n; j += groups)
-      a = fmaf(ps[j], to_f(vs[j * row + t]), a);
-    pv[threadIdx.x] = a;
+      a = fmaf(sc[j], to_f(vs[(size_t)j * dh + t]), a);
+    pv[tid] = a;
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < dh; t += blockDim.x) {
+  for (int t = tid; t < dh; t += kThreads) {
     float a = 0.f;
     for (int g = 0; g < groups; ++g) a += pv[g * dh + t];
-    part[4 + t] = a;
+    part[2 + t] = a;
+  }
+}
+
+// Every block of a head's cluster: the head's output from the cluster's 8
+// partials (read through distributed shared memory) and, with ``fresh``,
+// the fresh key (logit lp, value vf): av[t] = T(softmax . V)
+template <typename T>
+__device__ void combine(cg::cluster_group& cluster, float* part, int dh,
+                        bool fresh, float lp, const float* vf, float* av) {
+  const int t = threadIdx.x;
+  if (t < dh) {
+    float m[kCluster], l[kCluster], a[kCluster];
+#pragma unroll
+    for (int i = 0; i < kCluster; ++i) {
+      const float* pp = cluster.map_shared_rank(part, i);
+      m[i] = pp[0];
+      l[i] = pp[1];
+      a[i] = pp[2 + t];
+    }
+    float mm = fresh ? lp : -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kCluster; ++i) mm = fmaxf(mm, m[i]);
+    const float wf = fresh ? expf(lp - mm) : 0.f;
+    float den = 0.f, acc = fresh ? wf * vf[t] : 0.f;
+#pragma unroll
+    for (int i = 0; i < kCluster; ++i) {
+      // a block that saw no key holds max -inf and zero sums
+      const float w = m[i] == -INFINITY ? 0.f : expf(m[i] - mm);
+      den = fmaf(l[i], w, den);
+      acc = fmaf(a[i], w, acc);
+    }
+    av[t] = round_to<T>(acc / fmaxf(den + wf, 1e-20f));
   }
   __syncthreads();
 }
 
-// Every block: combine the chunk partials of all heads (plus, for self
-// attention, the fresh q, k, v of this step: ``qkv`` non-null) into
-// out[d], rounded to T. The block first copies every partial it needs
-// (and qkv) into ``stage`` by cp.async, in one round trip; then one warp
-// per head
-// combines them, lane c holding chunk c's statistics (n_chunks <= 32,
-// Dh <= 64: the wrapper checks both).
-template <typename T>
-__device__ void combine_heads(const ScanParams& P, int n_chunks,
-                              const float* qkv, const float* bias_fresh,
-                              float* out, float* stage) {
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n_warps = blockDim.x / kWarp;
-  const int d = P.d, dh = d / P.n_heads, row = dh + 4;
-  const int per_head = n_chunks * row;
-  const bool fresh = qkv != nullptr;
-  float* st_qkv = stage + P.n_heads * per_head;
-  for (int e = threadIdx.x * 4; e < P.n_heads * per_head;
-       e += blockDim.x * 4) {
-    const int h = e / per_head;
-    cp_async16(stage + e,
-               P.part + (size_t)h * P.max_chunks * row + (e - h * per_head));
-  }
-  if (fresh) {
-    for (int e = threadIdx.x * 4; e < 3 * d; e += blockDim.x * 4)
-      cp_async16(st_qkv + e, qkv + e);
-  }
-  cp_async_wait_all();
-  __syncthreads();
-  for (int h = warp; h < P.n_heads; h += n_warps) {
-    const float* ph = stage + h * per_head;
-    float lp = -INFINITY;
-    if (fresh) {
-      float s = 0.f;
-      for (int t = lane; t < dh; t += kWarp)
-        s = fmaf(st_qkv[h * dh + t], st_qkv[d + h * dh + t], s);
-      lp = warp_sum(s) * P.scale + bias_fresh[h];
-    }
-    const bool mine = lane < n_chunks;
-    const float mc = mine ? ph[lane * row] : -INFINITY;
-    const float lc = mine ? ph[lane * row + 1] : 0.f;
-    const float m = fmaxf(warp_max(mc), lp);
-    const float wc = mine ? expf(mc - m) : 0.f;
-    const float w_fresh = fresh ? expf(lp - m) : 0.f;
-    const float den = fmaxf(warp_sum(lc * wc) + w_fresh, 1e-20f);
-    const int t0 = lane, t1 = lane + kWarp;
-    float a0 = 0.f, a1 = 0.f;
-    if (fresh) {
-      if (t0 < dh) a0 = w_fresh * st_qkv[2 * d + h * dh + t0];
-      if (t1 < dh) a1 = w_fresh * st_qkv[2 * d + h * dh + t1];
-    }
-    for (int c = 0; c < n_chunks; ++c) {
-      const float w = __shfl_sync(0xffffffffu, wc, c);
-      const float* pc = ph + c * row + 4;
-      if (t0 < dh) a0 = fmaf(pc[t0], w, a0);
-      if (t1 < dh) a1 = fmaf(pc[t1], w, a1);
-    }
-    if (t0 < dh) out[h * dh + t0] = round_to<T>(a0 / den);
-    if (t1 < dh) out[h * dh + t1] = round_to<T>(a1 / den);
-  }
-  __syncthreads();
+// keys [j0, j0 + n) of this block's eighth of n_keys
+__device__ __forceinline__ void key_range(int n_keys, int rank, int& j0,
+                                          int& n) {
+  const int per = cdiv(n_keys, kCluster);
+  j0 = min(rank * per, n_keys);
+  n = min(per, n_keys - j0);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     decode_scan_kernel(const ScanParams P) {
   cg::grid_group grid = cg::this_grid();
+  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
-  const int d = P.d, H = P.n_heads, dh = d / H, c = P.channels;
-  const int vmax = d > P.d_ff ? d : P.d_ff;
-  float* vin = reinterpret_cast<float*>(smem4);  // GEMV input [vmax]
-  float* xs = vin + vmax;                        // residual copy [d]
-  float* red = xs + d;                           // reductions [64]
-  float* att = red + 64;                         // [dh + kChunk + 512]
-  float* stage = att + dh + kChunk + kThreads;   // stage_floats(P)
-  __shared__ int s_tok;
+  const Geometry g = geometry<T>(P);
+  float* fs = reinterpret_cast<float*>(smem4);
+  float* xs = fs + g.xs;
+  float* vin = fs + g.vin;
+  float* lnw = fs + g.lnw;
+  float* rowb = fs + g.rowb;
+  float* exch = fs + g.exch;
+  float* qf = fs + g.qf;
+  float* kf = fs + g.kf;
+  float* vf = fs + g.vf;
+  float* keyb = fs + g.keyb;
+  float* sc = fs + g.sc;
+  float* pv = fs + g.pv;
+  float* part = fs + g.part;
+  float* av = fs + g.av;
+  float* mvs = fs + g.mvs;
+  float* mid = fs + g.mid;
+  float* fc2p = fs + g.fc2p;
+  float* red = fs + g.red;
+  char* bytes = reinterpret_cast<char*>(smem4);
+  T* r1 = reinterpret_cast<T*>(bytes + g.r1);
+  T* r2 = reinterpret_cast<T*>(bytes + g.r2);
+  T* r3 = reinterpret_cast<T*>(bytes + g.r3);
+
+  const int d = P.d, H = P.n_heads, dh = g.dh, dq = g.dq, c = P.channels;
+  const int rows_o = g.rows_o, tid = threadIdx.x;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cid = blockIdx.x / kCluster;
+  const int head = cid < H ? cid : -1;
+  const int U = P.d_ff / kUnit;
+  const int f0 = blockIdx.x * U / kBlocks * kUnit;
+  const int nf = (blockIdx.x + 1) * U / kBlocks * kUnit - f0;
+  const int lr0 = blockIdx.x * P.n_class / kBlocks;
+  const int nl = (blockIdx.x + 1) * P.n_class / kBlocks - lr0;
+  const size_t dd = (size_t)d * d;
 
   const T* wqkv = static_cast<const T*>(P.wqkv);
   const T* bqkv = static_cast<const T*>(P.bqkv);
@@ -335,252 +438,411 @@ __global__ void __launch_bounds__(kThreads, 1)
   const T* mem_k = static_cast<const T*>(P.mem_k);
   const T* mem_v = static_cast<const T*>(P.mem_v);
   T* kv = static_cast<T*>(P.kv);
-  float* x = P.x;
-  float* qkv = P.qkv;
 
-  int last_tok = 0;  // token written at index i of the previous step
-  for (int p = P.p0; p < P.steps; ++p) {
-    const int i = p - (c - 1);
-    int tok;
-    if (p < c) {
-      tok = P.n_class;  // start rows: the all-zeros embedding row
-    } else if (p > P.p0) {
-      tok = last_tok;  // index p - c was sampled by the previous step
-    } else {
-      tok = P.tokens[p - c];
+  // R1 (ATT): wqkv rows [3 dq][d], wo and wo_c slices [rows_o][dh], the
+  // block's cached keys and values [kmax][dh]
+  T* wqkv_s = r1;
+  T* wo_s = wqkv_s + (size_t)3 * dq * d;
+  T* woc_s = wo_s + (size_t)rows_o * dh;
+  T* ks = woc_s + (size_t)rows_o * dh;
+  T* vs = ks + (size_t)g.kmax * dh;
+  // R3 (CROSS): wq_c rows [dq][d], wo_c slice, source keys and values
+  T* wqc_s = r3;
+  T* woc2_s = wqc_s + (size_t)dq * d;
+  T* mk_s = woc2_s + (size_t)rows_o * dh;
+  T* mv_s = mk_s + (size_t)g.emax * dh;
+  // R2 (MLP): fc1 rows [nf][d], fc2 columns [d][w2_ld] (bf16); (LOGITS)
+  // logit rows [nl][d]
+  T* w1_s = r2;
+  T* w2_s = w1_s + (size_t)g.umax * kUnit * d;
+  T* wl_s = r2;
+
+  auto prefetch_att = [&](int l, int p) {
+    if (head < 0) return;
+    const T* wl = wqkv + (size_t)l * 3 * dd;
+    for (int s = 0; s < 3; ++s)
+      stage(wqkv_s + (size_t)s * dq * d, d,
+            wl + ((size_t)s * d + head * dh + rank * dq) * d, d, dq, d);
+    const size_t o_at = (size_t)l * dd + (size_t)rank * rows_o * d + head * dh;
+    stage(wo_s, dh, wo + o_at, d, rows_o, dh);
+    if (P.aligned) stage(woc_s, dh, wo_c + o_at, d, rows_o, dh);
+    int j0, n;
+    key_range(p, rank, j0, n);
+    const T* kc = kv + (size_t)(2 * l) * P.l_pad * d + head * dh;
+    stage(ks, dh, kc + (size_t)j0 * d, d, n, dh);
+    stage(vs, dh, kc + (size_t)(P.l_pad + j0) * d, d, n, dh);
+  };
+  auto prefetch_cross = [&](int l) {
+    if (head < 0) return;
+    stage(wqc_s, d, wq_c + (size_t)l * dd + (size_t)(head * dh + rank * dq) * d,
+          d, dq, d);
+    stage(woc2_s, dh,
+          wo_c + (size_t)l * dd + (size_t)rank * rows_o * d + head * dh, d,
+          rows_o, dh);
+    int e0, n;
+    key_range(P.e_src, rank, e0, n);
+    const size_t at = ((size_t)l * P.e_pad + e0) * d + head * dh;
+    stage(mk_s, dh, mem_k + at, d, n, dh);
+    stage(mv_s, dh, mem_v + at, d, n, dh);
+  };
+  auto prefetch_mlp = [&](int l) {
+    stage(w1_s, d, w1 + ((size_t)l * P.d_ff + f0) * d, d, nf, d);
+    if (sizeof(T) == 2)
+      stage(w2_s, g.w2_ld, w2 + (size_t)l * d * P.d_ff + f0, P.d_ff, d, nf);
+  };
+  auto prefetch_logits = [&]() {
+    stage(wl_s, d, w_logits + (size_t)lr0 * d, d, nl, d);
+  };
+
+  // xs = xbuf[ph - 1] + (sum over k of parts[k] + (bias_a + bias_b)), in
+  // that order; block 0 publishes it as xbuf[ph]; the LayerNorm's scale
+  // and bias into lnw. Every load is issued before its first use: one round
+  // trip.
+  auto rebuild = [&](int ph, const float* parts, int n_parts, const T* ba,
+                     const T* bb, const float* ln_s, const float* ln_b) {
+    const float* xp = P.xbuf + (size_t)((ph + 1) & 1) * d;
+    float* xc = P.xbuf + (size_t)(ph & 1) * d;
+    for (int r = tid; r < d; r += kThreads) {
+      float v[kMaxParts];
+#pragma unroll
+      for (int k = 0; k < kMaxParts; ++k)
+        v[k] = k < n_parts ? __ldcg(parts + (size_t)k * d + r) : 0.f;
+      const float x0 = __ldcg(xp + r);
+      float b = to_f(ba[r]);
+      if (bb != nullptr) b += to_f(bb[r]);
+      lnw[r] = ln_s[r];
+      lnw[d + r] = ln_b[r];
+      float s = v[0];
+#pragma unroll
+      for (int k = 1; k < kMaxParts; ++k)
+        if (k < n_parts) s += v[k];
+      const float x = x0 + (s + b);
+      xs[r] = x;
+      if (blockIdx.x == 0) xc[r] = x;
     }
+  };
 
-    for (int l = 0; l < P.n_layers; ++l) {
-      const float* ln = P.ln + (size_t)l * 6 * d;
-      const size_t row_l = ((size_t)l * P.steps_pad + p) * H;
-      // ---- A: LN1 + qkv GEMV
-      if (l == 0) {
-        for (int t = threadIdx.x; t < d; t += blockDim.x) {
-          xs[t] = to_f(emb[(size_t)tok * d + t])
-                  + to_f(posfull[(size_t)p * d + t]);
-          if (blockIdx.x == 0) x[t] = xs[t];
-        }
-      } else {
-        for (int t = threadIdx.x; t < d; t += blockDim.x) xs[t] = x[t];
-      }
-      __syncthreads();
-      block_layer_norm<T>(xs, ln, ln + d, d, vin, red);
-      gemv_rows(wqkv + (size_t)l * 3 * d * d, 3 * d, d, vin,
-                [&](int r, float acc) {
-                  qkv[r] = acc + to_f(bqkv[(size_t)l * 3 * d + r]);
-                });
-      grid.sync();
-
-      // ---- B: self-attention partials over cache rows [0, p); the fresh
-      // K/V row p goes into the cache
-      T* kc = kv + (size_t)(2 * l) * P.l_pad * d;
-      T* vc = kc + (size_t)P.l_pad * d;
-      const int n_self = (p + kChunk - 1) / kChunk;
-      for (int item = blockIdx.x; item < H * n_self; item += gridDim.x) {
-        const int h = item / n_self, ch = item % n_self;
-        const int j0 = ch * kChunk;
-        const int j1 = min(j0 + kChunk, p);
-        attend_chunk(qkv + h * dh, kc + h * dh, vc + h * dh, d, j0, j1,
-                     P.bias_hm + (row_l + h) * P.l_pad, P.scale, dh,
-                     P.part + ((size_t)h * P.max_chunks + ch) * (dh + 4),
-                     att, reinterpret_cast<T*>(stage));
-      }
-      if (blockIdx.x == gridDim.x - 1) {
-        for (int t = threadIdx.x; t < d; t += blockDim.x) {
-          kc[(size_t)p * d + t] = from_f<T>(qkv[d + t]);
-          vc[(size_t)p * d + t] = from_f<T>(qkv[2 * d + t]);
-        }
-      }
-      grid.sync();
-
-      // ---- C: combine with the fresh key, O projection, residual. The
-      // aligned cross attention (a gather of mem_v[p // c], independent of
-      // x) adds its projection in the same phase: each warp owns the same
-      // rows in both GEMVs, so x[r] still takes the two sums in order.
-      const T* mk = mem_k + (size_t)l * P.e_pad * d;
-      const T* mv = mem_v + (size_t)l * P.e_pad * d;
-      if (threadIdx.x < H) red[threadIdx.x] =
-          P.bias_hm[(row_l + threadIdx.x) * P.l_pad + p];
-      if (P.aligned) {
-        const int e_q = p / c;
-        for (int t = threadIdx.x; t < d; t += blockDim.x)
-          xs[t] = e_q < P.e_pad ? to_f(mv[(size_t)e_q * d + t]) : 0.f;
-      }
-      __syncthreads();
-      combine_heads<T>(P, n_self, qkv, red, vin, stage);
-      if (P.aligned) {
-        gemv_rows2(wo + (size_t)l * d * d, vin, wo_c + (size_t)l * d * d, xs,
-                   d, d, [&](int r, float a_self, float a_cross) {
-                     x[r] = (x[r] + (a_self + to_f(bo[(size_t)l * d + r])))
-                            + (a_cross + to_f(bo_c[(size_t)l * d + r]));
-                   });
-      } else {
-        gemv_rows(wo + (size_t)l * d * d, d, d, vin, [&](int r, float acc) {
-          x[r] = x[r] + (acc + to_f(bo[(size_t)l * d + r]));
-        });
-        grid.sync();
-        // ---- D: cross attention over the E_src source keys
-        for (int t = threadIdx.x; t < d; t += blockDim.x) xs[t] = x[t];
-        __syncthreads();
-        block_layer_norm<T>(xs, ln + 2 * d, ln + 3 * d, d, vin, red);
-        gemv_rows(wq_c + (size_t)l * d * d, d, d, vin,
-                  [&](int r, float acc) {
-                    P.qc[r] = acc + to_f(bq_c[(size_t)l * d + r]);
-                  });
-        grid.sync();
-        const int n_cross = (P.e_src + kChunk - 1) / kChunk;
-        for (int item = blockIdx.x; item < H * n_cross; item += gridDim.x) {
-          const int h = item / n_cross, ch = item % n_cross;
-          const int j0 = ch * kChunk;
-          const int j1 = min(j0 + kChunk, P.e_src);
-          attend_chunk(P.qc + h * dh, mk + h * dh, mv + h * dh, d, j0, j1,
-                       P.cross_hm + (row_l + h) * P.e_pad, P.scale, dh,
-                       P.part + ((size_t)h * P.max_chunks + ch) * (dh + 4),
-                       att, reinterpret_cast<T*>(stage));
-        }
-        grid.sync();
-        combine_heads<T>(P, n_cross, nullptr, nullptr, vin, stage);
-        gemv_rows(wo_c + (size_t)l * d * d, d, d, vin, [&](int r, float acc) {
-          x[r] = x[r] + (acc + to_f(bo_c[(size_t)l * d + r]));
-        });
-      }
-      grid.sync();
-
-      // ---- E: LN3 + MLP in
-      for (int t = threadIdx.x; t < d; t += blockDim.x) xs[t] = x[t];
-      __syncthreads();
-      block_layer_norm<T>(xs, ln + 4 * d, ln + 5 * d, d, vin, red);
-      gemv_rows(w1 + (size_t)l * P.d_ff * d, P.d_ff, d, vin,
-                [&](int r, float acc) {
-                  P.mid[r] = round_to<T>(
-                      fmaxf(acc + to_f(b1[(size_t)l * P.d_ff + r]), 0.f));
-                });
-      grid.sync();
-
-      // ---- F: MLP out + residual
-      for (int t = threadIdx.x; t < P.d_ff; t += blockDim.x)
-        vin[t] = P.mid[t];
-      __syncthreads();
-      gemv_rows(w2 + (size_t)l * d * P.d_ff, d, P.d_ff, vin,
-                [&](int r, float acc) {
-                  x[r] = x[r] + (acc + to_f(b2[(size_t)l * d + r]));
-                });
-      grid.sync();
+  // the head's (self or cross) attention once every block's q dims are in
+  // its exch (behind a cluster barrier): gather q (and the fresh k, v)
+  // through the cluster, attend this block's keys, combine the cluster's
+  // partials into av
+  auto attention = [&](const T* k_s, const T* v_s, int n, bool fresh,
+                       float bias_fresh) {
+    const int parts_n = fresh ? 3 : 1;
+    if (tid < parts_n * dh) {
+      const int which = tid / dh, t = tid % dh;
+      const float* peer = cluster.map_shared_rank(exch, t / dq);
+      const float v = peer[which * dq + t % dq];
+      (which == 0 ? qf : which == 1 ? kf : vf)[t] = v;
     }
-
-    // ---- G: final LN + logits
-    for (int t = threadIdx.x; t < d; t += blockDim.x) xs[t] = x[t];
     __syncthreads();
-    block_layer_norm<T>(xs, P.ln_final, P.ln_final + d, d, vin, red);
-    gemv_rows(w_logits, P.n_class, d, vin, [&](int r, float acc) {
-      P.logits[r] = (acc + P.b_logits[r]) / P.temperature;
-    });
-    grid.sync();
+    float lp = 0.f;
+    if (fresh) {
+      float s = 0.f;
+      for (int t = tid % kWarp; t < dh; t += kWarp) s = fmaf(qf[t], kf[t], s);
+      lp = warp_sum(s) * P.scale + bias_fresh;
+    }
+    attend_own<T>(k_s, v_s, n, qf, keyb, dh, P.scale, sc, pv, part);
+    cluster.sync();
+    combine<T>(cluster, part, dh, fresh, lp, vf, av);
+  };
 
-    // ---- H: Gumbel argmax (every block, same answer); block 0 writes
-    const float* g = P.gumbel + (size_t)(p - P.p0) * P.n_class;
+  // Gumbel argmax of the logits of step p (every thread gets it); ties go
+  // to the lowest index
+  auto argmax = [&](int p) -> int {
+    const float* gb = P.gumbel + (size_t)(p - P.p0) * P.n_class;
     float best = -INFINITY;
     int best_i = 0x7fffffff;
-    for (int r = threadIdx.x; r < P.n_class; r += blockDim.x) {
-      const float v = P.logits[r] + g[r];
-      if (v > best || (v == best && r < best_i)) {
-        best = v;
-        best_i = r;
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, best_i, o);
+    auto merge = [&](float ob, int oi) {
       if (ob > best || (ob == best && oi < best_i)) {
         best = ob;
         best_i = oi;
       }
+    };
+    for (int r = tid; r < P.n_class; r += kThreads)
+      merge(__ldcg(P.logits + r) + gb[r], r);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, best_i, o);
+      merge(ob, oi);
     }
-    const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-    __syncthreads();
-    if (lane == 0) {
+    int* red_i = reinterpret_cast<int*>(red + kWarps);
+    const int warp = tid / kWarp;
+    if (tid % kWarp == 0) {
       red[warp] = best;
-      reinterpret_cast<int*>(red)[32 + warp] = best_i;
+      red_i[warp] = best_i;
     }
     __syncthreads();
-    if (threadIdx.x == 0) {
-      float b = red[0];
-      int bi = reinterpret_cast<int*>(red)[32];
-      for (int w = 1; w < (int)(blockDim.x / kWarp); ++w) {
-        const float ob = red[w];
-        const int oi = reinterpret_cast<int*>(red)[32 + w];
-        if (ob > b || (ob == b && oi < bi)) {
-          b = ob;
-          bi = oi;
+    for (int w = 0; w < kWarps; ++w) merge(red[w], red_i[w]);
+    __syncthreads();
+    return best_i == 0x7fffffff ? 0 : best_i;
+  };
+  // the token of index i = p - (c - 1) after step p: the winner where
+  // mask[i] (block 0 writes it), else the token as it was
+  auto take = [&](int p) -> int {
+    const int i = p - (c - 1);
+    const int win = argmax(p);
+    if (i < 0) return 0;
+    if (!P.mask[i]) return P.tokens[i];
+    if (blockIdx.x == 0 && tid == 0) P.tokens[i] = win;
+    return win;
+  };
+
+  int ph = 0;  // phases so far: the residual's double buffer
+  prefetch_att(0, P.p0);
+  for (int p = P.p0; p < P.steps; ++p) {
+    for (int l = 0; l < P.n_layers; ++l) {
+      const float* ln = P.ln + (size_t)l * 6 * d;
+      const size_t bias_row = ((size_t)l * P.steps_pad + p) * H;
+      // ---- ATT
+      if (head >= 0) {
+        if (l == 0) {
+          int tok;
+          if (p < c) tok = P.n_class;  // start rows: the all-zeros row
+          else if (p > P.p0) tok = take(p - 1);
+          else tok = P.tokens[p - c];
+          float* xc = P.xbuf + (size_t)(ph & 1) * d;
+          for (int r = tid; r < d; r += kThreads) {
+            const float x = to_f(emb[(size_t)tok * d + r])
+                            + to_f(posfull[(size_t)p * d + r]);
+            xs[r] = x;
+            if (blockIdx.x == 0) xc[r] = x;
+            lnw[r] = ln[r];
+            lnw[d + r] = ln[d + r];
+          }
+        } else {
+          rebuild(ph, P.part_mlp, kClusters, b2 + (size_t)(l - 1) * d,
+                  nullptr, ln, ln + d);
+        }
+        int j0, n;
+        key_range(p, rank, j0, n);
+        const float* brow = P.bias_hm + (bias_row + head) * P.l_pad;
+        for (int j = tid; j < n; j += kThreads) keyb[j] = brow[j0 + j];
+        const float bias_fresh = brow[p];
+        if (tid < 3 * dq) {
+          const int s = tid / dq;
+          rowb[tid] = to_f(bqkv[(size_t)l * 3 * d + s * d + head * dh
+                                + rank * dq + tid % dq]);
+        }
+        if (P.aligned && tid < dh) {
+          const int e_q = p / c;
+          mvs[tid] = e_q < P.e_pad
+                         ? to_f(mem_v[((size_t)l * P.e_pad + e_q) * d
+                                      + head * dh + tid])
+                         : 0.f;
+        }
+        cp_async_wait_all();
+        __syncthreads();
+        layer_norm<T>(xs, lnw, lnw + d, d, vin, red);
+        gemv<kWarp>(wqkv_s, d, 3 * dq, d, vin,
+                    [&](int r, float acc) { exch[r] = acc + rowb[r]; });
+        __syncthreads();
+        // this block's dims of the fresh K/V row p (read from the next step
+        // on)
+        if (tid >= dq && tid < 3 * dq) {
+          const int s = tid / dq - 1;
+          kv[((size_t)(2 * l + s) * P.l_pad + p) * d + head * dh + rank * dq
+             + tid % dq] = from_f<T>(exch[tid]);
+        }
+        cluster.sync();
+        attention(ks, vs, n, true, bias_fresh);
+        float* out = P.part_att + (size_t)head * d + rank * rows_o;
+        // aligned: wo's sum waits in fc2p (free until MLP) for wo_c's; the
+        // same lane owns row r in both products
+        gemv<8>(wo_s, dh, rows_o, dh, av, [&](int r, float acc) {
+          if (P.aligned) fc2p[r] = acc;
+          else out[r] = acc;
+        });
+        if (P.aligned) {
+          gemv<8>(woc_s, dh, rows_o, dh, mvs,
+                  [&](int r, float acc) { out[r] = fc2p[r] + acc; });
         }
       }
-      if (bi == 0x7fffffff) bi = 0;
-      const int i_clip = i < 0 ? 0 : (i > P.length - 1 ? P.length - 1 : i);
-      const bool take = i >= 0 && P.mask[i_clip];
-      const int new_tok = take ? bi : P.tokens[i_clip];
-      if (take && blockIdx.x == 0) P.tokens[i_clip] = bi;
-      s_tok = new_tok;
+      if (P.aligned || head < 0) prefetch_mlp(l);
+      else prefetch_cross(l);
+      grid.sync();
+      ++ph;
+
+      if (!P.aligned) {
+        // ---- CROSS
+        if (head >= 0) {
+          rebuild(ph, P.part_att, H, bo + (size_t)l * d, nullptr, ln + 2 * d,
+                  ln + 3 * d);
+          int e0, n;
+          key_range(P.e_src, rank, e0, n);
+          const float* crow = P.cross_hm + (bias_row + head) * P.e_pad;
+          for (int j = tid; j < n; j += kThreads) keyb[j] = crow[e0 + j];
+          if (tid < dq)
+            rowb[tid] = to_f(bq_c[(size_t)l * d + head * dh + rank * dq + tid]);
+          cp_async_wait_all();
+          __syncthreads();
+          layer_norm<T>(xs, lnw, lnw + d, d, vin, red);
+          gemv<kWarp>(wqc_s, d, dq, d, vin,
+                      [&](int r, float acc) { exch[r] = acc + rowb[r]; });
+          cluster.sync();
+          attention(mk_s, mv_s, n, false, 0.f);
+          float* out = P.part_cross + (size_t)head * d + rank * rows_o;
+          gemv<8>(woc2_s, dh, rows_o, dh, av,
+                  [&](int r, float acc) { out[r] = acc; });
+          prefetch_mlp(l);
+        }
+        grid.sync();
+        ++ph;
+      }
+
+      // ---- MLP
+      if (P.aligned)
+        rebuild(ph, P.part_att, H, bo + (size_t)l * d, bo_c + (size_t)l * d,
+                ln + 4 * d, ln + 5 * d);
+      else
+        rebuild(ph, P.part_cross, H, bo_c + (size_t)l * d, nullptr,
+                ln + 4 * d, ln + 5 * d);
+      if (tid < nf) rowb[tid] = to_f(b1[(size_t)l * P.d_ff + f0 + tid]);
+      cp_async_wait_all();
+      __syncthreads();
+      layer_norm<T>(xs, lnw, lnw + d, d, vin, red);
+      gemv<kWarp>(w1_s, d, nf, d, vin, [&](int r, float acc) {
+        mid[r] = round_to<T>(fmaxf(acc + rowb[r], 0.f));
+      });
+      __syncthreads();
+      {
+        constexpr int V = Vec<T>::N;
+        const T* w2p = sizeof(T) == 2 ? w2_s : w2 + (size_t)l * d * P.d_ff + f0;
+        const int ld2 = sizeof(T) == 2 ? g.w2_ld : P.d_ff;
+        for (int r = tid; r < d; r += kThreads) {
+          float acc = 0.f;
+          for (int u = 0; u < nf; u += V) {
+            float w[V];
+            load_vec_rw(w2p + (size_t)r * ld2 + u, w);
+            acc = dot_vec(w, mid + u, V, acc);
+          }
+          fc2p[r] = acc;
+        }
+      }
+      cluster.sync();
+      for (int r = tid; r < rows_o; r += kThreads) {
+        const int row = rank * rows_o + r;
+        float s = cluster.map_shared_rank(fc2p, 0)[row];
+#pragma unroll
+        for (int i = 1; i < kCluster; ++i)
+          s += cluster.map_shared_rank(fc2p, i)[row];
+        P.part_mlp[(size_t)cid * d + row] = s;
+      }
+      if (l + 1 < P.n_layers) prefetch_att(l + 1, p);
+      else prefetch_logits();
+      grid.sync();
+      ++ph;
     }
+
+    // ---- LOGITS
+    rebuild(ph, P.part_mlp, kClusters, b2 + (size_t)(P.n_layers - 1) * d,
+            nullptr, P.ln_final, P.ln_final + d);
+    if (tid < nl) rowb[tid] = P.b_logits[lr0 + tid];
+    cp_async_wait_all();
     __syncthreads();
-    last_tok = s_tok;
+    layer_norm<T>(xs, lnw, lnw + d, d, vin, red);
+    gemv<kWarp>(wl_s, d, nl, d, vin, [&](int r, float acc) {
+      P.logits[lr0 + r] = (acc + rowb[r]) / P.temperature;
+    });
+    if (p + 1 < P.steps) prefetch_att(0, p + 1);
+    grid.sync();
+    ++ph;
   }
+  if (blockIdx.x == 0) take(P.steps - 1);
 }
 
-// floats of the staging region: the larger of an attention chunk's key and
-// value rows and a combine's partials plus q, k, v
+// What the kernel does not take: a refusal is an error code, never another
+// route.
 template <typename T>
-static size_t stage_floats(const ScanParams& P) {
-  const int dh = P.d / P.n_heads;
-  const size_t chunk = (2 * (size_t)kChunk * (dh + Vec<T>::N) * sizeof(T)
-                        + sizeof(float) - 1) / sizeof(float);
-  const size_t comb = (size_t)P.n_heads * P.max_chunks * (dh + 4)
-                      + 3 * (size_t)P.d;
-  return chunk > comb ? chunk : comb;
-}
-
-template <typename T>
-static size_t smem_bytes(const ScanParams& P) {
-  const int vmax = P.d > P.d_ff ? P.d : P.d_ff;
-  const int dh = P.d / P.n_heads;
-  return sizeof(float) * ((size_t)(vmax + P.d + 64 + dh + kChunk + kThreads)
-                          + stage_floats<T>(P));
-}
-
-template <typename T>
-static cudaError_t grid_size(const ScanParams& P, int* blocks) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  int sms = 0, coop = 0, per_sm = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return cudaErrorNotSupported;
-  e = cudaFuncSetAttribute(decode_scan_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem_bytes<T>(P)));
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, decode_scan_kernel<T>, kThreads, smem_bytes<T>(P));
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = sms;  // one resident block per SM
+cudaError_t shape_ok(const ScanParams& P) {
+  const int d = P.d, H = P.n_heads;
+  if (H < 1 || H > kClusters || d % H || P.n_layers < 1 || P.channels < 1)
+    return cudaErrorInvalidValue;
+  const int dh = d / H;
+  if (dh % kCluster || dh > 64 || d % kCluster || d % 8 || P.d_ff % kUnit
+      || P.n_class < 1)
+    return cudaErrorInvalidValue;
+  if (P.p0 < 0 || P.steps > P.l_pad || P.steps > P.steps_pad
+      || (!P.aligned && P.e_src < 1))
+    return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
 template <typename T>
-static cudaError_t launch(const ScanParams& P, cudaStream_t stream) {
-  int blocks = 0;
-  cudaError_t e = grid_size<T>(P, &blocks);
+cudaError_t configure(const ScanParams& P, cudaLaunchConfig_t* cfg,
+                      cudaLaunchAttribute* attrs, int* clusters) {
+  cudaError_t e = shape_ok<T>(P);
   if (e != cudaSuccess) return e;
-  ScanParams arg = P;
-  void* args[] = {&arg};
-  e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(decode_scan_kernel<T>), dim3(blocks),
-      dim3(kThreads), args, smem_bytes<T>(P), stream);
+  int dev = 0, coop = 0, optin = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (!coop) return cudaErrorNotSupported;
+  const size_t smem = geometry<T>(P).total;
+  if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(decode_scan_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (e != cudaSuccess) return e;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(kBlocks);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = kCluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cfg->attrs = attrs;
+  cfg->numAttrs = 1;  // the occupancy query takes the cluster shape alone
+  e = cudaOccupancyMaxActiveClusters(clusters, decode_scan_kernel<T>, cfg);
+  if (e != cudaSuccess) return e;
+  if (*clusters < kClusters) return cudaErrorCooperativeLaunchTooLarge;
+  cfg->numAttrs = 2;
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch(const ScanParams& P, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attrs[2];
+  int clusters = 0;
+  cudaError_t e = configure<T>(P, &cfg, attrs, &clusters);
+  if (e != cudaSuccess) return e;
+  cfg.stream = stream;
+  e = cudaLaunchKernelEx(&cfg, decode_scan_kernel<T>, P);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
+
+// info[0..7] = grid blocks, cluster size, threads a block, dynamic
+// shared-memory bytes, registers a thread, local (spilled) bytes a thread,
+// grid barriers a step, clusters of 8 that can co-reside
+template <typename T>
+cudaError_t info(const ScanParams& P, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attrs[2];
+  int clusters = 0;
+  cudaError_t e = configure<T>(P, &cfg, attrs, &clusters);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, decode_scan_kernel<T>);
+  if (e != cudaSuccess) return e;
+  out[0] = kBlocks;
+  out[1] = kCluster;
+  out[2] = kThreads;
+  out[3] = static_cast<int>(cfg.dynamicSmemBytes);
+  out[4] = attr.numRegs;
+  out[5] = static_cast<int>(attr.localSizeBytes);
+  out[6] = (P.aligned ? 2 : 3) * P.n_layers + 1;
+  out[7] = clusters;
+  return cudaSuccess;
+}
+
+}  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t code.
 extern "C" int isi_decode_scan(const ScanParams* P, int dtype, void* stream) {
@@ -589,14 +851,11 @@ extern "C" int isi_decode_scan(const ScanParams* P, int dtype, void* stream) {
                                      : launch<float>(*P, s));
 }
 
-extern "C" int isi_decode_scan_grid(const ScanParams* P, int dtype) {
-  int blocks = 0;
-  cudaError_t e = dtype == 1 ? grid_size<__nv_bfloat16>(*P, &blocks)
-                             : grid_size<float>(*P, &blocks);
-  return e == cudaSuccess ? blocks : -static_cast<int>(e);
+extern "C" int isi_decode_scan_info(const ScanParams* P, int dtype,
+                                    int* out) {
+  return static_cast<int>(dtype == 1 ? info<__nv_bfloat16>(*P, out)
+                                     : info<float>(*P, out));
 }
-
-extern "C" int isi_decode_scan_threads() { return kThreads; }
 
 extern "C" const char* isi_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

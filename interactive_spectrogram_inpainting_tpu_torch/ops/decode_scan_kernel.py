@@ -16,14 +16,23 @@ Tokens and the mask are int32 / bool vectors; the Gumbel noise is an input
 and the token streams compared one for one.
 
 ``fused_decode_scan`` launches ``csrc/decode_scan.cu`` (one cooperative
-launch per call) for CUDA tensors and runs ``decode_scan_plain`` for CPU
-tensors, never falling back from one to the other.
-``fused_decode_scan.launches`` counts its kernel launches.
+launch per call, in thread-block clusters) for CUDA tensors and runs
+``decode_scan_plain`` for CPU tensors, never falling back from one to the
+other. ``fused_decode_scan.launches`` counts its kernel launches;
+``decode_scan_info`` reads the launch's shape (grid, clusters, shared
+memory, registers, grid barriers a step).
+
+The kernel adds its products' partial sums in a fixed order: the attention
+output projections a partial per head (heads in order), fc2 a partial per
+block over its slice of d_ff, the blocks of a cluster in rank order, then
+the clusters in order; each phase adds the partials first, then the
+bias, then the residual. ``decode_scan_plain`` adds them in the same order.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -31,22 +40,68 @@ import torch
 from .common import (DTYPE_CODES, check_cuda, check_shape, layer_norm, ptr,
                      raise_on_error, round_to, struct_type)
 
-CHUNK = 64  # keys per attention partial in csrc/decode_scan.cu
+# the launch of csrc/decode_scan.cu: CLUSTERS clusters of CLUSTER blocks;
+# fc1 / fc2 split over the blocks in units of UNIT rows of d_ff
+CLUSTER = 8
+CLUSTERS = 15
+UNIT = 8
+INFO_KEYS = ("grid", "cluster", "threads", "smem_bytes", "registers",
+             "local_bytes", "grid_barriers_per_step", "clusters_resident")
 
 _ScanParams = struct_type(
     "ScanParams",
     pointers=("wqkv", "bqkv", "wo", "bo", "wo_c", "bo_c", "wq_c", "bq_c",
               "w1", "b1", "w2", "b2", "w_logits", "b_logits", "ln",
               "ln_final", "emb", "posfull", "mem_k", "mem_v", "bias_hm",
-              "cross_hm", "gumbel", "mask", "tokens", "kv", "x", "qkv",
-              "qc", "mid", "logits", "part"),
+              "cross_hm", "gumbel", "mask", "tokens", "kv", "xbuf",
+              "part_att", "part_cross", "part_mlp", "logits"),
     ints=("n_layers", "d", "d_ff", "n_heads", "n_class", "l_pad", "e_pad",
           "steps_pad", "length", "channels", "p0", "steps", "e_src",
-          "aligned", "max_chunks"),
+          "aligned"),
     floats=("scale", "temperature"))
 
 _WEIGHTS = ("wqkv", "bqkv", "wo", "bo", "wo_c", "bo_c", "wq_c", "bq_c",
             "w1", "b1", "w2", "b2", "w_logits")
+
+
+def in_order(parts: torch.Tensor) -> torch.Tensor:
+    """parts [n, ...] added in index order, as the kernel adds them."""
+    total = parts[0]
+    for k in range(1, parts.shape[0]):
+        total = total + parts[k]
+    return total
+
+
+def head_partials(a: torch.Tensor, w: torch.Tensor, nh: int) -> torch.Tensor:
+    """[nh, d_out]: head h's share of ``a @ w.T`` (a's dims of head h times
+    w's columns of head h)."""
+    d_out, d = w.shape
+    return torch.einsum("hk,rhk->hr", a.reshape(nh, d // nh),
+                        w.reshape(d_out, nh, d // nh))
+
+
+@functools.lru_cache(maxsize=None)
+def fc2_slices(d_ff: int) -> Tuple[Tuple[int, ...], ...]:
+    """The d_ff columns of each block of the kernel, padded with d_ff (a
+    zero column) to one length: block j takes units [j U / n, (j + 1) U / n)
+    of U = d_ff / UNIT units, n = CLUSTER * CLUSTERS."""
+    n, units = CLUSTER * CLUSTERS, d_ff // UNIT
+    cols = [list(range(j * units // n * UNIT, (j + 1) * units // n * UNIT))
+            for j in range(n)]
+    width = max(len(c) for c in cols)
+    return tuple(tuple(c + [d_ff] * (width - len(c))) for c in cols)
+
+
+def fc2_in_kernel_order(mid: torch.Tensor, w2_blocks: torch.Tensor,
+                        idx: torch.Tensor) -> torch.Tensor:
+    """mid @ w2.T added as the kernel adds it: a partial per block over its
+    d_ff columns (``w2_blocks`` [d, blocks, width] = w2 with a zero column
+    appended, gathered at ``idx``), the blocks of a cluster in rank order,
+    then the clusters in order."""
+    mid_pad = torch.cat([mid, mid.new_zeros(1)])
+    parts = torch.einsum("rbk,bk->br", w2_blocks, mid_pad[idx])
+    return in_order(in_order(parts.reshape(CLUSTERS, CLUSTER, -1)
+                             .transpose(0, 1)))
 
 
 def decode_scan_plain(params: Dict[str, torch.Tensor],
@@ -59,8 +114,9 @@ def decode_scan_plain(params: Dict[str, torch.Tensor],
                       cross_hm: Optional[torch.Tensor] = None,
                       e_src_real: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel (same arguments, same result).
-    The token loop stays on the device: no value is read back per step."""
+    """Plain PyTorch version of the kernel (same arguments, same result,
+    its partial sums added in the kernel's order). The token loop stays on
+    the device: no value is read back per step."""
     mem_k, mem_v = mem_kv
     dtype = params["wqkv"].dtype
     n_layers, _, d = params["wo"].shape
@@ -80,6 +136,9 @@ def decode_scan_plain(params: Dict[str, torch.Tensor],
     emb = params["emb_padded"]
     start_token = torch.tensor(n_class, device=dev)
     w = {k: params[k].float() for k in _WEIGHTS}
+    idx = torch.tensor(fc2_slices(params["b1"].shape[-1]), device=dev)
+    w2_blocks = [torch.cat([w2, w2.new_zeros(d, 1)], 1)[:, idx]
+                 for w2 in w["w2"]]
     b_logits = params["b_logits"]
     for p in range(p0, steps):
         i = p - (c - 1)
@@ -102,14 +161,17 @@ def decode_scan_plain(params: Dict[str, torch.Tensor],
             acc = torch.einsum("hj,jhd->hd", p_cache, vc) \
                 + p_fresh[:, None] * v_i
             a = (acc / denom.clamp_min(1e-20)[:, None]).reshape(d)
-            x = x + (round_to(a, dtype) @ w["wo"][l].T + w["bo"][l])
+            heads = head_partials(round_to(a, dtype), w["wo"][l], nh)
             kv[l, 0, p] = k_i.reshape(d).to(dtype)
             kv[l, 1, p] = v_i.reshape(d).to(dtype)
             if cross_hm is None:
                 e_q = p // c
                 mv = (mem_v[l, e_q].float() if e_q < e_pad
                       else torch.zeros(d, device=dev))
+                heads = heads + head_partials(mv, w["wo_c"][l], nh)
+                x = x + (in_order(heads) + (w["bo"][l] + w["bo_c"][l]))
             else:
+                x = x + (in_order(heads) + w["bo"][l])
                 h2 = round_to(layer_norm(x, ln[2], ln[3]), dtype)
                 q_c = (h2 @ w["wq_c"][l].T + w["bq_c"][l]).reshape(nh, dh)
                 mk = mem_k[l, :e_src].float().reshape(e_src, nh, dh)
@@ -119,10 +181,13 @@ def decode_scan_plain(params: Dict[str, torch.Tensor],
                     "he,ehd->hd", torch.softmax(lq, -1),
                     mem_v[l, :e_src].float().reshape(e_src, nh, dh)
                 ).reshape(d)
-            x = x + (round_to(mv, dtype) @ w["wo_c"][l].T + w["bo_c"][l])
+                x = x + (in_order(head_partials(round_to(mv, dtype),
+                                                w["wo_c"][l], nh))
+                         + w["bo_c"][l])
             h3 = round_to(layer_norm(x, ln[4], ln[5]), dtype)
             mid = torch.relu(h3 @ w["w1"][l].T + w["b1"][l])
-            x = x + (round_to(mid, dtype) @ w["w2"][l].T + w["b2"][l])
+            x = x + (fc2_in_kernel_order(round_to(mid, dtype), w2_blocks[l],
+                                         idx) + w["b2"][l])
         hf = round_to(layer_norm(x, params["ln_final"][0],
                                  params["ln_final"][1]), dtype)
         logit = (hf @ w["w_logits"].T + b_logits) / temperature
@@ -157,7 +222,33 @@ def fused_decode_scan(params: Dict[str, torch.Tensor],
             params, bias_hm, posfull, mem_kv, kv, tokens, mask, gumbel,
             temperature, p0=p0, steps=steps, n_class=n_class,
             channels=channels, cross_hm=cross_hm, e_src_real=e_src_real)
+    tokens = tokens.clone()
+    if kv is None:
+        kv = torch.zeros(params["wo"].shape[0], 2, bias_hm.shape[3],
+                         params["wo"].shape[2], dtype=params["wqkv"].dtype,
+                         device=tokens.device)
+    if steps <= p0:
+        return tokens, kv
+    args, dtype, _ = _launch_args(
+        params, bias_hm, posfull, mem_kv, kv, tokens, mask, gumbel,
+        temperature, p0=p0, steps=steps, n_class=n_class, channels=channels,
+        cross_hm=cross_hm, e_src_real=e_src_real)
     from .build import load
+    lib = load("decode_scan")
+    stream = torch.cuda.current_stream(tokens.device).cuda_stream
+    code = lib.isi_decode_scan(ctypes.byref(args[0]),
+                               ctypes.c_int(DTYPE_CODES[dtype]),
+                               ctypes.c_void_p(stream))
+    raise_on_error(lib, code, "fused_decode_scan")
+    fused_decode_scan.launches += 1
+    return tokens, kv
+
+
+def _launch_args(params, bias_hm, posfull, mem_kv, kv, tokens, mask, gumbel,
+                 temperature, *, p0, steps, n_class, channels, cross_hm,
+                 e_src_real):
+    """The checked ``ScanParams`` of one launch (its scratch kept alive by
+    the returned tuple) and the dtype."""
     mem_k, mem_v = mem_kv
     dtype = params["wqkv"].dtype
     n_layers, _, d = params["wo"].shape
@@ -167,11 +258,6 @@ def fused_decode_scan(params: Dict[str, torch.Tensor],
     e_src = int(e_src_real) if e_src_real is not None else e_pad
     length = tokens.shape[0]
     dev = tokens.device
-    if kv is None:
-        kv = torch.zeros(n_layers, 2, l_pad, d, dtype=dtype, device=dev)
-    tokens = tokens.clone()
-    if steps <= p0:
-        return tokens, kv
     check_cuda(
         {**{k: params[k] for k in _WEIGHTS}, "b_logits": params["b_logits"],
          "ln": params["ln"], "ln_final": params["ln_final"],
@@ -199,18 +285,18 @@ def fused_decode_scan(params: Dict[str, torch.Tensor],
     if not (0 <= p0 < steps <= min(steps_pad, l_pad)
             and steps - channels < length):
         raise ValueError(f"bad scan range [{p0}, {steps})")
-    max_chunks = (max(l_pad, e_pad) + CHUNK - 1) // CHUNK
-    if d % nh or (d // nh) % 8 or d // nh > 64 or d_ff % 8 \
-            or max_chunks > 32:
-        raise ValueError("head_dim must be a multiple of 8 and <= 64, d_ff "
-                         "a multiple of 8, and caches at most 2048 rows")
+    if d % nh or (d // nh) % CLUSTER or d // nh > 64 or d_ff % UNIT \
+            or nh > CLUSTERS:
+        raise ValueError(f"head_dim must be a multiple of {CLUSTER} and "
+                         f"<= 64, d_ff a multiple of {UNIT}, and at most "
+                         f"{CLUSTERS} heads")
 
     def f32(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
-    scratch = {"x": f32(d), "qkv": f32(3 * d), "qc": f32(d),
-               "mid": f32(d_ff), "logits": f32(n_class),
-               "part": f32(nh * max_chunks * (d // nh + 4))}
+    scratch = {"xbuf": f32(2, d), "part_att": f32(nh, d),
+               "part_cross": f32(nh, d), "part_mlp": f32(CLUSTERS, d),
+               "logits": f32(n_class)}
     args = _ScanParams(
         **{k: ptr(params[k]) for k in _WEIGHTS},
         b_logits=ptr(params["b_logits"]), ln=ptr(params["ln"]),
@@ -222,16 +308,34 @@ def fused_decode_scan(params: Dict[str, torch.Tensor],
         n_layers=n_layers, d=d, d_ff=d_ff, n_heads=nh, n_class=n_class,
         l_pad=l_pad, e_pad=e_pad, steps_pad=steps_pad, length=length,
         channels=channels, p0=p0, steps=steps, e_src=e_src,
-        aligned=int(cross_hm is None), max_chunks=max_chunks,
-        scale=1.0 / ((d // nh) ** 0.5), temperature=float(temperature))
+        aligned=int(cross_hm is None), scale=1.0 / ((d // nh) ** 0.5),
+        temperature=float(temperature))
+    return (args, scratch), dtype, dev
+
+
+def decode_scan_info(params: Dict[str, torch.Tensor], bias_hm: torch.Tensor,
+                     posfull: torch.Tensor,
+                     mem_kv: Tuple[torch.Tensor, torch.Tensor],
+                     kv: Optional[torch.Tensor], tokens: torch.Tensor,
+                     mask: torch.Tensor, gumbel: torch.Tensor,
+                     temperature: float, **kwargs) -> Dict[str, int]:
+    """The shape of the launch ``fused_decode_scan`` makes for these
+    arguments (CUDA tensors): INFO_KEYS, from the kernel's own attributes
+    (registers and spills as the compiler left them)."""
+    from .build import load
+    if kv is None:
+        kv = torch.zeros(params["wo"].shape[0], 2, bias_hm.shape[3],
+                         params["wo"].shape[2], dtype=params["wqkv"].dtype,
+                         device=tokens.device)
+    (args, _), dtype, _ = _launch_args(
+        params, bias_hm, posfull, mem_kv, kv, tokens, mask, gumbel,
+        temperature, **kwargs)
     lib = load("decode_scan")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.isi_decode_scan(ctypes.byref(args),
-                               ctypes.c_int(DTYPE_CODES[dtype]),
-                               ctypes.c_void_p(stream))
-    raise_on_error(lib, code, "fused_decode_scan")
-    fused_decode_scan.launches += 1
-    return tokens, kv
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    code = lib.isi_decode_scan_info(ctypes.byref(args),
+                                    ctypes.c_int(DTYPE_CODES[dtype]), out)
+    raise_on_error(lib, code, "decode_scan_info")
+    return dict(zip(INFO_KEYS, out))
 
 
 fused_decode_scan.launches = 0

@@ -11,11 +11,13 @@ the cross-bias table over the ``E_src`` real source keys), MLP. A batch of
 sequences (``kv [n_layers, 2, B, l_pad, d]``) is primed in one call; the
 one-sequence form (``kv [n_layers, 2, l_pad, d]``) is the same call at B = 1.
 
-``fused_prefix_prime`` launches the kernels of ``csrc/prefix_prime.cu`` for
-CUDA tensors and runs ``prefix_prime_plain`` (the same arithmetic, step by
-step, in PyTorch) for CPU tensors. It never falls back from one to the
-other. ``fused_prefix_prime.launches`` counts its kernel launches (one per
-call that reaches the GPU).
+``fused_prefix_prime`` launches ``csrc/prefix_prime.cu`` (one persistent
+cooperative launch per call: every layer's products on the tensor cores,
+phases separated by grid barriers) for CUDA tensors and runs
+``prefix_prime_plain`` (the same arithmetic, step by step, in PyTorch) for
+CPU tensors. It never falls back from one to the other.
+``fused_prefix_prime.launches`` counts its kernel launches (one per call
+that reaches the GPU); ``prefix_prime_info`` reads the launch's shape.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ _PrimeParams = struct_type(
     pointers=("wqkv", "bqkv", "wo", "bo", "wo_c", "bo_c", "wq_c", "bq_c",
               "w1", "b1", "w2", "b2", "ln", "x_prefix", "mem_k", "mem_v",
               "bias_hm", "cross_hm", "kv", "x", "h", "qkv", "qc", "a",
-              "mid"),
+              "mid", "part", "ws"),
     ints=("n_layers", "d", "d_ff", "n_heads", "m", "p_pad", "l_pad",
           "e_pad", "steps_pad", "channels", "e_src", "aligned", "batch",
           "x_rows"),
@@ -42,6 +44,8 @@ _PrimeParams = struct_type(
 
 _WEIGHTS = ("wqkv", "bqkv", "wo", "bo", "wo_c", "bo_c", "wq_c", "bq_c",
             "w1", "b1", "w2", "b2")
+INFO_KEYS = ("grid", "threads", "smem_bytes", "registers", "local_bytes",
+             "grid_barriers")
 
 
 def _batched(x_prefix, mem_kv, kv):
@@ -151,8 +155,25 @@ def fused_prefix_prime(params: Dict[str, torch.Tensor],
         return prefix_prime_plain(params, bias_hm, x_prefix, mem_kv, kv,
                                   p0=p0, channels=channels,
                                   cross_hm=cross_hm, e_src_real=e_src_real)
-    from .build import load
     kv_out = kv
+    args, dtype = _launch_args(params, bias_hm, x_prefix, mem_kv, kv, p0=p0,
+                               channels=channels, cross_hm=cross_hm,
+                               e_src_real=e_src_real)
+    from .build import load
+    lib = load("prefix_prime")
+    stream = torch.cuda.current_stream(kv.device).cuda_stream
+    code = lib.isi_prefix_prime(ctypes.byref(args[0]),
+                                ctypes.c_int(DTYPE_CODES[dtype]),
+                                ctypes.c_void_p(stream))
+    raise_on_error(lib, code, "fused_prefix_prime")
+    fused_prefix_prime.launches += 1
+    return kv_out
+
+
+def _launch_args(params, bias_hm, x_prefix, mem_kv, kv, *, p0, channels,
+                 cross_hm, e_src_real):
+    """The checked ``PrimeParams`` of one launch (its scratch kept alive by
+    the returned tuple) and the cache dtype."""
     x_prefix, (mem_k, mem_v), kv = _batched(x_prefix, mem_kv, kv)
     n_layers, l_pad, d, nh, e_pad, e_src, p_pad = _geometry(
         bias_hm, (mem_k, mem_v), kv, p0, e_src_real)
@@ -180,9 +201,12 @@ def fused_prefix_prime(params: Dict[str, torch.Tensor],
             or x_prefix.shape[2] != d:
         raise ValueError(f"x_prefix must be [{batch}, >= {p0}, {d}], "
                          f"got {tuple(x_prefix.shape)}")
-    if d % nh or d // nh > 64 or d % 8 or d_ff % 8:
-        raise ValueError("head_dim must be <= 64 and widths multiples of 8")
+    if d % nh or d // nh > 64 or (d // nh) % 8 or d % 32 or d_ff % 32 \
+            or d > 1024:
+        raise ValueError("head_dim must be a multiple of 8 and <= 64, d_model "
+                         "and d_ff multiples of 32, d_model at most 1024")
     m = p0
+    rows = batch * m
 
     def f32(*shape):
         return torch.empty(shape, device=kv.device, dtype=torch.float32)
@@ -190,8 +214,19 @@ def fused_prefix_prime(params: Dict[str, torch.Tensor],
     def tdt(*shape):
         return torch.empty(shape, device=kv.device, dtype=dtype)
 
-    scratch = {"x": f32(m, d), "h": tdt(m, d), "qkv": f32(m, 3 * d),
-               "qc": f32(m, d), "a": tdt(m, d), "mid": tdt(m, d_ff)}
+    # attention partials: an item per (sequence, head, 64 query rows, 64
+    # keys at or below them | of the e_src source keys)
+    nq = -(-m // 64)
+    items = max(nq * (nq + 1) // 2,
+                0 if cross_hm is None else nq * -(-e_src // 64))
+    scratch = {"x": f32(rows, d), "h": tdt(rows, d),
+               "qkv": f32(rows, 3 * d), "qc": f32(rows, d),
+               "a": tdt(rows, d), "mid": tdt(rows, d_ff),
+               "part": f32(batch * nh * items, 64, d // nh + 2),
+               # a product split over K: two operands' partials, splits x
+               # rows at most 64 x SMs / (d / 64 column tiles)
+               "ws": f32(2 * 64 * 64 * torch.cuda.get_device_properties(
+                   kv.device).multi_processor_count)}
     args = _PrimeParams(
         **{k: ptr(params[k]) for k in _WEIGHTS}, ln=ptr(params["ln"]),
         x_prefix=ptr(x_prefix), mem_k=ptr(mem_k), mem_v=ptr(mem_v),
@@ -201,14 +236,24 @@ def fused_prefix_prime(params: Dict[str, torch.Tensor],
         l_pad=l_pad, e_pad=e_pad, steps_pad=steps_pad, channels=channels,
         e_src=e_src, aligned=int(cross_hm is None), batch=batch,
         x_rows=x_prefix.shape[1], scale=1.0 / ((d // nh) ** 0.5))
+    return (args, scratch), dtype
+
+
+def prefix_prime_info(params: Dict[str, torch.Tensor],
+                      bias_hm: torch.Tensor, x_prefix: torch.Tensor,
+                      mem_kv: Tuple[torch.Tensor, torch.Tensor],
+                      kv: torch.Tensor, **kwargs) -> Dict[str, int]:
+    """The shape of the launch ``fused_prefix_prime`` makes for these
+    arguments (CUDA tensors): INFO_KEYS, from the kernel's own attributes."""
+    from .build import load
+    (args, _), dtype = _launch_args(params, bias_hm, x_prefix, mem_kv, kv,
+                                    **kwargs)
     lib = load("prefix_prime")
-    stream = torch.cuda.current_stream(kv.device).cuda_stream
-    code = lib.isi_prefix_prime(ctypes.byref(args),
-                                ctypes.c_int(DTYPE_CODES[dtype]),
-                                ctypes.c_void_p(stream))
-    raise_on_error(lib, code, "fused_prefix_prime")
-    fused_prefix_prime.launches += 1
-    return kv_out
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    code = lib.isi_prefix_prime_info(ctypes.byref(args),
+                                     ctypes.c_int(DTYPE_CODES[dtype]), out)
+    raise_on_error(lib, code, "prefix_prime_info")
+    return dict(zip(INFO_KEYS, out))
 
 
 fused_prefix_prime.launches = 0

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Per-phase device time of the two decode-step kernels on one CUDA GPU.
+"""Per-phase device time of the decode kernels on one CUDA GPU.
 
 Run from the root of a checkout: ``python3 step_phases.py``. It copies the
 step kernels' sources (``interactive_spectrogram_inpainting_tpu_torch/ops/
@@ -16,7 +16,25 @@ layers, averaged over 8 of those steps:
     | D2 cross attention | D3 wo_c | E LN3 + fc1 | F fc2 | G logits | H argmax
 
 ``--double-barriers`` adds a second grid barrier after each one, so the
-difference per barrier is the cost of one barrier. Imports nothing of JAX.
+difference per barrier is the cost of one barrier.
+
+``python3 step_phases.py --scan`` does the same for the whole-scan kernel
+(``decode_scan.cu``): a stamp after every grid barrier and, where the
+kernel has them, every cluster barrier; on the full-width test priors in
+bf16, the server request's mask and a primed cache, it runs the top and the
+bottom prior's scan and prints each segment between two stamps, summed over
+the layers and averaged over the scan's steps. ``--double-cluster-barriers``
+adds a second cluster barrier after each one.
+
+``python3 step_phases.py --prime`` times the prefix-prime kernel of the
+same request (top and bottom prior, bf16) with CUDA events and lists its
+device kernels with ``torch.profiler``: their launches a prefix and device
+time by kernel name.
+
+The stamps go into the kernel
+source found beside this script, so a copy of an earlier checkout with this
+script dropped into it times that checkout's kernel. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -37,7 +55,7 @@ import chip_smoke  # noqa: E402
 CASES = (("bottom", 2), ("top", 2), ("bottom", 16), ("bottom", 64))
 STEPS = 32
 STAMP = '''
-__device__ unsigned long long g_stamps[1024];
+__device__ unsigned long long g_stamps[STAMPS];
 __device__ __forceinline__ unsigned long long globaltimer() {
   unsigned long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
@@ -52,9 +70,42 @@ __device__ __forceinline__ unsigned long long globaltimer() {
 '''
 READ = '''
 extern "C" int isi_read_stamps(unsigned long long* out, int n) {
-  return (int)cudaMemcpyFromSymbol(out, isi::g_stamps, n * 8);
+  return (int)cudaMemcpyFromSymbol(out, NS g_stamps, n * 8);
 }
 '''
+STAMPS = 1024
+SCAN_STAMPS = 65536
+# segments of a scan step between stamps, by kernel: the earlier design (a
+# grid barrier after each phase) and the clustered one (grid and cluster
+# barriers); per layer, aligned and cross, then once a step
+SCAN_SEGMENTS = {
+    "grid": ((["A qkv", "B attention", "C wo + wo_c", "E fc1", "F fc2"],
+              ["A qkv", "B attention", "C wo", "D1 wq_c", "D2 cross",
+               "D3 wo_c", "E fc1", "F fc2"]), ["G logits"]),
+    "cluster": ((["ATT qkv", "ATT attend", "ATT wo", "MLP fc1 fc2",
+                  "MLP reduce"],
+                 ["ATT qkv", "ATT attend", "ATT wo", "CROSS wq_c",
+                  "CROSS attend", "CROSS wo_c", "MLP fc1 fc2",
+                  "MLP reduce"]), ["LOGITS"])}
+
+
+def compile_stamped(out, name, source):
+    """nvcc the stamped copy of library ``name`` as ops/build.py does."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import build
+    target = out / f"lib{name}.so"
+    proc = subprocess.run(
+        [build.nvcc_path(), *build.ARCH_FLAGS, "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I",
+         str(out), "-o", str(target), str(source)],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        sys.exit(f"nvcc failed for {name}:\n{proc.stderr}")
+    regs = re.findall(r"Used (\d+) registers.*?(\d+) bytes cumulative "
+                      r"stack", proc.stdout + proc.stderr)
+    print(f"{name}: registers, stack bytes {regs}", flush=True)
+    lib = ctypes.CDLL(str(target))
+    build._LIBS[name] = lib
+    return lib
 
 
 def stamped_libraries(double):
@@ -67,7 +118,8 @@ def stamped_libraries(double):
     header = out / "decode_step_persistent.cuh"
     text = header.read_text()
     text = text.replace("namespace cg = cooperative_groups;",
-                        "namespace cg = cooperative_groups;" + STAMP, 1)
+                        "namespace cg = cooperative_groups;"
+                        + STAMP.replace("STAMPS", str(STAMPS)), 1)
     start = text.index("decode_step_kernel(const StepParams P)")
     end = text.index("// What the kernel does not take")
     body = text[start:end]
@@ -82,21 +134,114 @@ def stamped_libraries(double):
     libs = {}
     for name in ("decode_step", "decode_step_batched"):
         source = out / f"{name}.cu"
-        source.write_text(source.read_text() + READ)
-        target = out / f"lib{name}.so"
-        proc = subprocess.run(
-            [build.nvcc_path(), *build.ARCH_FLAGS, "-std=c++17", "-O3",
-             "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I",
-             str(out), "-o", str(target), str(source)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            sys.exit(f"nvcc failed for {name}:\n{proc.stderr}")
-        regs = re.findall(r"Used (\d+) registers.*?(\d+) bytes cumulative "
-                          r"stack", proc.stdout + proc.stderr)
-        print(f"{name}: registers, stack bytes {regs}", flush=True)
-        libs[name] = ctypes.CDLL(str(target))
-        build._LIBS[name] = libs[name]
+        source.write_text(source.read_text() + READ.replace("NS", "isi::"))
+        libs[name] = compile_stamped(out, name, source)
     return libs
+
+
+def stamped_scan(double, double_cluster):
+    """Build the stamped scan library; -> (ctypes.CDLL, kernel kind)."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import build
+    out = HERE / "build" / "step_phases"
+    out.mkdir(parents=True, exist_ok=True)
+    for src in build.CSRC.glob("*.cu*"):
+        shutil.copy(src, out / src.name)
+    source = out / "decode_scan.cu"
+    text = source.read_text()
+    kind = "cluster" if "cluster.sync();" in text else "grid"
+    text = text.replace("namespace cg = cooperative_groups;",
+                        "namespace cg = cooperative_groups;"
+                        + STAMP.replace("STAMPS", str(SCAN_STAMPS)), 1)
+    start = text.index("decode_scan_kernel(const ScanParams P)")
+    body_end = text.index("\n}\n", start) + 1
+    body = text[start:body_end]
+    body = body.replace("extern __shared__ float4 smem4[];",
+                        "extern __shared__ float4 smem4[];\n"
+                        "  int stamp_i = 0;\n  ISI_STAMP();", 1)
+    extra = " cg::this_grid().sync();" if double else ""
+    body = body.replace("grid.sync();", "{ grid.sync();" + extra
+                        + " ISI_STAMP(); }")
+    extra = " cluster.sync();" if double_cluster else ""
+    body = body.replace("cluster.sync();", "{ cluster.sync();" + extra
+                        + " ISI_STAMP(); }")
+    text = text[:start] + body + text[body_end:]
+    source.write_text(text + READ.replace("NS", ""))
+    return compile_stamped(out, "decode_scan", source), kind
+
+
+def scan_main(args, torch):
+    """Segment times of the top and the bottom prior's scan."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        decode_scan_kernel as dsk)
+    from interactive_spectrogram_inpainting_tpu_torch.ops.prefix_prime_kernel \
+        import fused_prefix_prime
+    lib, kind = stamped_scan(args.double_barriers,
+                             args.double_cluster_barriers)
+    state = chip_smoke.full_priors(torch, "cuda")
+    stamps = (ctypes.c_ulonglong * SCAN_STAMPS)()
+    for name, _, inp in chip_smoke.prior_setups(torch, state,
+                                                torch.bfloat16):
+        kv0 = chip_smoke.run_prime(torch, fused_prefix_prime, inp,
+                                   torch.bfloat16)
+        steps = inp["steps"] - inp["p0"]
+        noise = torch.zeros(steps, inp["n_class"], device=kv0.device)
+        call = ((inp["params"], inp["bias_hm"], inp["posfull"], inp["mem"],
+                 kv0.clone(), inp["tokens"], inp["mask"], noise, 1.0),
+                dict(p0=inp["p0"], steps=inp["steps"], n_class=inp["n_class"],
+                     channels=inp["c"], cross_hm=inp["cross_hm"],
+                     e_src_real=inp["e_src"]))
+        ms = chip_smoke.time_calls(torch, dsk.fused_decode_scan, [call],
+                                   reps=3)
+        layers = inp["params"]["wqkv"].shape[0]
+        per_layer, once = SCAN_SEGMENTS[kind]
+        labels = per_layer[inp["cross_hm"] is not None] * layers + once
+        per_step = len(labels)
+        if 1 + steps * per_step > SCAN_STAMPS:
+            sys.exit("too many stamps for the stamp array")
+        dsk.fused_decode_scan(*call[0], **call[1])
+        torch.cuda.synchronize()
+        lib.isi_read_stamps(stamps, 1 + steps * per_step)
+        sums = dict.fromkeys(dict.fromkeys(labels), 0.0)
+        for k in range(steps * per_step):
+            sums[labels[k % per_step]] += (stamps[k + 1] - stamps[k]) / 1e3
+        print(f"scan {name} ({kind} kernel) steps [{inp['p0']}, "
+              f"{inp['steps']}): {ms / steps * 1e3:.1f} us a step (CUDA "
+              f"events); by segment (stamps, us a step): "
+              + ", ".join(f"{k} {v / steps:.1f}" for k, v in sums.items())
+              + f"; sum {sum(sums.values()) / steps:.1f}", flush=True)
+
+
+def prime_main(torch):
+    """CUDA-event ms and the profiler's kernels of one prefix prime."""
+    from torch.profiler import ProfilerActivity, profile
+    from interactive_spectrogram_inpainting_tpu_torch.ops.prefix_prime_kernel \
+        import fused_prefix_prime
+    state = chip_smoke.full_priors(torch, "cuda")
+    for name, _, inp in chip_smoke.prior_setups(torch, state,
+                                                torch.bfloat16):
+        kv = torch.zeros(inp["kv_shape"], dtype=torch.bfloat16,
+                         device="cuda")
+        call = ((inp["params"], inp["bias_hm"], inp["x_prefix"], inp["mem"],
+                 kv), dict(p0=inp["p0"], channels=inp["c"],
+                           cross_hm=inp["cross_hm"], e_src_real=inp["e_src"]))
+        ms = chip_smoke.time_calls(torch, fused_prefix_prime, [call],
+                                   reps=10)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fused_prefix_prime(*call[0], **call[1])
+            torch.cuda.synchronize()
+        kernels = {}
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                kernel = re.sub(r"^void |\(anonymous namespace\)::", "",
+                                evt.name)
+                key = re.match(r"(?:\w+::)*(\w+)", kernel).group(1)
+                n, t = kernels.get(key, (0, 0.0))
+                kernels[key] = (n + 1, t + evt.device_time_total / 1e3)
+        print(f"prime {name} p0={inp['p0']}: {ms:.4f} ms (CUDA events); "
+              f"{sum(n for n, _ in kernels.values())} device kernels: "
+              + ", ".join(f"{k} x{n} {t:.4f} ms"
+                          for k, (n, t) in sorted(kernels.items())),
+              flush=True)
 
 
 def step_calls(inp, kv, batched):
@@ -130,6 +275,14 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--double-barriers", action="store_true",
                         help="a second grid barrier after each one")
+    parser.add_argument("--double-cluster-barriers", action="store_true",
+                        help="a second cluster barrier after each one "
+                        "(--scan)")
+    parser.add_argument("--scan", action="store_true",
+                        help="the whole-scan kernel instead of the step "
+                        "kernels")
+    parser.add_argument("--prime", action="store_true",
+                        help="the prefix-prime kernel's launches and time")
     args = parser.parse_args()
     torch = chip_smoke.setup()
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
@@ -143,6 +296,12 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
     print(card.stdout.strip(), flush=True)
+    if args.scan:
+        scan_main(args, torch)
+        return
+    if args.prime:
+        prime_main(torch)
+        return
     libs = stamped_libraries(args.double_barriers)
     state = chip_smoke.full_priors(torch, "cuda")
     for prior, batch in CASES:

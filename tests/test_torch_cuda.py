@@ -116,6 +116,118 @@ def test_decode_scan_kernel_matches_plain(prior):
     assert fused_decode_scan.launches > 0
 
 
+def scan_call(inp, kv, mask, gumbel, temperature=1.0, **over):
+    kwargs = dict(p0=inp["p0"], steps=inp["steps"], n_class=inp["n_class"],
+                  channels=inp["c"], cross_hm=inp["cross_hm"],
+                  e_src_real=inp["e_src"])
+    kwargs.update(over)
+    return fused_decode_scan(
+        inp["params"], inp["bias_hm"], inp["posfull"], inp["mem"],
+        None if kv is None else kv.clone(), inp["tokens"], mask, gumbel,
+        temperature, **kwargs)
+
+
+def test_decode_scan_primed_and_bounded_runs_match(prior):
+    """float32, greedy: a primed scan equals one from position 0 (the known
+    prefix teacher-forced), and a scan bounded by the mask equals one run
+    to the end (the rest unmasked, its tokens unchanged)."""
+    import chip_smoke
+    model, codemap, condition, mask = prior
+    inp = inputs(model, codemap, condition, mask, torch.float32)
+    kv0 = chip_smoke.run_prime(torch, fused_prefix_prime, inp, torch.float32)
+    p0, steps, c = inp["p0"], inp["steps"], inp["c"]
+    dev = kv0.device
+    zeros = torch.zeros(steps - p0, inp["n_class"], device=dev)
+    tk, kvk = scan_call(inp, kv0, inp["mask"], zeros)
+    t0, kv_0 = scan_call(inp, None, inp["mask"],
+                         torch.zeros(steps, inp["n_class"], device=dev), p0=0)
+    full = inp["tokens"].shape[0] + c - 1
+    tf, kvf = scan_call(inp, kv0, inp["mask"],
+                        torch.zeros(full - p0, inp["n_class"], device=dev),
+                        steps=full)
+    torch.cuda.synchronize()
+    assert torch.equal(tk, t0) and torch.equal(tk, tf)
+    torch.testing.assert_close(kv_0, kvk, atol=3e-4, rtol=1e-3)
+    torch.testing.assert_close(kvf[:, :, :steps], kvk[:, :, :steps],
+                               atol=3e-4, rtol=1e-3)
+
+
+def test_decode_scan_bf16_repeats_and_holds_to_plain(prior):
+    """bfloat16: two runs give the same tokens and cache bit for bit; the
+    teacher-forced cache is within 5e-2 of the plain version."""
+    import chip_smoke
+    model, codemap, condition, mask = prior
+    inp = inputs(model, codemap, condition, mask, torch.bfloat16)
+    kv0 = chip_smoke.run_prime(torch, fused_prefix_prime, inp,
+                               torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    noise = gumbel_noise((inp["steps"] - inp["p0"], inp["n_class"]),
+                         kv0.device, gen)
+    t1, k1 = scan_call(inp, kv0, inp["mask"], noise)
+    t2, k2 = scan_call(inp, kv0, inp["mask"], noise)
+    none = torch.zeros_like(inp["mask"])
+    tk, kvk = scan_call(inp, kv0, none, noise)
+    tp, kvp = chip_smoke.run_scan(torch, decode_scan_plain, inp, kv0, none,
+                                  noise)
+    torch.cuda.synchronize()
+    assert torch.equal(t1, t2) and torch.equal(k1, k2)
+    assert torch.equal(tk, tp) and torch.equal(tk, inp["tokens"])
+    torch.testing.assert_close(kvk.float(), kvp.float(), atol=5e-2,
+                               rtol=5e-2)
+
+
+def test_decode_scan_launch_shape(prior):
+    """One cooperative launch a scan, in clusters of 8: 2 grid barriers a
+    step per aligned layer, 3 per cross layer, plus 1."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops.decode_scan_kernel \
+        import decode_scan_info
+    import chip_smoke
+    model, codemap, condition, mask = prior
+    inp = inputs(model, codemap, condition, mask, torch.bfloat16)
+    kv0 = chip_smoke.run_prime(torch, fused_prefix_prime, inp,
+                               torch.bfloat16)
+    noise = torch.zeros(inp["steps"] - inp["p0"], inp["n_class"],
+                        device=kv0.device)
+    info = decode_scan_info(
+        inp["params"], inp["bias_hm"], inp["posfull"], inp["mem"], kv0,
+        inp["tokens"], inp["mask"], noise, 1.0, p0=inp["p0"],
+        steps=inp["steps"], n_class=inp["n_class"], channels=inp["c"],
+        cross_hm=inp["cross_hm"], e_src_real=inp["e_src"])
+    layers = inp["params"]["wo"].shape[0]
+    per_layer = 2 if inp["cross_hm"] is None else 3
+    assert info["grid_barriers_per_step"] == per_layer * layers + 1
+    assert info["cluster"] == 8 and info["grid"] == 120
+    assert info["clusters_resident"] >= 15
+    before = fused_decode_scan.launches
+    scan_call(inp, kv0, inp["mask"], noise)
+    assert fused_decode_scan.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefix_prime_is_one_launch_and_repeats(prior, dtype):
+    """One persistent launch a prefix (2 grid barriers, then 8 per aligned
+    layer or 13 per cross layer but the last); a second call gives the same
+    cache bit for bit."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops.prefix_prime_kernel \
+        import prefix_prime_info
+    import chip_smoke
+    model, codemap, condition, mask = prior
+    inp = inputs(model, codemap, condition, mask, dtype)
+    before = fused_prefix_prime.launches
+    kv1 = chip_smoke.run_prime(torch, fused_prefix_prime, inp, dtype)
+    kv2 = chip_smoke.run_prime(torch, fused_prefix_prime, inp, dtype)
+    torch.cuda.synchronize()
+    assert fused_prefix_prime.launches == before + 2
+    assert torch.equal(kv1, kv2)
+    info = prefix_prime_info(
+        inp["params"], inp["bias_hm"], inp["x_prefix"], inp["mem"],
+        torch.zeros_like(kv1), p0=inp["p0"], channels=inp["c"],
+        cross_hm=inp["cross_hm"], e_src_real=inp["e_src"])
+    layers = inp["params"]["wo"].shape[0]
+    per_layer = 8 if inp["cross_hm"] is None else 13
+    assert info["grid_barriers"] == 2 + per_layer * (layers - 1)
+
+
 def test_sample_model_cuda_matches_cpu(prior):
     model, codemap, condition, mask = prior
     cfg = model.config

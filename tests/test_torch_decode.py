@@ -279,3 +279,42 @@ def test_sample_model_refuses_unported_options(setup):
     with pytest.raises(ValueError, match="gumbel has shape"):
         sample_model(tm, None, 2, condition=condition,
                      gumbel=torch.zeros(3, cfg.n_class), device="cpu")
+
+
+# -- the whole-scan kernel's order of partial sums ----------------------------
+
+@pytest.mark.parametrize("d_ff", [64, 2048, 2040])
+def test_fc2_slices_cover_d_ff_once(d_ff):
+    """Each block of the scan kernel takes a run of whole units of d_ff
+    columns; together they take every column once, in order."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        decode_scan_kernel as dsk)
+    slices = dsk.fc2_slices(d_ff)
+    assert len(slices) == dsk.CLUSTER * dsk.CLUSTERS
+    real = [c for block in slices for c in block if c != d_ff]
+    assert real == list(range(d_ff))
+    for block in slices:
+        cols = [c for c in block if c != d_ff]
+        assert len(cols) % dsk.UNIT == 0
+        assert not cols or cols == list(range(cols[0], cols[0] + len(cols)))
+
+
+def test_scan_partials_add_up_to_the_products():
+    """The plain scan's partial sums (a partial per head, per block of
+    d_ff, clusters in order) add up to the whole products."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        decode_scan_kernel as dsk)
+    gen = torch.Generator().manual_seed(0)
+    d, nh, d_ff = 32, 4, 64
+    a = torch.randn(d, generator=gen)
+    wo = torch.randn(d, d, generator=gen)
+    np.testing.assert_allclose(
+        dsk.in_order(dsk.head_partials(a, wo, nh)).numpy(),
+        (a @ wo.T).numpy(), atol=1e-5, rtol=1e-5)
+    mid = torch.randn(d_ff, generator=gen)
+    w2 = torch.randn(d, d_ff, generator=gen)
+    idx = torch.tensor(dsk.fc2_slices(d_ff))
+    w2_blocks = torch.cat([w2, w2.new_zeros(d, 1)], 1)[:, idx]
+    np.testing.assert_allclose(
+        dsk.fc2_in_kernel_order(mid, w2_blocks, idx).numpy(),
+        (mid @ w2.T).numpy(), atol=1e-4, rtol=1e-5)

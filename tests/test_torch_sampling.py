@@ -595,3 +595,29 @@ def test_make_sampling_fn_binds_options(priors):
         use_fused_step=False, gumbel=gumbel, device="cpu")
     assert torch.equal(out, direct)
     np.testing.assert_array_equal(out.numpy()[0][~mask], initial[0][~mask])
+
+
+@pytest.mark.parametrize("primed", [True, False], ids=["primed", "from_0"])
+@pytest.mark.parametrize("variant", ["aligned", "cross"])
+def test_fused_b1_sample_model_matches_jax_dense(priors, variant, primed):
+    """Batch 1, the whole-scan kernel's path (on the CPU its plain version,
+    which adds its partial sums in the kernel's order), token for token
+    against the JAX dense sampler: primed by the mask's known prefix, or
+    scanned from position 0."""
+    jm, variables, tm = priors[variant]
+    cfg = jm.config
+    initial, mask, condition = inpaint_case(cfg, 1, (1, 3), seed=34)
+    options = {} if primed else dict(scan_from=0)
+    key = jax.random.PRNGKey(9)
+    j_out = np.asarray(jsampling.sample_model(
+        jm, variables, key, 1, condition=condition, initial_code=initial,
+        mask=mask, temperature=0.9, use_fused_step=False, **options))
+    sf, su = bounds(tm, mask)
+    p0, steps = scan_range(tm, options.get("scan_from", sf), su)
+    assert (p0 > 0) == primed
+    gumbel = jax_step_gumbel(key, p0, steps, (1, cfg.n_class))[:, 0]
+    t_out = sample_model(
+        tm, None, 1, condition=condition, initial_code=initial, mask=mask,
+        temperature=0.9, gumbel=gumbel, device="cpu", **options).numpy()
+    np.testing.assert_array_equal(t_out, j_out)
+    np.testing.assert_array_equal(t_out[:, ~mask], initial[:, ~mask])
