@@ -24,19 +24,23 @@ Phases, each failing the run with a nonzero exit:
    bit-identical in tokens and cache); its launch shape (grid, cluster,
    grid barriers a step, shared memory, registers);
 4. vq-lookup: ``fused_vq_lookup`` against ``reference_vq_lookup`` at dim 64,
-   K 512 and N in {128, 512, 700, 65536}: ids equal on every row whose two
-   best scores differ by more than 1e-4, quantize equal to the codebook rows
-   bit for bit, counts exact, embed_sum within atol 1e-3 and rtol 1e-5 of
-   a float64 product, and a second call bit-identical to the first;
+   K 512 and N in {128, 512, 700, 8192, 32768, 65536} (the upload's, an odd
+   one, the VQ-VAE step's at batch 64 and the extraction batch's): ids
+   equal on every row whose two best scores differ by more than 1e-4,
+   quantize equal to the codebook rows bit for bit, counts exact,
+   embed_sum within atol 1e-3 and rtol 1e-5 of a float64 product, and a
+   second call bit-identical to the first; each N's launch shape (both
+   kernels' grids, shared memory, registers, sort passes, grid barriers);
 5. decode-step: ``fused_decode_step`` at batch 2 (bottom and top prior) and
    3 (top) and ``fused_decode_step_batched`` at batch 5, 16 and 64 (bottom
    prior) against their plain versions over 32 consecutive positions from
    a primed cache:
    teacher-forced caches in bfloat16 and float32, greedy float32 tokens
    equal; ``flash_decode_attention`` against ``reference_decode_attention``
-   at batch 1 and 16 with ``pos`` in the first, a middle and the last
-   chunk; the bottom prior sampled fused with one pitch per batch row under
-   one top codemap at B = 2 (``fused_decode_step``) and B = 16
+   at batch 1, 2 and 16 with ``pos`` 0, 5, 128, 300 and 639, a second call
+   bit-identical, its launch shape (grid, cluster, shared memory,
+   registers); the bottom prior sampled fused with one pitch per batch row
+   under one top codemap at B = 2 (``fused_decode_step``) and B = 16
    (``fused_decode_step_batched``), float32 and greedy: the tokens equal
    the dense sampler's;
 6. server: the port's server with the full-width test models on the card
@@ -116,19 +120,22 @@ Phases, each failing the run with a nonzero exit:
    and backward, for the training attention, in float32 and in bfloat16
    (``fused_train_attention_bf16``, the ``--bf16`` run's launches; float32
    is bound by its three TF32 passes at the TF32 rate); for the VQ lookup
-   the dense
-   path ``torch.matmul`` + ``argmin`` + ``F.embedding``, a composition of
-   calls that gives ids and quantize only; for the spectral loss
+   the dense path ``torch.matmul`` + ``argmin`` + ``F.embedding``, a
+   composition of calls that gives ids and quantize only (its bound: three
+   TF32 passes at the TF32 rate, as the kernel runs them; its detail gives
+   each call's ms, the launch shapes and the device kernels a call); for
+   the spectral loss
    ``torch.stft`` + magnitudes + distance, forward and backward by
    autograd, on the three Jukebox scales of the main path's first step;
    its row also gives each half's ms and bound). The flash attention's
    ``ms`` is device time: its calls are enqueued behind a sleeping kernel,
    so the card runs them back to back whatever the host's pace (the
-   host-paced time and the host enqueue ms are in its detail; its launches
-   are the opt-in dense sampler's: no serving path runs it). The two step
-   kernels'
-   detail gives, for each plan the timed calls used, the grid, the grid
-   barriers a step, the shared memory and the registers (also from
+   host-paced time and the host enqueue ms are in its detail, with its
+   launch shape, device kernels a call and the dense sampler's wall time;
+   its launches are the opt-in dense sampler's: no serving path runs it).
+   The two step kernels' detail gives, for each plan the timed calls
+   used, the grid, the grid barriers a step, the shared memory and the
+   registers (also from
    ``-Xptxas -v``), the device kernels ``torch.profiler`` sees in 8 steps
    (one a step), host enqueue ms, and for the batched kernel one whole
    generation of each server batch bucket (16 and 64) with its bound.
@@ -193,7 +200,9 @@ STEP_LIBRARIES = ("decode_step", "decode_step_batched")
 PTXAS_KERNELS = {"decode_step": "decode_step_kernel",
                  "decode_step_batched": "decode_step_kernel",
                  "decode_scan": "decode_scan_kernel",
-                 "prefix_prime": "prefix_prime_kernel"}
+                 "prefix_prime": "prefix_prime_kernel",
+                 "decode_attention": "flash_decode_kernel",
+                 "vq_lookup": "vq_assign_kernel"}
 STEPS_CHECKED = 32   # consecutive positions a step kernel is checked over
 STEPS_TIMED = 32     # captured steps (evenly spaced) a step kernel is timed on
 VQ_MARGIN = 1e-4     # codes are compared where the two best scores differ more
@@ -738,15 +747,25 @@ def phase_per_row_labels(torch, state):
 
 def phase_flash(torch, results):
     """flash_decode_attention against reference_decode_attention at the
-    bottom prior's cache shape, ``pos`` in the first, a middle and the last
-    128-row chunk."""
+    bottom prior's cache shape, ``pos`` at the first key, in the first, at
+    the start of the second, in a middle and in the last 128-row chunk, at
+    batch 1, 2 (the dense sampler's) and 16; a second call bit-identical."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import build
     from interactive_spectrogram_inpainting_tpu_torch.ops.decode_attention \
-        import flash_decode_attention, reference_decode_attention
+        import (decode_attention_info, flash_decode_attention,
+                reference_decode_attention)
     gen = torch.Generator(device="cuda").manual_seed(1)
     heads, head_dim, length = 8, 64, 640
     tol = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (3e-2, 3e-2)}
     for dtype in (torch.float32, torch.bfloat16):
-        for batch in (1, 16):
+        log(f"flash_decode_attention {str(dtype)[6:]} launch at B=2: "
+            + json.dumps(decode_attention_info(2, heads, head_dim, length,
+                                               length - 1, dtype)))
+    log("flash_decode_attention registers a thread (-Xptxas -v): "
+        + json.dumps(ptxas_registers(build.PTXAS_LOGS.get(
+            "decode_attention", ""), "flash_decode_kernel")))
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch in (1, 2, 16):
             q = torch.randn(batch, heads, head_dim, generator=gen,
                             device="cuda").to(dtype)
             k = torch.randn(batch, length, heads, head_dim, generator=gen,
@@ -754,19 +773,23 @@ def phase_flash(torch, results):
             v = torch.randn(batch, length, heads, head_dim, generator=gen,
                             device="cuda").to(dtype)
             bias = torch.randn(heads, length, generator=gen, device="cuda")
-            for pos in (5, 300, 639):
+            for pos in (0, 5, 128, 300, 639):
                 out = flash_decode_attention(q, k, v, pos, bias)
+                again = flash_decode_attention(q, k, v, pos, bias)
                 ref = reference_decode_attention(q, k, v, pos, bias)
                 torch.cuda.synchronize()
                 err = max_err(out, ref)
                 atol, rtol = tol[dtype]
+                same = torch.equal(out, again)
                 log(f"flash_decode_attention B={batch} {str(dtype)[6:]} "
                     f"pos={pos}: max_abs_err {err:.3e} (atol {atol}, rtol "
-                    f"{rtol})")
+                    f"{rtol}), second call identical {same}")
                 if not torch.allclose(out.float(), ref.float(), atol=atol,
                                       rtol=rtol):
                     fail("flash_decode_attention disagrees with the "
                          "reference")
+                if not same:
+                    fail("flash_decode_attention: a second call differs")
                 if dtype == torch.bfloat16:
                     results.setdefault("flash_decode_attention",
                                        []).append(err)
@@ -782,15 +805,23 @@ def vq_clear_rows(torch, flat, embed):
 
 def phase_vq(torch, results):
     """fused_vq_lookup against reference_vq_lookup at the full model's
-    codebook shape and the main path's row counts (700: no tile divides
-    it)."""
+    codebook shape and the main path's row counts (an upload's 128 and 512,
+    the VQ-VAE step's 8 192 and 32 768 at batch 64, an extraction batch's
+    65 536; 700: no tile divides it)."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import build
     from interactive_spectrogram_inpainting_tpu_torch.ops.vq_lookup import (
-        fused_vq_lookup, reference_vq_lookup)
+        fused_vq_lookup, reference_vq_lookup, vq_lookup_info)
     gen = torch.Generator(device="cuda").manual_seed(2)
     dim, n_embed = 64, 512
     embed = torch.randn(dim, n_embed, generator=gen, device="cuda")
-    for n in (128, 512, 700, 65536):
+    vq_log = build.PTXAS_LOGS.get("vq_lookup", "")
+    log("vq_lookup registers a thread (-Xptxas -v): " + json.dumps({
+        kernel: ptxas_registers(vq_log, kernel).get("float32")
+        for kernel in ("vq_assign_kernel", "vq_stats_kernel")}))
+    for n in (128, 512, 700, 8192, 32768, 65536):
         flat = torch.randn(n, dim, generator=gen, device="cuda")
+        log(f"vq_lookup N={n} launch: "
+            + json.dumps(vq_lookup_info(flat, embed)))
         ids, quant, counts, esum = fused_vq_lookup(flat, embed)
         again = fused_vq_lookup(flat, embed)
         ids_p, quant_p, counts_p, esum_p = reference_vq_lookup(flat, embed)
@@ -1114,11 +1145,17 @@ def serve_generation(torch, state, base, reset, read, top_code, latencies,
 
     # the dense sampler with nucleus filtering and the flash attention
     reset("flash_decode_attention")
+    t0 = time.perf_counter()
     out_d = sample_model(
         state.bottom, gen, 2, condition=tops, top_p_sampling_p=0.9,
         use_flash=True, use_fused_step=False,
         compute_dtype=torch.bfloat16).cpu().numpy()
+    dense_s = time.perf_counter() - t0
+    captured["dense_flash_sampler_s"] = round(dense_s, 3)
     launches.update(read("flash_decode_attention"))
+    log(f"dense sampler, bottom prior B=2, top_p 0.9, use_flash, bf16: "
+        f"{dense_s:.3f} s wall, {launches['flash_decode_attention']} "
+        "flash_decode_attention calls")
     n_layers = cfg_b.conditional_model_num_decoder_layers
     if launches["flash_decode_attention"] != steps_b * n_layers \
             or not ((out_d >= 0).all() and (out_d < cfg_b.n_class).all()):
@@ -2889,11 +2926,13 @@ def sdpa_decode_attention(q, k_cache, v_cache, pos, bias_row):
 
 def vq_bound(args, kwargs):
     """(bytes, ops) one VQ lookup needs: flat and embed read once, the four
-    outputs written once; the one product, 2 N dim K."""
+    outputs written once; the one product, 2 N dim K, three times: the
+    kernel runs it as split TF32 on the tensor cores (three passes), held
+    against the TF32 rate."""
     flat, embed = args
     n, dim = flat.shape
     k = embed.shape[1]
-    return 4 * (2 * n * dim + 2 * dim * k + n + k), 2 * n * dim * k
+    return 4 * (2 * n * dim + 2 * dim * k + n + k), 3 * 2 * n * dim * k
 
 
 def dense_vq_lookup(flat, embed):
@@ -2934,8 +2973,8 @@ def phase_kernels(torch, card, captured, launches, errors, state):
     # sample_model calls. Flash attention: 64 calls evenly spaced over the
     # dense sample_model call. VQ lookup: the two lookups of one 4 s
     # /analyze-audio (N = 128, 512) and of one extraction batch (N = 16384,
-    # 65536); it is float32 on CUDA cores, so its operations are held
-    # against the float32 non-tensor peak. Training attention: one forward
+    # 65536); split TF32 on the tensor cores, so its three passes are held
+    # against the TF32 peak. Training attention: one forward
     # and one backward of a float32 decoder self-attention (516 x 516, batch
     # 32) of the bottom prior's epoch, against the same peak.
     vq_calls = captured["fused_vq_lookup"]
@@ -2984,12 +3023,12 @@ def phase_kernels(torch, card, captured, launches, errors, state):
         bounds = [bound(*call) for call in calls]
         b = sum(x[0] for x in bounds)
         ops = sum(x[1] for x in bounds)
-        # float32 products on the CUDA cores: the VQ lookup and the
-        # spectral loss; the training attention's float32 as split TF32 on
-        # the tensor cores (train_attention_pair_bound counts its passes)
-        peak_ops = (PEAK_F32_OPS if name in ("fused_vq_lookup",
-                                             "fused_multiscale_loss")
-                    else PEAK_TF32_OPS if name == "fused_train_attention"
+        # float32 products on the CUDA cores: the spectral loss; the
+        # training attention's float32 and the VQ lookup as split TF32 on
+        # the tensor cores (their bounds count the three passes)
+        peak_ops = (PEAK_F32_OPS if name == "fused_multiscale_loss"
+                    else PEAK_TF32_OPS if name in ("fused_train_attention",
+                                                   "fused_vq_lookup")
                     else PEAK_BF16_OPS)
         t_bytes, t_ops = b / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
         detail[name] = {"calls_timed": len(calls), "bytes": b, "ops": ops,
@@ -3021,6 +3060,17 @@ def phase_kernels(torch, card, captured, launches, errors, state):
         if name == "flash_decode_attention":
             detail[name]["host_paced_events_ms"] = round(host_paced_ms, 4)
             detail[name]["serving_path_launches"] = 0
+            detail[name]["device_kernels_per_call"] = kernels_per_call(
+                torch, fn, calls[:8])
+            q, k_cache = calls[0][0][:2]
+            detail[name]["kernel"] = dat.decode_attention_info(
+                q.shape[0], q.shape[1], q.shape[2], k_cache.shape[1],
+                k_cache.shape[1] - 1, q.dtype)
+            detail[name]["ptxas_registers"] = ptxas_registers(
+                build.PTXAS_LOGS.get("decode_attention", ""),
+                "flash_decode_kernel")
+            detail[name]["dense_flash_sampler_s"] = captured[
+                "dense_flash_sampler_s"]
         if name == "fused_decode_step_batched":
             # one whole generation of each bucket: every step of its last
             # request (the keys without a suffix are bucket 16's)
@@ -3061,6 +3111,15 @@ def phase_kernels(torch, card, captured, launches, errors, state):
             detail[name]["per_call_bound_ms"] = [
                 round(max(x[0] / PEAK_BYTES_PER_S, x[1] / peak_ops) * 1e3, 6)
                 for x in bounds]
+            # the basis before the tensor cores: one float32 pass on the
+            # CUDA cores
+            detail[name]["cuda_core_bound_ms"] = round(
+                sum(max(x[0] / PEAK_BYTES_PER_S, x[1] / 3 / PEAK_F32_OPS)
+                    for x in bounds) * 1e3, 6)
+            detail[name]["kernel"] = [vql.vq_lookup_info(*call[0])
+                                      for call in calls]
+            detail[name]["device_kernels_per_call"] = kernels_per_call(
+                torch, fn, calls)
         if name.startswith("fused_train_attention"):
             q, k, v, ab, dout = calls[0][0]
             fwd, bwd = train_attention_bound(q, k, v, ab, dout)

@@ -199,7 +199,8 @@ def precompute_bias_rows(model, l_pad: int) -> torch.Tensor:
 # -- one decode step ----------------------------------------------------------
 
 # keys per chunk of the plain batched version's running softmax (the JAX
-# batched kernel's block_k) and of csrc/decode_common.cuh's partials
+# batched kernel's block_k); the flash decode attention's caches are whole
+# chunks long
 ATTN_CHUNK = 128
 # the sampler hands batches above this size of an aligned decoder to the
 # batched kernel (csrc/decode_step_batched.cu)

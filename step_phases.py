@@ -31,6 +31,18 @@ same request (top and bottom prior, bf16) with CUDA events and lists its
 device kernels with ``torch.profiler``: their launches a prefix and device
 time by kernel name.
 
+``python3 step_phases.py --vq-flash`` times the VQ lookup and the flash
+decode attention with CUDA events as ``chip_smoke.py``'s kernels line does:
+the lookup at dim 64, K 512 and the main path's row counts (one call each:
+ms, host enqueue ms, each device kernel's launches and device time by
+``torch.profiler``);
+the flash attention on 64 calls at the dense sampler's shape (bottom prior,
+B 2, 8 heads of 64, 640 cached rows, bf16, ``pos`` spread over the cache:
+device ms behind a sleeping kernel, host enqueue ms, the device kernels);
+and the wall time of the dense sampler (``sample_model`` at B 2,
+``top_p`` 0.9, ``use_flash=True``, bf16) on the full-width bottom prior,
+the second of two runs.
+
 The stamps go into the kernel
 source found beside this script, so a copy of an earlier checkout with this
 script dropped into it times that checkout's kernel. Imports nothing of
@@ -244,6 +256,88 @@ def prime_main(torch):
               flush=True)
 
 
+VQ_ROWS = (128, 512, 8192, 16384, 32768, 65536)
+
+
+def kernel_split(torch, fn, calls, reps=10):
+    """{kernel: [launches a call recorded, us a launch]} over ``reps``
+    passes of ``calls`` by ``torch.profiler`` (which may drop launches:
+    the wrapper's count is the one to trust)."""
+    from torch.profiler import ProfilerActivity, profile
+    for args in calls:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for args in calls:
+                fn(*args)
+        torch.cuda.synchronize()
+    kernels = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", evt.name)
+            key = re.match(r"(?:\w+::)*(\w+(?:<[^>]*>)?)", name).group(1)
+            n, t = kernels.get(key, (0, 0.0))
+            kernels[key] = (n + 1, t + evt.device_time_total)
+    return {k: [round(n / reps / len(calls), 2), round(t / n, 2)]
+            for k, (n, t) in kernels.items()}
+
+
+def vq_flash_main(torch):
+    """Device and host ms of the VQ lookup and the flash attention, their
+    device kernels a call, and the dense flash sampler's wall time."""
+    import time
+    import numpy as np
+    from interactive_spectrogram_inpainting_tpu_torch.ops.decode_attention \
+        import flash_decode_attention
+    from interactive_spectrogram_inpainting_tpu_torch.ops.vq_lookup import (
+        fused_vq_lookup)
+    from interactive_spectrogram_inpainting_tpu_torch.sampling.sample import (
+        sample_model)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    embed = torch.randn(64, 512, generator=gen, device="cuda")
+    for n in VQ_ROWS:
+        calls = [((torch.randn(n, 64, generator=gen, device="cuda"), embed),
+                  {})]
+        ms = chip_smoke.time_calls(torch, fused_vq_lookup, calls, reps=20)
+        host = chip_smoke.host_ms(torch, fused_vq_lookup, calls)
+        split = kernel_split(torch, fused_vq_lookup, [c[0] for c in calls])
+        print(f"vq_lookup N={n}: {ms:.4f} ms (CUDA events), host enqueue "
+              f"{host:.4f} ms, device kernels [recorded a call, us a "
+              f"launch] {split}", flush=True)
+    heads, dh, length, batch = 8, 64, 640, 2
+    q = torch.randn(batch, heads, dh, generator=gen,
+                    device="cuda").bfloat16()
+    k, v = (torch.randn(batch, length, heads, dh, generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    bias = torch.randn(heads, length, generator=gen, device="cuda")
+    calls = [((q, k, v, (j * (length - 1)) // 63, bias), {})
+             for j in range(64)]
+    ms = chip_smoke.device_ms(torch, flash_decode_attention, calls)
+    paced = chip_smoke.time_calls(torch, flash_decode_attention, calls,
+                                  reps=10)
+    host = chip_smoke.host_ms(torch, flash_decode_attention, calls)
+    split = kernel_split(torch, flash_decode_attention,
+                         [c[0] for c in calls], reps=2)
+    print(f"flash_decode_attention 64 calls: device {ms:.4f} ms, host-paced "
+          f"CUDA events {paced:.4f} ms, host enqueue {host:.4f} ms, device "
+          f"kernels [recorded a call, us a launch] {split}", flush=True)
+    state = chip_smoke.full_priors(torch, "cuda")
+    cfg_t = state.top.config
+    tops = np.random.default_rng(5).integers(
+        0, cfg_t.n_class, (2,) + tuple(cfg_t.shape))
+    for run in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample_model(state.bottom, state.next_rng(), 2, condition=tops,
+                     top_p_sampling_p=0.9, use_flash=True,
+                     use_fused_step=False,
+                     compute_dtype=torch.bfloat16).cpu()
+        wall = time.perf_counter() - t0
+    print(f"dense sampler, bottom prior B=2, top_p 0.9, use_flash, bf16: "
+          f"{wall:.3f} s wall (second run)", flush=True)
+
+
 def step_calls(inp, kv, batched):
     """The wrapper calls of STEPS consecutive steps from p0 (greedy noise),
     as the batch samplers' token loop makes them."""
@@ -283,6 +377,9 @@ def main():
                         "kernels")
     parser.add_argument("--prime", action="store_true",
                         help="the prefix-prime kernel's launches and time")
+    parser.add_argument("--vq-flash", action="store_true",
+                        help="the VQ lookup's and the flash attention's "
+                        "times and launches")
     args = parser.parse_args()
     torch = chip_smoke.setup()
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
@@ -301,6 +398,9 @@ def main():
         return
     if args.prime:
         prime_main(torch)
+        return
+    if args.vq_flash:
+        vq_flash_main(torch)
         return
     libs = stamped_libraries(args.double_barriers)
     state = chip_smoke.full_priors(torch, "cuda")

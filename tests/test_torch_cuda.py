@@ -400,6 +400,90 @@ def test_flash_decode_attention_kernel_matches_plain(device, dtype, pos):
                                    rtol=max(tol, 1e-4))
 
 
+def device_kernels(fn, *args, calls=8):
+    """The device kernels ``torch.profiler`` sees in ``calls`` calls of
+    ``fn`` (after a warm call), and the wrapper's launch count over them.
+    The profiler may drop an event, never add one."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    before = fn.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    kernels = [evt.name for evt in prof.events()
+               if evt.device_type == torch.autograd.DeviceType.CUDA]
+    return kernels, fn.launches - before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 2, 16])
+@pytest.mark.parametrize("head_dim", [32, 64])
+def test_flash_decode_attention_at_the_sampler_cache(device, dtype, batch,
+                                                     head_dim):
+    """The bottom prior's cache (640 rows, 8 heads): pos at the first key,
+    the end of the first chunk, the start of the second and the last row,
+    with and without the bias row, against the dense plain version and the
+    mirror of the kernel's order; a second call bit-identical; one device
+    kernel a call."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops.decode_attention \
+        import decode_attention_plain
+    gen = torch.Generator(device="cuda").manual_seed(batch * head_dim)
+    L, H = 640, 8
+    q = torch.randn(batch, H, head_dim, generator=gen, device=device)
+    k = torch.randn(batch, L, H, head_dim, generator=gen, device=device)
+    v = torch.randn(batch, L, H, head_dim, generator=gen, device=device)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    bias = torch.randn(H, L, generator=gen, device=device)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    for pos in (0, 127, 128, 639):
+        for bias_row in (bias, None):
+            out = flash_decode_attention(q, k, v, pos, bias_row)
+            again = flash_decode_attention(q, k, v, pos, bias_row)
+            ref = reference_decode_attention(q, k, v, pos, bias_row)
+            mirror = decode_attention_plain(q, k, v, pos, bias_row)
+            torch.cuda.synchronize()
+            assert out.dtype == dtype and torch.equal(out, again)
+            for want in (ref, mirror):
+                torch.testing.assert_close(out.float(), want.float(),
+                                           atol=tol, rtol=max(tol, 1e-4))
+    # one device kernel a call: every kernel the profiler records over 8
+    # calls is the flash kernel, at most 8 of them
+    kernels, launched = device_kernels(flash_decode_attention, q, k, v, 639,
+                                       bias)
+    assert launched == 8 and 1 <= len(kernels) <= 8, kernels
+    assert all("flash_decode_kernel" in name for name in kernels), kernels
+
+
+def test_flash_decode_attention_refuses_what_the_kernel_does_not_take(
+        device):
+    q = torch.zeros(2, 4, 8, device=device)
+    k = torch.zeros(2, 128, 4, 8, device=device)
+    bias = torch.zeros(4, 128, device=device)
+    before = flash_decode_attention.launches
+    bad = [
+        (q, k.bfloat16(), k.bfloat16(), 5, bias),     # dtypes differ
+        (q.double(), k.double(), k.double(), 5, bias),
+        (q, k[:, :64], k[:, :64], 5, bias[:, :64]),   # Lp not 128 k
+        (q, k, k[:1], 5, bias),                       # shapes differ
+        (q, k, k, 128, bias),                         # pos past the cache
+        (q, k, k, -1, bias),
+        (q, k, k, 5, bias[:3]),                       # bias shape
+        (q, k, k, 5, bias.cpu()),                     # bias on the CPU
+        (q, k, k.cpu(), 5, bias),                     # v on the CPU
+        (q, k.transpose(0, 1).contiguous().transpose(0, 1), k, 5, bias),
+        (q[..., :7], k[..., :7], k[..., :7], 5, bias),          # Dh odd
+        (torch.zeros(2, 4, 66, device=device),
+         torch.zeros(2, 128, 4, 66, device=device),
+         torch.zeros(2, 128, 4, 66, device=device), 5, bias),  # Dh > 64
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            flash_decode_attention(*args)
+    assert flash_decode_attention.launches == before
+
+
 @pytest.mark.parametrize("batch", [2, 8])
 def test_sample_model_batch_cuda_matches_cpu(prior, batch):
     """Fused batch sampler (step kernel; batched kernel at 8 on the aligned
@@ -549,6 +633,77 @@ def test_vq_lookup_kernel_when_one_code_takes_every_row(device):
     assert float(esum[:, :7].abs().max()) == 0.0
     again = fused_vq_lookup(flat, embed)
     assert torch.equal(esum, again[3]) and torch.equal(counts, again[2])
+
+
+@pytest.mark.parametrize("n,dim,n_embed", [
+    (700, 64, 512), (1000, 64, 512), (300, 256, 500), (3000, 16, 5000),
+    (2049, 3, 1)])
+def test_vq_lookup_kernel_matches_its_mirror(device, n, dim, n_embed):
+    """Against ``vq_lookup_plain`` (the kernel's order): ids equal off the
+    near ties; where every id agrees, embed_sum equal bit for bit (the same
+    float32 sums in the same order). K 500: no staged chunk divides it; dim
+    256: the widest; K 5000: the sort by 11-bit digits in two passes; K 1:
+    every row one code."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops.vq_lookup import (
+        fused_vq_lookup, vq_lookup_plain)
+    rng = np.random.default_rng(n + dim)
+    flat = torch.as_tensor(rng.standard_normal((n, dim), np.float32),
+                           device=device)
+    embed = torch.as_tensor(rng.standard_normal((dim, n_embed), np.float32),
+                            device=device)
+    ids, quant, counts, esum = fused_vq_lookup(flat, embed)
+    m_ids, m_quant, m_counts, m_esum = vq_lookup_plain(flat, embed)
+    close = vq_margin_rows(flat, embed).cpu()
+    assert int(close.sum()) <= max(1, n // 1000)
+    ids = ids.cpu()
+    assert torch.equal(ids[~close], m_ids[~close])
+    assert torch.equal(quant, embed.T[ids.long().to(device)])
+    assert torch.equal(counts.cpu(), torch.bincount(
+        ids.long(), minlength=n_embed).float())
+    if torch.equal(ids, m_ids):
+        assert torch.equal(esum.cpu(), m_esum)
+        assert torch.equal(counts.cpu(), m_counts)
+    exact = flat.double().T @ torch.nn.functional.one_hot(
+        ids.long().to(device), n_embed).double()
+    torch.testing.assert_close(esum.double(), exact, atol=1e-3, rtol=1e-5)
+
+
+def test_vq_lookup_kernel_one_code_takes_65536_rows(device):
+    """An extraction batch's rows all to one code: 1 024 pieces of 64
+    sorted rows added in order; counts exact, embed_sum within atol 1e-3,
+    rtol 1e-5 of the float64 sum, a second call bit-identical."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops.vq_lookup import (
+        fused_vq_lookup)
+    rng = np.random.default_rng(12)
+    n, dim, n_embed = 65536, 64, 512
+    flat = torch.as_tensor(rng.standard_normal((n, dim), np.float32),
+                           device=device)
+    embed = 50.0 * torch.as_tensor(
+        rng.standard_normal((dim, n_embed), np.float32), device=device)
+    embed[:, 300] = 0.0
+    ids, quant, counts, esum = fused_vq_lookup(flat, embed)
+    again = fused_vq_lookup(flat, embed)
+    assert bool((ids == 300).all()) and float(quant.abs().max()) == 0.0
+    assert float(counts[300]) == n and float(counts.sum()) == n
+    torch.testing.assert_close(esum[:, 300].double(), flat.double().sum(0),
+                               atol=1e-3, rtol=1e-5)
+    others = torch.arange(n_embed, device=device) != 300
+    assert float(esum[:, others].abs().max()) == 0.0
+    for a, b in zip((ids, quant, counts, esum), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [128, 65536])
+def test_vq_lookup_two_device_kernels_a_call(device, n):
+    from interactive_spectrogram_inpainting_tpu_torch.ops.vq_lookup import (
+        fused_vq_lookup)
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    flat = torch.randn(n, 64, generator=gen, device=device)
+    embed = torch.randn(64, 512, generator=gen, device=device)
+    kernels, launched = device_kernels(fused_vq_lookup, flat, embed)
+    assert launched == 8 and 1 <= len(kernels) <= 16, kernels
+    assert all("vq_assign_kernel" in name or "vq_stats_kernel" in name
+               for name in kernels), kernels
 
 
 def test_vq_lookup_refuses_what_the_kernel_does_not_take(device):
