@@ -30,7 +30,9 @@
 //           merges the kSplit partials in rank order and writes the output
 //           in the cache's dtype.
 // Float32 arithmetic, no float atomics, no partials in device memory: the
-// same bits on every call.
+// same bits on every call. Head dims up to 128: the staging buffers hold
+// kStageKeys rows of a float32 head_dim 64; a wider row stages fewer keys a
+// pass (41 at float32 head_dim 128), the same arithmetic in more passes.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -43,8 +45,9 @@ namespace {
 constexpr int kSplit = 8;        // blocks of a cluster: one (head, sequence)
 constexpr int kThreads = 128;
 constexpr int kStageKeys = 80;   // keys staged a pass (640 / kSplit)
-constexpr int kDhMax = 64;
-constexpr int kRowMax = kDhMax * 4 + 16;  // bytes of a staged row, at most
+constexpr int kDhMax = 128;
+// bytes of each staging buffer: kStageKeys rows of a float32 head_dim 64
+constexpr int kStageBytes = kStageKeys * (64 * 4 + 16);
 
 struct FlashParams {
   const void* q;      // [B, H, Dh], T
@@ -117,8 +120,8 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
 template <typename T>
 __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
     flash_decode_kernel(FlashParams P) {
-  __shared__ __align__(16) unsigned char ks_raw[kStageKeys * kRowMax];
-  __shared__ __align__(16) unsigned char vs_raw[kStageKeys * kRowMax];
+  __shared__ __align__(16) unsigned char ks_raw[kStageBytes];
+  __shared__ __align__(16) unsigned char vs_raw[kStageBytes];
   __shared__ float q_s[kDhMax];
   __shared__ float p_s[kStageKeys];
   __shared__ float grp[kThreads];
@@ -138,6 +141,7 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
                + (size_t)h * dh;
   const int row_bytes = dh * static_cast<int>(sizeof(T));
   const int rs = (row_bytes + 15) / 16 * 16 + 16;  // staged row stride
+  const int stage_keys = min(kStageKeys, kStageBytes / rs);  // keys a pass
   // 16-byte pieces when every row starts 16-byte aligned, else 4-byte ones
   const bool vec = row_bytes % 16 == 0
                    && (reinterpret_cast<size_t>(K) % 16) == 0
@@ -151,8 +155,8 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads)
   const int groups = kThreads / dh;  // P V key groups
   const int grp_id = tid / dh, dcol = tid % dh;
   float m_run = -INFINITY, l_run = 0.f, acc = 0.f;
-  for (int js = j0; js < j1; js += kStageKeys) {
-    const int nk = min(kStageKeys, j1 - js);
+  for (int js = j0; js < j1; js += stage_keys) {
+    const int nk = min(stage_keys, j1 - js);
     for (int i = tid; i < 2 * nk * per_row; i += kThreads) {
       const int which = i / (nk * per_row), e = i % (nk * per_row);
       const int jj = e / per_row, o = (e % per_row) * piece;

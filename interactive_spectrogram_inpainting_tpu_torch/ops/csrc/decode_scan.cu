@@ -16,8 +16,11 @@
 // Layout: kBlocks = 120 blocks of 512 threads, one per SM, in kClusters =
 // 15 thread-block clusters of kCluster = 8 (the most clusters of 8 that
 // co-reside on the H100 at one block per SM), all alive for the whole
-// scan: a cooperative launch with a cluster dimension. Cluster h < H is
-// head h's group. Per layer and step:
+// scan: a cooperative launch with a cluster dimension. Cluster c takes the
+// heads c, c + 15, c + 30, ... (one head a cluster up to 15 heads; above,
+// the first H - 15 clusters take a second head, and so on), one after the
+// other inside the phase: the grid barriers a step stay as many as with
+// one head a cluster. Per layer and step:
 //
 //   ATT   (head clusters) rebuild the residual x from the last phase's
 //         partials (each block its own copy), LN1, the head's q, k, v rows
@@ -50,7 +53,13 @@
 // residual rebuild. Each phase has its region: R1 for ATT, R2 for MLP and
 // LOGITS, R3 for CROSS (fc2's column slice is staged in bf16 only; float32,
 // the parity dtype, reads it from device memory, for want of shared
-// memory).
+// memory). A wide model whose regions do not all fit the 227 KB a block
+// can have (d_model 1024 with head_dim 128, the float32 parity dtype at
+// head_dim 128) reads regions straight from device memory, in this order
+// until the rest fits: R2, R3, R1's weights, R1's keys (geometry()). The
+// products are the same either way, in the same order: only where an
+// operand is read from changes. The second and later heads of a cluster
+// stage their slices after the first head's products, without overlap.
 //
 // Measured on the H100 (PERF.md, Findings): a step takes about as long as
 // the 41-phase design it replaces. Each segment between two barriers still
@@ -111,7 +120,11 @@ constexpr int kCluster = 8;    // blocks of a cluster: one head's group
 constexpr int kClusters = 15;  // clusters of 8 co-resident on the H100
 constexpr int kBlocks = kCluster * kClusters;
 constexpr int kUnit = 8;       // d_ff rows of fc1 (columns of fc2) a unit
-constexpr int kMaxParts = 16;  // partials a rebuild adds (heads, clusters)
+constexpr int kMaxParts = 16;  // partials a rebuild loads at once
+constexpr int kDhMax = 128;    // head dim: 3 dh values gathered a thread
+// shared memory a block can have on the H100 (227 KB): the regions that
+// would exceed it are read from device memory
+constexpr size_t kSmemBudget = 232448;
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -126,6 +139,8 @@ __host__ __device__ inline int take_floats(int& o, int n) {
 // memory: float32 scratch first, then the two staging regions.
 struct Geometry {
   int dh, dq, rows_o, kmax, emax, umax, lmax, w2_ld;
+  // the regions staged in shared memory (else read from device memory)
+  bool stage_w1, stage_k1, stage_r2, stage_r3;
   // float offsets
   int xs, vin, lnw, rowb, exch, qf, kf, vf, keyb, sc, pv, part, av, mvs, mid,
       fc2p, red;
@@ -133,7 +148,8 @@ struct Geometry {
   size_t r1, r1_bytes, r2, r2_bytes, r3, r3_bytes, total;
 };
 
-template <typename T>
+// kGeneral false: every region staged (the caller knows it fits)
+template <typename T, bool kGeneral = true>
 __host__ __device__ inline Geometry geometry(const ScanParams& P) {
   Geometry g;
   const int d = P.d;
@@ -168,19 +184,31 @@ __host__ __device__ inline Geometry geometry(const ScanParams& P) {
   g.fc2p = take_floats(o, d);
   g.red = take_floats(o, 64);
   const size_t es = sizeof(T);
-  g.r1 = (size_t)o * 4;
-  g.r1_bytes = es * ((size_t)3 * g.dq * d + 2 * (size_t)g.rows_o * g.dh
-                     + 2 * (size_t)g.kmax * g.dh);
-  g.r3_bytes = P.aligned ? 0
-                         : es * ((size_t)g.dq * d + (size_t)g.rows_o * g.dh
-                                 + 2 * (size_t)g.emax * g.dh);
+  const size_t w1 = es * ((size_t)3 * g.dq * d + 2 * (size_t)g.rows_o * g.dh);
+  const size_t k1 = es * 2 * (size_t)g.kmax * g.dh;
+  const size_t r3 = P.aligned ? 0
+                              : es * ((size_t)g.dq * d + (size_t)g.rows_o * g.dh
+                                      + 2 * (size_t)g.emax * g.dh);
   size_t mlp = es * (size_t)g.umax * kUnit * d;
   if (sizeof(T) == 2) mlp += es * (size_t)d * g.w2_ld;
   const size_t logit = es * (size_t)g.lmax * d;
-  g.r2_bytes = logit > mlp ? logit : mlp;
-  g.r2 = g.r1 + (g.r1_bytes + 15) / 16 * 16;
-  g.r3 = g.r2 + (g.r2_bytes + 15) / 16 * 16;
-  g.total = g.r3 + g.r3_bytes;
+  const size_t r2 = logit > mlp ? logit : mlp;
+  g.r1 = (size_t)o * 4;
+  // level 0 stages every region; each level reads one more from device
+  // memory: R2, R3, R1's weights, R1's keys
+  for (int level = 0; level < (kGeneral ? 5 : 1); ++level) {
+    g.stage_r2 = level < 1;
+    g.stage_r3 = level < 2;
+    g.stage_w1 = level < 3;
+    g.stage_k1 = level < 4;
+    g.r1_bytes = (g.stage_w1 ? w1 : 0) + (g.stage_k1 ? k1 : 0);
+    g.r2_bytes = g.stage_r2 ? r2 : 0;
+    g.r3_bytes = g.stage_r3 ? r3 : 0;
+    g.r2 = g.r1 + (g.r1_bytes + 15) / 16 * 16;
+    g.r3 = g.r2 + (g.r2_bytes + 15) / 16 * 16;
+    g.total = g.r3 + g.r3_bytes;
+    if (g.total <= kSmemBudget) break;
+  }
   return g;
 }
 
@@ -221,11 +249,11 @@ __device__ __forceinline__ float dot_vec(const float* w, const float* in,
   return acc;
 }
 
-// epi(r, W[r, :K] . in) for r < rows, LPR lanes a row; W (shared or device
-// memory) rows ldw elements apart, ``in`` float32 in shared memory
-template <int LPR, typename T, typename Epi>
-__device__ __forceinline__ void gemv(const T* W, int ldw, int rows, int K,
-                                     const float* in, Epi epi) {
+// epi(r, row(r)[:K] . in) for r < rows, LPR lanes a row; the rows in
+// shared or device memory, ``in`` float32 in shared memory
+template <int LPR, typename T, typename Row, typename Epi>
+__device__ __forceinline__ void gemv_rows(Row row_at, int rows, int K,
+                                          const float* in, Epi epi) {
   constexpr int V = Vec<T>::N, RPW = kWarp / LPR;
   const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
   const int sub = lane % LPR;
@@ -233,7 +261,7 @@ __device__ __forceinline__ void gemv(const T* W, int ldw, int rows, int K,
     const int r = r0 + lane / LPR;
     float acc = 0.f;
     if (r < rows) {
-      const T* row = W + (size_t)r * ldw;
+      const T* row = row_at(r);
       for (int c = sub * V; c < K; c += LPR * V) {
         float w[V];
         load_vec_rw(row + c, w);
@@ -245,6 +273,52 @@ __device__ __forceinline__ void gemv(const T* W, int ldw, int rows, int K,
       acc += __shfl_xor_sync(0xffffffffu, acc, o);
     if (sub == 0 && r < rows) epi(r, acc);
   }
+}
+// the same for W rows ldw elements apart
+template <int LPR, typename T, typename Epi>
+__device__ __forceinline__ void gemv(const T* W, int ldw, int rows, int K,
+                                     const float* in, Epi epi) {
+  gemv_rows<LPR, T>([=](int r) { return W + (size_t)r * ldw; }, rows, K, in,
+                    epi);
+}
+
+// loads of cached keys and values: from shared memory (G false) or from
+// device memory through L2 (G true: other blocks write the cache while the
+// kernel runs)
+template <bool G>
+__device__ __forceinline__ void load_key(const float* p, float* out) {
+  if (G) {
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else {
+    load_vec_rw(p, out);
+  }
+}
+template <bool G>
+__device__ __forceinline__ void load_key(const __nv_bfloat16* p,
+                                         float* out) {
+  if (G) {
+    uint4 u = __ldcg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      out[2 * k] = f.x;
+      out[2 * k + 1] = f.y;
+    }
+  } else {
+    load_vec_rw(p, out);
+  }
+}
+template <bool G>
+__device__ __forceinline__ float load_elem(const float* p) {
+  return G ? __ldcg(p) : *p;
+}
+template <bool G>
+__device__ __forceinline__ float load_elem(const __nv_bfloat16* p) {
+  return G ? __bfloat162float(__ushort_as_bfloat16(
+                 __ldcg(reinterpret_cast<const unsigned short*>(p))))
+           : to_f(*p);
 }
 
 // the sum of v over the block, every thread the same (the warps' sums
@@ -278,14 +352,15 @@ __device__ void layer_norm(const float* xs, const float* scale,
   __syncthreads();
 }
 
-// The attention partial of this block's n keys (staged ks, vs [n][dh]):
+// The attention partial of this block's n keys (ks, vs [n] rows kld
+// apart: staged in shared memory, or with G the cache in device memory):
 // s_j = (q . K_j) * scale + kb[j]; part = {max s, sum exp(s - max),
 // sum exp(s - max) V_j}. Four threads a key for q . K; thread (g, t) sums
 // dim t over the keys j = g mod (512 / dh).
-template <typename T>
-__device__ void attend_own(const T* ks, const T* vs, int n, const float* q,
-                           const float* kb, int dh, float scale, float* sc,
-                           float* pv, float* part) {
+template <bool G, typename T>
+__device__ void attend_own(const T* ks, const T* vs, int kld, int n,
+                           const float* q, const float* kb, int dh,
+                           float scale, float* sc, float* pv, float* part) {
   constexpr int V = Vec<T>::N;
   const int tid = threadIdx.x;
   const int pieces = dh / V;
@@ -295,7 +370,7 @@ __device__ void attend_own(const T* ks, const T* vs, int n, const float* q,
     if (j < n) {
       for (int pc = s; pc < pieces; pc += 4) {
         float kk[V];
-        load_vec_rw(ks + (size_t)j * dh + pc * V, kk);
+        load_key<G>(ks + (size_t)j * kld + pc * V, kk);
         a = dot_vec(kk, q + pc * V, V, a);
       }
     }
@@ -326,7 +401,7 @@ __device__ void attend_own(const T* ks, const T* vs, int n, const float* q,
     const int t = tid % dh, g = tid / dh;
     float a = 0.f;
     for (int j = g; j < n; j += groups)
-      a = fmaf(sc[j], to_f(vs[(size_t)j * dh + t]), a);
+      a = fmaf(sc[j], load_elem<G>(vs + (size_t)j * kld + t), a);
     pv[tid] = a;
   }
   __syncthreads();
@@ -378,13 +453,20 @@ __device__ __forceinline__ void key_range(int n_keys, int rank, int& j0,
   n = min(per, n_keys - j0);
 }
 
-template <typename T>
+// kGeneral: one head a cluster and every region staged (false: the full
+// test models' shapes, the code the general path adds compiled out), or
+// any head count and regions read from device memory where they do not fit
+template <typename T, bool kGeneral>
 __global__ void __launch_bounds__(kThreads, 1)
     decode_scan_kernel(const ScanParams P) {
   cg::grid_group grid = cg::this_grid();
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
-  const Geometry g = geometry<T>(P);
+  const Geometry g = geometry<T, kGeneral>(P);
+  const bool stage_w1 = !kGeneral || g.stage_w1;
+  const bool stage_k1 = !kGeneral || g.stage_k1;
+  const bool stage_r2 = !kGeneral || g.stage_r2;
+  const bool stage_r3 = !kGeneral || g.stage_r3;
   float* fs = reinterpret_cast<float*>(smem4);
   float* xs = fs + g.xs;
   float* vin = fs + g.vin;
@@ -411,8 +493,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int d = P.d, H = P.n_heads, dh = g.dh, dq = g.dq, c = P.channels;
   const int rows_o = g.rows_o, tid = threadIdx.x;
   const int rank = static_cast<int>(cluster.block_rank());
-  const int cid = blockIdx.x / kCluster;
-  const int head = cid < H ? cid : -1;
+  const int cid = blockIdx.x / kCluster;  // heads cid, cid + kClusters, ...
   const int U = P.d_ff / kUnit;
   const int f0 = blockIdx.x * U / kBlocks * kUnit;
   const int nf = (blockIdx.x + 1) * U / kBlocks * kUnit - f0;
@@ -444,7 +525,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   T* wqkv_s = r1;
   T* wo_s = wqkv_s + (size_t)3 * dq * d;
   T* woc_s = wo_s + (size_t)rows_o * dh;
-  T* ks = woc_s + (size_t)rows_o * dh;
+  T* ks = stage_w1 ? woc_s + (size_t)rows_o * dh : r1;
   T* vs = ks + (size_t)g.kmax * dh;
   // R3 (CROSS): wq_c rows [dq][d], wo_c slice, source keys and values
   T* wqc_s = r3;
@@ -456,29 +537,39 @@ __global__ void __launch_bounds__(kThreads, 1)
   T* w1_s = r2;
   T* w2_s = w1_s + (size_t)g.umax * kUnit * d;
   T* wl_s = r2;
+  const bool w2_staged = sizeof(T) == 2 && stage_r2;
 
-  auto prefetch_att = [&](int l, int p) {
-    if (head < 0) return;
-    const T* wl = wqkv + (size_t)l * 3 * dd;
-    for (int s = 0; s < 3; ++s)
-      stage(wqkv_s + (size_t)s * dq * d, d,
-            wl + ((size_t)s * d + head * dh + rank * dq) * d, d, dq, d);
-    const size_t o_at = (size_t)l * dd + (size_t)rank * rows_o * d + head * dh;
-    stage(wo_s, dh, wo + o_at, d, rows_o, dh);
-    if (P.aligned) stage(woc_s, dh, wo_c + o_at, d, rows_o, dh);
-    int j0, n;
-    key_range(p, rank, j0, n);
-    const T* kc = kv + (size_t)(2 * l) * P.l_pad * d + head * dh;
-    stage(ks, dh, kc + (size_t)j0 * d, d, n, dh);
-    stage(vs, dh, kc + (size_t)(P.l_pad + j0) * d, d, n, dh);
+  // where a head's slices lie in device memory
+  auto wqkv_row = [&](int l, int head, int r) {  // r < 3 dq: q, k, v rows
+    return wqkv + (size_t)l * 3 * dd
+           + ((size_t)(r / dq) * d + head * dh + rank * dq + r % dq) * d;
   };
-  auto prefetch_cross = [&](int l) {
-    if (head < 0) return;
+  auto o_slice = [&](const T* w, int l, int head) {  // [rows_o][dh], ld d
+    return w + (size_t)l * dd + (size_t)rank * rows_o * d + head * dh;
+  };
+  auto prefetch_att = [&](int l, int p, int head) {
+    if (head >= H) return;
+    if (stage_w1) {
+      const T* wl = wqkv + (size_t)l * 3 * dd;
+      for (int s = 0; s < 3; ++s)
+        stage(wqkv_s + (size_t)s * dq * d, d,
+              wl + ((size_t)s * d + head * dh + rank * dq) * d, d, dq, d);
+      stage(wo_s, dh, o_slice(wo, l, head), d, rows_o, dh);
+      if (P.aligned) stage(woc_s, dh, o_slice(wo_c, l, head), d, rows_o, dh);
+    }
+    if (stage_k1) {
+      int j0, n;
+      key_range(p, rank, j0, n);
+      const T* kc = kv + (size_t)(2 * l) * P.l_pad * d + head * dh;
+      stage(ks, dh, kc + (size_t)j0 * d, d, n, dh);
+      stage(vs, dh, kc + (size_t)(P.l_pad + j0) * d, d, n, dh);
+    }
+  };
+  auto prefetch_cross = [&](int l, int head) {
+    if (head >= H || !stage_r3) return;
     stage(wqc_s, d, wq_c + (size_t)l * dd + (size_t)(head * dh + rank * dq) * d,
           d, dq, d);
-    stage(woc2_s, dh,
-          wo_c + (size_t)l * dd + (size_t)rank * rows_o * d + head * dh, d,
-          rows_o, dh);
+    stage(woc2_s, dh, o_slice(wo_c, l, head), d, rows_o, dh);
     int e0, n;
     key_range(P.e_src, rank, e0, n);
     const size_t at = ((size_t)l * P.e_pad + e0) * d + head * dh;
@@ -486,18 +577,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     stage(mv_s, dh, mem_v + at, d, n, dh);
   };
   auto prefetch_mlp = [&](int l) {
+    if (!stage_r2) return;
     stage(w1_s, d, w1 + ((size_t)l * P.d_ff + f0) * d, d, nf, d);
-    if (sizeof(T) == 2)
+    if (w2_staged)
       stage(w2_s, g.w2_ld, w2 + (size_t)l * d * P.d_ff + f0, P.d_ff, d, nf);
   };
   auto prefetch_logits = [&]() {
-    stage(wl_s, d, w_logits + (size_t)lr0 * d, d, nl, d);
+    if (stage_r2) stage(wl_s, d, w_logits + (size_t)lr0 * d, d, nl, d);
   };
 
   // xs = xbuf[ph - 1] + (sum over k of parts[k] + (bias_a + bias_b)), in
   // that order; block 0 publishes it as xbuf[ph]; the LayerNorm's scale
-  // and bias into lnw. Every load is issued before its first use: one round
-  // trip.
+  // and bias into lnw. Every load of the first kMaxParts partials is issued
+  // before its first use: one round trip (more partials, more heads, come
+  // in further batches, added in order).
   auto rebuild = [&](int ph, const float* parts, int n_parts, const T* ba,
                      const T* bb, const float* ln_s, const float* ln_b) {
     const float* xp = P.xbuf + (size_t)((ph + 1) & 1) * d;
@@ -516,6 +609,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int k = 1; k < kMaxParts; ++k)
         if (k < n_parts) s += v[k];
+      for (int k0 = kMaxParts; kGeneral && k0 < n_parts; k0 += kMaxParts) {
+#pragma unroll
+        for (int k = 0; k < kMaxParts; ++k)
+          v[k] = k0 + k < n_parts ? __ldcg(parts + (size_t)(k0 + k) * d + r)
+                                  : 0.f;
+#pragma unroll
+        for (int k = 0; k < kMaxParts; ++k)
+          if (k0 + k < n_parts) s += v[k];
+      }
       const float x = x0 + (s + b);
       xs[r] = x;
       if (blockIdx.x == 0) xc[r] = x;
@@ -524,10 +626,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // the head's (self or cross) attention once every block's q dims are in
   // its exch (behind a cluster barrier): gather q (and the fresh k, v)
-  // through the cluster, attend this block's keys, combine the cluster's
+  // through the cluster, attend this block's keys (staged, or with
+  // ``direct`` rows kld apart in device memory), combine the cluster's
   // partials into av
-  auto attention = [&](const T* k_s, const T* v_s, int n, bool fresh,
-                       float bias_fresh) {
+  auto attention = [&](const T* k_s, const T* v_s, int kld, bool direct,
+                       int n, bool fresh, float bias_fresh) {
     const int parts_n = fresh ? 3 : 1;
     if (tid < parts_n * dh) {
       const int which = tid / dh, t = tid % dh;
@@ -542,7 +645,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int t = tid % kWarp; t < dh; t += kWarp) s = fmaf(qf[t], kf[t], s);
       lp = warp_sum(s) * P.scale + bias_fresh;
     }
-    attend_own<T>(k_s, v_s, n, qf, keyb, dh, P.scale, sc, pv, part);
+    if (direct)
+      attend_own<true, T>(k_s, v_s, kld, n, qf, keyb, dh, P.scale, sc, pv,
+                          part);
+    else
+      attend_own<false, T>(k_s, v_s, kld, n, qf, keyb, dh, P.scale, sc, pv,
+                           part);
     cluster.sync();
     combine<T>(cluster, part, dh, fresh, lp, vf, av);
   };
@@ -590,13 +698,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
 
   int ph = 0;  // phases so far: the residual's double buffer
-  prefetch_att(0, P.p0);
+  prefetch_att(0, P.p0, cid);
   for (int p = P.p0; p < P.steps; ++p) {
     for (int l = 0; l < P.n_layers; ++l) {
       const float* ln = P.ln + (size_t)l * 6 * d;
       const size_t bias_row = ((size_t)l * P.steps_pad + p) * H;
       // ---- ATT
-      if (head >= 0) {
+      if (cid < H) {
         if (l == 0) {
           int tok;
           if (p < c) tok = P.n_class;  // start rows: the all-zeros row
@@ -617,74 +725,123 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         int j0, n;
         key_range(p, rank, j0, n);
-        const float* brow = P.bias_hm + (bias_row + head) * P.l_pad;
-        for (int j = tid; j < n; j += kThreads) keyb[j] = brow[j0 + j];
-        const float bias_fresh = brow[p];
-        if (tid < 3 * dq) {
-          const int s = tid / dq;
-          rowb[tid] = to_f(bqkv[(size_t)l * 3 * d + s * d + head * dh
-                                + rank * dq + tid % dq]);
-        }
-        if (P.aligned && tid < dh) {
-          const int e_q = p / c;
-          mvs[tid] = e_q < P.e_pad
-                         ? to_f(mem_v[((size_t)l * P.e_pad + e_q) * d
-                                      + head * dh + tid])
-                         : 0.f;
-        }
-        cp_async_wait_all();
-        __syncthreads();
-        layer_norm<T>(xs, lnw, lnw + d, d, vin, red);
-        gemv<kWarp>(wqkv_s, d, 3 * dq, d, vin,
-                    [&](int r, float acc) { exch[r] = acc + rowb[r]; });
-        __syncthreads();
-        // this block's dims of the fresh K/V row p (read from the next step
-        // on)
-        if (tid >= dq && tid < 3 * dq) {
-          const int s = tid / dq - 1;
-          kv[((size_t)(2 * l + s) * P.l_pad + p) * d + head * dh + rank * dq
-             + tid % dq] = from_f<T>(exch[tid]);
-        }
-        cluster.sync();
-        attention(ks, vs, n, true, bias_fresh);
-        float* out = P.part_att + (size_t)head * d + rank * rows_o;
-        // aligned: wo's sum waits in fc2p (free until MLP) for wo_c's; the
-        // same lane owns row r in both products
-        gemv<8>(wo_s, dh, rows_o, dh, av, [&](int r, float acc) {
-          if (P.aligned) fc2p[r] = acc;
-          else out[r] = acc;
-        });
-        if (P.aligned) {
-          gemv<8>(woc_s, dh, rows_o, dh, mvs,
-                  [&](int r, float acc) { out[r] = fc2p[r] + acc; });
-        }
+        // one head of the cluster; ``first``: its slices were staged before
+        // the grid barrier and the LayerNorm is still to take
+        auto att_head = [&](int head, bool first) {
+          if (!first) {
+            __syncthreads();  // the last head's slices are consumed
+            prefetch_att(l, p, head);
+          }
+          const float* brow = P.bias_hm + (bias_row + head) * P.l_pad;
+          for (int j = tid; j < n; j += kThreads) keyb[j] = brow[j0 + j];
+          const float bias_fresh = brow[p];
+          if (tid < 3 * dq) {
+            const int s = tid / dq;
+            rowb[tid] = to_f(bqkv[(size_t)l * 3 * d + s * d + head * dh
+                                  + rank * dq + tid % dq]);
+          }
+          if (P.aligned && tid < dh) {
+            const int e_q = p / c;
+            mvs[tid] = e_q < P.e_pad
+                           ? to_f(mem_v[((size_t)l * P.e_pad + e_q) * d
+                                        + head * dh + tid])
+                           : 0.f;
+          }
+          cp_async_wait_all();
+          __syncthreads();
+          if (first) layer_norm<T>(xs, lnw, lnw + d, d, vin, red);
+          const auto to_exch = [&](int r, float acc) {
+            exch[r] = acc + rowb[r];
+          };
+          if (stage_w1)
+            gemv<kWarp>(wqkv_s, d, 3 * dq, d, vin, to_exch);
+          else
+            gemv_rows<kWarp, T>([&](int r) { return wqkv_row(l, head, r); },
+                                3 * dq, d, vin, to_exch);
+          __syncthreads();
+          // this block's dims of the fresh K/V row p (read from the next
+          // step on)
+          if (tid >= dq && tid < 3 * dq) {
+            const int s = tid / dq - 1;
+            kv[((size_t)(2 * l + s) * P.l_pad + p) * d + head * dh
+               + rank * dq + tid % dq] = from_f<T>(exch[tid]);
+          }
+          cluster.sync();
+          const T* kc = kv + (size_t)(2 * l) * P.l_pad * d + head * dh;
+          if (stage_k1)
+            attention(ks, vs, dh, false, n, true, bias_fresh);
+          else
+            attention(kc + (size_t)j0 * d, kc + (size_t)(P.l_pad + j0) * d,
+                      d, true, n, true, bias_fresh);
+          float* out = P.part_att + (size_t)head * d + rank * rows_o;
+          // aligned: wo's sum waits in fc2p (free until MLP) for wo_c's;
+          // the same lane owns row r in both products
+          const T* wo_w = stage_w1 ? wo_s : o_slice(wo, l, head);
+          const T* woc_w = stage_w1 ? woc_s : o_slice(wo_c, l, head);
+          const int ld_o = stage_w1 ? dh : d;
+          gemv<8>(wo_w, ld_o, rows_o, dh, av, [&](int r, float acc) {
+            if (P.aligned) fc2p[r] = acc;
+            else out[r] = acc;
+          });
+          if (P.aligned) {
+            gemv<8>(woc_w, ld_o, rows_o, dh, mvs,
+                    [&](int r, float acc) { out[r] = fc2p[r] + acc; });
+          }
+        };
+        // one body either way (the general kernel's loop takes a runtime
+        // ``first``: inlined twice, it spilled more and ran slower)
+        if (kGeneral)
+          for (int head = cid; head < H; head += kClusters)
+            att_head(head, head == cid);
+        else
+          att_head(cid, true);
       }
-      if (P.aligned || head < 0) prefetch_mlp(l);
-      else prefetch_cross(l);
+      if (P.aligned || cid >= H) prefetch_mlp(l);
+      else prefetch_cross(l, cid);
       grid.sync();
       ++ph;
 
       if (!P.aligned) {
         // ---- CROSS
-        if (head >= 0) {
+        if (cid < H) {
           rebuild(ph, P.part_att, H, bo + (size_t)l * d, nullptr, ln + 2 * d,
                   ln + 3 * d);
           int e0, n;
           key_range(P.e_src, rank, e0, n);
-          const float* crow = P.cross_hm + (bias_row + head) * P.e_pad;
-          for (int j = tid; j < n; j += kThreads) keyb[j] = crow[e0 + j];
-          if (tid < dq)
-            rowb[tid] = to_f(bq_c[(size_t)l * d + head * dh + rank * dq + tid]);
-          cp_async_wait_all();
-          __syncthreads();
-          layer_norm<T>(xs, lnw, lnw + d, d, vin, red);
-          gemv<kWarp>(wqc_s, d, dq, d, vin,
-                      [&](int r, float acc) { exch[r] = acc + rowb[r]; });
-          cluster.sync();
-          attention(mk_s, mv_s, n, false, 0.f);
-          float* out = P.part_cross + (size_t)head * d + rank * rows_o;
-          gemv<8>(woc2_s, dh, rows_o, dh, av,
-                  [&](int r, float acc) { out[r] = acc; });
+          auto cross_head = [&](int head, bool first) {
+            if (!first) {
+              __syncthreads();  // the last head's slices are consumed
+              prefetch_cross(l, head);
+            }
+            const float* crow = P.cross_hm + (bias_row + head) * P.e_pad;
+            for (int j = tid; j < n; j += kThreads) keyb[j] = crow[e0 + j];
+            if (tid < dq)
+              rowb[tid] =
+                  to_f(bq_c[(size_t)l * d + head * dh + rank * dq + tid]);
+            cp_async_wait_all();
+            __syncthreads();
+            if (first) layer_norm<T>(xs, lnw, lnw + d, d, vin, red);
+            gemv<kWarp>(stage_r3 ? wqc_s
+                                 : wq_c + (size_t)l * dd
+                                       + (size_t)(head * dh + rank * dq) * d,
+                        d, dq, d, vin,
+                        [&](int r, float acc) { exch[r] = acc + rowb[r]; });
+            cluster.sync();
+            const size_t at = ((size_t)l * P.e_pad + e0) * d + head * dh;
+            if (stage_r3)
+              attention(mk_s, mv_s, dh, false, n, false, 0.f);
+            else
+              attention(mem_k + at, mem_v + at, d, true, n, false, 0.f);
+            float* out = P.part_cross + (size_t)head * d + rank * rows_o;
+            gemv<8>(stage_r3 ? woc2_s : o_slice(wo_c, l, head),
+                    stage_r3 ? dh : d, rows_o, dh, av,
+                    [&](int r, float acc) { out[r] = acc; });
+          };
+          if (kGeneral)
+            for (int head = cid; head < H; head += kClusters)
+              cross_head(head, head == cid);
+          else
+            cross_head(cid, true);
           prefetch_mlp(l);
         }
         grid.sync();
@@ -702,14 +859,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       cp_async_wait_all();
       __syncthreads();
       layer_norm<T>(xs, lnw, lnw + d, d, vin, red);
-      gemv<kWarp>(w1_s, d, nf, d, vin, [&](int r, float acc) {
-        mid[r] = round_to<T>(fmaxf(acc + rowb[r], 0.f));
-      });
+      gemv<kWarp>(stage_r2 ? w1_s : w1 + ((size_t)l * P.d_ff + f0) * d, d,
+                  nf, d, vin, [&](int r, float acc) {
+                    mid[r] = round_to<T>(fmaxf(acc + rowb[r], 0.f));
+                  });
       __syncthreads();
       {
         constexpr int V = Vec<T>::N;
-        const T* w2p = sizeof(T) == 2 ? w2_s : w2 + (size_t)l * d * P.d_ff + f0;
-        const int ld2 = sizeof(T) == 2 ? g.w2_ld : P.d_ff;
+        const T* w2p = w2_staged ? w2_s : w2 + (size_t)l * d * P.d_ff + f0;
+        const int ld2 = w2_staged ? g.w2_ld : P.d_ff;
         for (int r = tid; r < d; r += kThreads) {
           float acc = 0.f;
           for (int u = 0; u < nf; u += V) {
@@ -729,7 +887,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           s += cluster.map_shared_rank(fc2p, i)[row];
         P.part_mlp[(size_t)cid * d + row] = s;
       }
-      if (l + 1 < P.n_layers) prefetch_att(l + 1, p);
+      if (l + 1 < P.n_layers) prefetch_att(l + 1, p, cid);
       else prefetch_logits();
       grid.sync();
       ++ph;
@@ -742,10 +900,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     cp_async_wait_all();
     __syncthreads();
     layer_norm<T>(xs, lnw, lnw + d, d, vin, red);
-    gemv<kWarp>(wl_s, d, nl, d, vin, [&](int r, float acc) {
-      P.logits[lr0 + r] = (acc + rowb[r]) / P.temperature;
-    });
-    if (p + 1 < P.steps) prefetch_att(0, p + 1);
+    gemv<kWarp>(stage_r2 ? wl_s : w_logits + (size_t)lr0 * d, d, nl, d, vin,
+                [&](int r, float acc) {
+                  P.logits[lr0 + r] = (acc + rowb[r]) / P.temperature;
+                });
+    if (p + 1 < P.steps) prefetch_att(0, p + 1, cid);
     grid.sync();
     ++ph;
   }
@@ -757,16 +916,25 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <typename T>
 cudaError_t shape_ok(const ScanParams& P) {
   const int d = P.d, H = P.n_heads;
-  if (H < 1 || H > kClusters || d % H || P.n_layers < 1 || P.channels < 1)
+  if (H < 1 || d % H || P.n_layers < 1 || P.channels < 1)
     return cudaErrorInvalidValue;
   const int dh = d / H;
-  if (dh % kCluster || dh > 64 || d % kCluster || d % 8 || P.d_ff % kUnit
+  if (dh % kCluster || dh > kDhMax || d % kCluster || d % 8 || P.d_ff % kUnit
       || P.n_class < 1)
     return cudaErrorInvalidValue;
   if (P.p0 < 0 || P.steps > P.l_pad || P.steps > P.steps_pad
       || (!P.aligned && P.e_src < 1))
     return cudaErrorInvalidValue;
   return cudaSuccess;
+}
+
+// the kernel of a shape: the general one for more heads than clusters or
+// a region that does not fit
+template <typename T>
+void (*kernel_for(const ScanParams& P))(const ScanParams) {
+  return P.n_heads > kClusters || !geometry<T>(P).stage_r2
+             ? decode_scan_kernel<T, true>
+             : decode_scan_kernel<T, false>;
 }
 
 template <typename T>
@@ -783,7 +951,7 @@ cudaError_t configure(const ScanParams& P, cudaLaunchConfig_t* cfg,
   if (!coop) return cudaErrorNotSupported;
   const size_t smem = geometry<T>(P).total;
   if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(decode_scan_kernel<T>,
+  e = cudaFuncSetAttribute(kernel_for<T>(P),
                            cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (e != cudaSuccess) return e;
   *cfg = cudaLaunchConfig_t{};
@@ -798,7 +966,7 @@ cudaError_t configure(const ScanParams& P, cudaLaunchConfig_t* cfg,
   attrs[1].val.cooperative = 1;
   cfg->attrs = attrs;
   cfg->numAttrs = 1;  // the occupancy query takes the cluster shape alone
-  e = cudaOccupancyMaxActiveClusters(clusters, decode_scan_kernel<T>, cfg);
+  e = cudaOccupancyMaxActiveClusters(clusters, kernel_for<T>(P), cfg);
   if (e != cudaSuccess) return e;
   if (*clusters < kClusters) return cudaErrorCooperativeLaunchTooLarge;
   cfg->numAttrs = 2;
@@ -813,14 +981,16 @@ cudaError_t launch(const ScanParams& P, cudaStream_t stream) {
   cudaError_t e = configure<T>(P, &cfg, attrs, &clusters);
   if (e != cudaSuccess) return e;
   cfg.stream = stream;
-  e = cudaLaunchKernelEx(&cfg, decode_scan_kernel<T>, P);
+  e = cudaLaunchKernelEx(&cfg, kernel_for<T>(P), P);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// info[0..7] = grid blocks, cluster size, threads a block, dynamic
+// info[0..10] = grid blocks, cluster size, threads a block, dynamic
 // shared-memory bytes, registers a thread, local (spilled) bytes a thread,
-// grid barriers a step, clusters of 8 that can co-reside
+// grid barriers a step, clusters of 8 that can co-reside, heads a cluster
+// at most, the regions staged in shared memory (bits: 1 R1's weights, 2
+// R1's keys, 4 R2, 8 R3), 1 when the general kernel runs
 template <typename T>
 cudaError_t info(const ScanParams& P, int* out) {
   cudaLaunchConfig_t cfg;
@@ -829,7 +999,7 @@ cudaError_t info(const ScanParams& P, int* out) {
   cudaError_t e = configure<T>(P, &cfg, attrs, &clusters);
   if (e != cudaSuccess) return e;
   cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, decode_scan_kernel<T>);
+  e = cudaFuncGetAttributes(&attr, kernel_for<T>(P));
   if (e != cudaSuccess) return e;
   out[0] = kBlocks;
   out[1] = kCluster;
@@ -839,6 +1009,11 @@ cudaError_t info(const ScanParams& P, int* out) {
   out[5] = static_cast<int>(attr.localSizeBytes);
   out[6] = (P.aligned ? 2 : 3) * P.n_layers + 1;
   out[7] = clusters;
+  out[8] = cdiv(P.n_heads, kClusters);
+  const Geometry g = geometry<T>(P);
+  out[9] = g.stage_w1 | g.stage_k1 << 1 | g.stage_r2 << 2
+           | (!P.aligned && g.stage_r3) << 3;
+  out[10] = kernel_for<T>(P) == decode_scan_kernel<T, true>;
   return cudaSuccess;
 }
 

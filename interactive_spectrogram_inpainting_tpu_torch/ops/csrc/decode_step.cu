@@ -31,7 +31,7 @@ extern "C" int isi_decode_step(const StepParams* P, int dtype, void* stream) {
   return step_entry<false>(P, dtype, stream);
 }
 
-// info[6]: see step_info. Returns a cudaError_t code (a refused shape).
+// info[7]: see step_info. Returns a cudaError_t code (a refused shape).
 extern "C" int isi_decode_step_info(const StepParams* P, int dtype,
                                     int* info) {
   return step_info_entry<false>(P, dtype, info);

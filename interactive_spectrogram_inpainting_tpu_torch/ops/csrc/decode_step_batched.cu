@@ -34,7 +34,7 @@ extern "C" int isi_decode_step_batched(const StepParams* P, int dtype,
   return step_entry<true>(P, dtype, stream);
 }
 
-// info[6]: see step_info. Returns a cudaError_t code (a refused shape).
+// info[7]: see step_info. Returns a cudaError_t code (a refused shape).
 extern "C" int isi_decode_step_batched_info(const StepParams* P, int dtype,
                                             int* info) {
   if (!P->aligned) return cudaErrorInvalidValue;

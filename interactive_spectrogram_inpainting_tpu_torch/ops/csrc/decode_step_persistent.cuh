@@ -36,15 +36,22 @@
 // Attention: flash-decoding over chunks of key_chunk() keys. Each block
 // takes whole (sequence, head) pairs, dealt round robin, in rounds of up
 // to 16 pairs whose partials fit kMaxItems; a round's (pair, chunk) items
-// are dealt over the block's warps. A warp copies its chunk's key and
+// are dealt over the block's warps (half of them above head_dim 64, whose
+// key slots are twice as wide). A warp copies its chunk's key and
 // value rows into its own shared-memory slot with cp.async (one memory
 // round trip, no registers held), then takes one key a lane for q.k and
-// two head dims a lane for p.V, and leaves its partial (max, sum, p.V) in
+// two head dims a lane for p.V (four above head_dim 64: dims 2 lane and
+// 64 + 2 lane), and leaves its partial (max, sum, p.V) in
 // shared memory; with ROUND the query, the q.k products, the weights that
 // multiply V and those products are rounded to T (as attend_partial_kernel
 // does). After a __syncthreads one warp per pair combines the partials
 // with the fresh key of this position, writes the attention output and
 // stores the new K/V row at ``pos`` (rows < pos are the only ones read).
+//
+// Wide models: a LayerNorm row wider than 1024 is streamed three times
+// from L2 instead of held in registers; a d_ff whose fc2 operand would not
+// fit shared memory (8192) is multiplied in column tiles of d_ff
+// (ff_tile()), the tiles' sums added in order in shared memory.
 //
 // Nothing returns to the host inside a step: the sampled token is written
 // by the last phase where ``take`` is set.
@@ -104,20 +111,37 @@ constexpr int kStepThreads = 512;
 constexpr int kStepWarps = kStepThreads / kWarp;
 constexpr int kGroup = 16;      // sequences per weight-product group (M)
 constexpr int kTileRows = 8;    // weight rows per tile (N)
-constexpr int kStepDhMax = 64;  // head dim: two per lane
-constexpr int kLnPerLane = 32;  // d_model <= 32 * kWarp (LN row in registers)
+constexpr int kStepDhMax = 128;  // head dim: two or four per lane
+constexpr int kLnPerLane = 32;  // LN rows up to 32 * kWarp in registers
 constexpr int kInFlight = 4;    // 16-byte weight loads a lane keeps in flight
-constexpr int kMaxItems = 128;  // attention partials a block holds
+constexpr int kMaxItems = 128;  // attention partials a block holds (dh 64)
+// floats of the attention partials (kMaxItems rows of head_dim 64) and of
+// a round's queries
+constexpr int kPartFloats = kMaxItems * (64 + 2);
+constexpr int kQsFloats = kStepWarps * 64;
+// shared memory a block can have on the H100 (227 KB)
+constexpr size_t kStepSmemBudget = 232448;
 
 // keys of an attention chunk (one a lane): 32, or 16 in float32, whose
 // staged rows are twice as wide
 template <typename T> __host__ __device__ constexpr int key_chunk() {
   return sizeof(T) == 2 ? 32 : 16;
 }
-// a staged key or value row: Dh + 16 bytes, so that lane j's 16-byte
-// reads of row j fall in other banks than its neighbours'
-template <typename T> __host__ __device__ constexpr int key_row() {
-  return kStepDhMax + 16 / static_cast<int>(sizeof(T));
+// W (wide): the kernel built for head_dim up to 128, d_model above 1024
+// or fc2 in column tiles of d_ff (step_wide); else for the full test
+// models' shapes, none of the wide code compiled in.
+// a staged key or value row: 64 (W: 128) dims + 16 bytes, so that lane j's
+// 16-byte reads of row j fall in other banks than its neighbours'
+template <typename T, bool W> __host__ __device__ constexpr int key_row() {
+  return (W ? 128 : 64) + 16 / static_cast<int>(sizeof(T));
+}
+// warps that take attention items: all of them, half when W
+template <bool W> __host__ __device__ constexpr int attend_warps() {
+  return W ? kStepWarps / 2 : kStepWarps;
+}
+// attention chunks of one pair that fit the partials
+template <bool W> __host__ __device__ inline int max_items(int dh) {
+  return W ? kPartFloats / (dh + 2) : kMaxItems;
 }
 // a row of the A operand in shared memory: bf16 rows padded so that the
 // 16-byte reads of rows g and g + 1 fall in different banks
@@ -181,7 +205,7 @@ struct SliceProduct<__nv_bfloat16, NOP> {
   using T = __nv_bfloat16;
   static __device__ __forceinline__ void run(
       const T* const (&W)[NOP], const T* const (&A)[NOP], int stride, int N,
-      int K, int nb, int r0, int s, int wpt, float* red) {
+      int K, int ldw, int nb, int r0, int s, int wpt, float* red) {
     constexpr int V = 8, CW = 4 * V;
     const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
     const int r = r0 + g;
@@ -200,7 +224,7 @@ struct SliceProduct<__nv_bfloat16, NOP> {
         for (int op = 0; op < NOP; ++op)
           w[op][u] = (cc < n_chunks && r < N)
                          ? __ldg(reinterpret_cast<const uint4*>(
-                               W[op] + (size_t)r * K + cc * CW + t * V))
+                               W[op] + (size_t)r * ldw + cc * CW + t * V))
                          : make_uint4(0, 0, 0, 0);
       }
 #pragma unroll
@@ -241,7 +265,7 @@ struct SliceProduct<float, NOP> {
   using T = float;
   static __device__ __forceinline__ void run(
       const T* const (&W)[NOP], const T* const (&A)[NOP], int stride, int N,
-      int K, int nb, int r0, int s, int wpt, float* red) {
+      int K, int ldw, int nb, int r0, int s, int wpt, float* red) {
     constexpr int V = 4, CW = 4 * V;
     const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
     const int r = r0 + g;
@@ -260,7 +284,7 @@ struct SliceProduct<float, NOP> {
         for (int op = 0; op < NOP; ++op)
           w[op][u] = (cc < n_chunks && r < N)
                          ? __ldg(reinterpret_cast<const float4*>(
-                               W[op] + (size_t)r * K + cc * CW + t * V))
+                               W[op] + (size_t)r * ldw + cc * CW + t * V))
                          : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
@@ -304,12 +328,13 @@ struct SliceProduct<float, NOP> {
 
 // out[m, r] = epi(m, r, A0[m] . W0[r] [, A1[m] . W1[r]]) for every row r < N
 // of the tiles this block owns and every sequence m < nb of the pass staged
-// in A0 (A1) ([groups * kGroup, stride]). Called by the whole block; ends
-// with __syncthreads.
+// in A0 (A1) ([groups * kGroup, stride]), over K columns of W rows ldw
+// apart (0: K). Called by the whole block; ends with __syncthreads.
 template <typename T, int NOP, typename Epi>
 __device__ void block_products(const T* const (&W)[NOP],
                                const T* const (&A)[NOP], int stride, int N,
-                               int K, int nb, float* red, Epi epi) {
+                               int K, int nb, float* red, Epi epi,
+                               int ldw = 0) {
   const int warp = threadIdx.x / kWarp;
   const int G = gridDim.x;
   const int ng = (nb + kGroup - 1) / kGroup;  // groups of the pass
@@ -326,7 +351,7 @@ __device__ void block_products(const T* const (&W)[NOP],
         const T* Ag[NOP];
 #pragma unroll
         for (int op = 0; op < NOP; ++op) Ag[op] = A[op] + g * kGroup * stride;
-        SliceProduct<T, NOP>::run(W, Ag, stride, N, K,
+        SliceProduct<T, NOP>::run(W, Ag, stride, N, K, ldw ? ldw : K,
                                   min(kGroup, nb - g * kGroup),
                                   tile * kTileRows, s, wpt,
                                   red + (warp * ng + g) * NOP * 128);
@@ -356,10 +381,25 @@ __device__ void block_products(const T* const (&W)[NOP],
 // The LayerNorm of one row by one warp, the row held in registers:
 // out[i] = T((x[i] - mu) * rsqrt(var + 1e-6) * scale[i] + bias[i]), with
 // x[i] = load(i) (flax LayerNorm; lane i mod 32 sums elements i).
-template <typename T, typename Load>
+template <typename T, bool W, typename Load>
 __device__ __forceinline__ void warp_ln_row(Load load, const float* scale,
                                             const float* bias, int d, T* out) {
   const int lane = threadIdx.x % kWarp;
+  if (W && d > kLnPerLane * kWarp) {
+    // wider than the registers hold: the row's loads three times over
+    float s = 0.f;
+    for (int i = lane; i < d; i += kWarp) s += load(i);
+    const float mu = warp_sum(s) / d;
+    float var = 0.f;
+    for (int i = lane; i < d; i += kWarp) {
+      const float dv = load(i) - mu;
+      var += dv * dv;
+    }
+    const float rs = rsqrtf(warp_sum(var) / d + 1e-6f);
+    for (int i = lane; i < d; i += kWarp)
+      out[i] = from_f<T>((load(i) - mu) * rs * scale[i] + bias[i]);
+    return;
+  }
   float v[kLnPerLane];
   float s = 0.f;
 #pragma unroll
@@ -412,24 +452,28 @@ __device__ void stage_rows(const T* src, size_t src_row, int b0, int nb,
 // of qkv [B, 3d] at this position, its bias entry bias[h * bias_h + pos])
 // and stores k, v at row ``pos`` of K/Vv. The output goes to out [B, d]
 // (T). ``stage`` holds every warp's key and value slot, ``qs`` the round's
-// queries (kStepWarps x kStepDhMax floats).
-template <typename T, bool ROUND>
+// queries (kQsFloats floats).
+template <typename T, bool ROUND, bool W>
 __device__ void attend(const StepParams& P, const float* q, int q_row,
                        const T* K, T* Vv, size_t kv_b, const float* bias,
                        int bias_h, int n_keys, bool fresh, T* out, T* stage,
                        float* parts, float* qs) {
-  constexpr int KC = key_chunk<T>(), RS = key_row<T>(), V = Vec<T>::N;
+  constexpr int KC = key_chunk<T>(), V = Vec<T>::N;
   const int d = P.d, H = P.n_heads, dh = d / H;
+  constexpr int RS = key_row<T, W>(), AW = attend_warps<W>();
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int n_items = n_keys > 0 ? (n_keys + KC - 1) / KC : 1;
-  const int by_slots = kMaxItems / n_items;
-  const int R = by_slots < kStepWarps ? by_slots : kStepWarps;  // >= 1
+  const int row = dh + 2;
+  const int by_slots = W ? kPartFloats / (n_items * row)
+                        : kMaxItems / n_items;
+  int R = by_slots < kStepWarps ? by_slots : kStepWarps;  // >= 1
+  if (W) R = R < kQsFloats / dh ? R : kQsFloats / dh;
   const int G = gridDim.x, pairs = P.batch * H;
   const int mine =
       pairs > (int)blockIdx.x ? (pairs - blockIdx.x + G - 1) / G : 0;
-  const int row = dh + 2;
-  const int t0 = 2 * lane;
-  const bool act = t0 < dh;
+  // the lane's head dims: t0, t0 + 1 and (head_dim > 64) t1, t1 + 1
+  const int t0 = 2 * lane, t1 = t0 + 64;
+  const bool act = t0 < dh, act1 = W && t1 < dh;
   const int pieces = dh / V;  // 16-byte pieces of a key row
   T* ks = stage + warp * 2 * KC * RS;
   T* vs = ks + KC * RS;
@@ -442,7 +486,7 @@ __device__ void attend(const StepParams& P, const float* q, int q_row,
       qs[e] = ROUND ? round_to<T>(v) : v;
     }
     __syncthreads();
-    for (int it = warp; it < np * n_items; it += kStepWarps) {
+    for (int it = warp; warp < AW && it < np * n_items; it += AW) {
       const int c = it % n_items, pslot = it / n_items;
       const int bh = blockIdx.x + (r0 + pslot) * G;
       const int h = bh % H, b = bh / H;
@@ -478,7 +522,7 @@ __device__ void attend(const StepParams& P, const float* q, int q_row,
       float p = valid ? expf(sc - m) : 0.f;
       const float l = warp_sum(p);
       if (ROUND) p = round_to<T>(p);
-      float a0 = 0.f, a1 = 0.f;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
 #pragma unroll 8
       for (int jj = 0; jj < KC; ++jj) {
         const float pj = __shfl_sync(0xffffffffu, p, jj);
@@ -493,6 +537,17 @@ __device__ void attend(const StepParams& P, const float* q, int q_row,
             a1 = fmaf(pj, v1, a1);
           }
         }
+        if (jj < n && act1) {
+          float v0, v1;
+          load2(vs + jj * RS + t1, v0, v1);
+          if (ROUND) {
+            a2 += round_to<T>(pj * v0);
+            a3 += round_to<T>(pj * v1);
+          } else {
+            a2 = fmaf(pj, v0, a2);
+            a3 = fmaf(pj, v1, a3);
+          }
+        }
       }
       float* o = parts + it * row;
       if (lane == 0) {
@@ -503,6 +558,10 @@ __device__ void attend(const StepParams& P, const float* q, int q_row,
         o[2 + t0] = a0;
         o[3 + t0] = a1;
       }
+      if (act1) {
+        o[2 + t1] = a2;
+        o[3 + t1] = a3;
+      }
       __syncwarp();  // the slot is free for the warp's next item
     }
     __syncthreads();
@@ -512,9 +571,11 @@ __device__ void attend(const StepParams& P, const float* q, int q_row,
       const int bh = blockIdx.x + (r0 + warp) * G;
       const int h = bh % H, b = bh / H;
       const float* pc = parts + warp * n_items * row;
-      float lp = -INFINITY, vf0 = 0.f, vf1 = 0.f;
+      float lp = -INFINITY, vf0 = 0.f, vf1 = 0.f, vf2 = 0.f, vf3 = 0.f;
       if (fresh) {
         const float* qkv = q + (size_t)b * q_row;  // q_row == 3d
+        const size_t at = b * kv_b + (size_t)P.pos * d + h * dh;
+        T* kw = const_cast<T*>(K) + at;
         float s = 0.f;
         if (act) {
           const float k0 = ldcg(qkv + d + h * dh + t0);
@@ -523,12 +584,22 @@ __device__ void attend(const StepParams& P, const float* q, int q_row,
           vf1 = ldcg(qkv + 2 * d + h * dh + t0 + 1);
           s = fmaf(ldcg(qkv + h * dh + t0 + 1), k1,
                    ldcg(qkv + h * dh + t0) * k0);
-          const size_t at = b * kv_b + (size_t)P.pos * d + h * dh + t0;
-          T* kw = const_cast<T*>(K) + at;
-          kw[0] = from_f<T>(k0);
-          kw[1] = from_f<T>(k1);
-          Vv[at] = from_f<T>(vf0);
-          Vv[at + 1] = from_f<T>(vf1);
+          kw[t0] = from_f<T>(k0);
+          kw[t0 + 1] = from_f<T>(k1);
+          Vv[at + t0] = from_f<T>(vf0);
+          Vv[at + t0 + 1] = from_f<T>(vf1);
+        }
+        if (act1) {
+          const float k2 = ldcg(qkv + d + h * dh + t1);
+          const float k3 = ldcg(qkv + d + h * dh + t1 + 1);
+          vf2 = ldcg(qkv + 2 * d + h * dh + t1);
+          vf3 = ldcg(qkv + 2 * d + h * dh + t1 + 1);
+          s += fmaf(ldcg(qkv + h * dh + t1 + 1), k3,
+                    ldcg(qkv + h * dh + t1) * k2);
+          kw[t1] = from_f<T>(k2);
+          kw[t1 + 1] = from_f<T>(k3);
+          Vv[at + t1] = from_f<T>(vf2);
+          Vv[at + t1 + 1] = from_f<T>(vf3);
         }
         lp = warp_sum(s) * P.scale + bias[(size_t)h * bias_h + P.pos];
       }
@@ -537,6 +608,7 @@ __device__ void attend(const StepParams& P, const float* q, int q_row,
       mm = warp_max(mm);
       const float wf = fresh ? expf(lp - mm) : 0.f;
       float den = 0.f, acc0 = wf * vf0, acc1 = wf * vf1;
+      float acc2 = wf * vf2, acc3 = wf * vf3;
       for (int c = 0; c < n_items; ++c) {
         const float mc = pc[c * row];
         const float w = mc == -INFINITY ? 0.f : expf(mc - mm);
@@ -545,13 +617,21 @@ __device__ void attend(const StepParams& P, const float* q, int q_row,
           acc0 = fmaf(pc[c * row + 2 + t0], w, acc0);
           acc1 = fmaf(pc[c * row + 3 + t0], w, acc1);
         }
+        if (act1) {
+          acc2 = fmaf(pc[c * row + 2 + t1], w, acc2);
+          acc3 = fmaf(pc[c * row + 3 + t1], w, acc3);
+        }
       }
       den += wf;
+      const float inv = 1.f / fmaxf(den, 1e-20f);
+      T* ob = out + (size_t)b * d + h * dh;
       if (act) {
-        const float inv = 1.f / fmaxf(den, 1e-20f);
-        T* ob = out + (size_t)b * d + h * dh + t0;
-        ob[0] = from_f<T>(acc0 * inv);
-        ob[1] = from_f<T>(acc1 * inv);
+        ob[t0] = from_f<T>(acc0 * inv);
+        ob[t0 + 1] = from_f<T>(acc1 * inv);
+      }
+      if (act1) {
+        ob[t1] = from_f<T>(acc2 * inv);
+        ob[t1 + 1] = from_f<T>(acc3 * inv);
       }
     }
     __syncthreads();
@@ -574,47 +654,84 @@ template <typename T> __host__ __device__ constexpr int sums_per_warp() {
   return (max_groups<T>() > 2 ? max_groups<T>() : 2) * 128;
 }
 
+// bytes after the operand region: the attention partials, every warp's
+// split-K sums, the round's queries
+template <typename T> __host__ __device__ constexpr size_t fixed_bytes() {
+  return sizeof(float) * ((size_t)kPartFloats
+                          + (size_t)kStepWarps * sums_per_warp<T>()
+                          + kQsFloats);
+}
 // Bytes of the shared region that holds a pass's A operands (one group at
-// K = d_ff plus the aligned C phase's second operand, or every group of
-// the batch at K = d) and, in the attention phases, every warp's staged key
-// and value rows.
-template <typename T>
-__host__ __device__ inline size_t operand_bytes(const StepParams& P) {
-  const int kmax = P.d > P.d_ff ? P.d : P.d_ff;
+// K = kt, fc2's column tile, plus the aligned C phase's second operand, or
+// ``groups`` groups of the batch at K = d) and, in the attention phases,
+// the staged key and value rows.
+template <typename T, bool W>
+__host__ __device__ inline size_t operand_region(const StepParams& P, int kt,
+                                                 int groups) {
+  const int kmax = P.d > kt ? P.d : kt;
   size_t ops = (size_t)kGroup * (a_stride<T>(kmax) + a_stride<T>(P.d));
-  const size_t wide = (size_t)batch_groups<T>(P) * kGroup * a_stride<T>(P.d);
+  const size_t wide = (size_t)groups * kGroup * a_stride<T>(P.d);
   ops = ops > wide ? ops : wide;
-  const size_t keys =
-      (size_t)kStepWarps * 2 * key_chunk<T>() * key_row<T>();
+  const size_t keys = (size_t)attend_warps<W>() * 2 * key_chunk<T>()
+                      * key_row<T, W>();
   return (ops > keys ? ops : keys) * sizeof(T);
+}
+// whether a shape needs the wide kernel: head_dim above 64, d_model above
+// what a warp's registers hold of a LayerNorm row, or operands (at K =
+// d_ff, every group of the batch at K = d) beyond the shared memory
+template <typename T>
+__host__ __device__ inline bool step_wide(const StepParams& P) {
+  return P.d / P.n_heads > 64 || P.d > kLnPerLane * kWarp
+         || operand_region<T, false>(P, P.d_ff, batch_groups<T>(P))
+                    + fixed_bytes<T>()
+                > kStepSmemBudget;
+}
+// fc2's column tile of d_ff: all of it, or (W) the largest half, quarter,
+// ... whose operands fit the shared memory
+template <typename T, bool W>
+__host__ __device__ inline int ff_tile(const StepParams& P) {
+  constexpr int CW = 4 * Vec<T>::N;
+  int kt = P.d_ff;
+  while (W && kt % (2 * CW) == 0
+         && operand_region<T, W>(P, kt, 1) + fixed_bytes<T>()
+                > kStepSmemBudget)
+    kt /= 2;
+  return kt;
+}
+template <typename T, bool W>
+__host__ __device__ inline size_t operand_bytes(const StepParams& P) {
+  const int kt = ff_tile<T, W>(P);
+  int g = batch_groups<T>(P);  // (W) as many groups at K = d as fit
+  while (W && g > 1
+         && operand_region<T, W>(P, kt, g) + fixed_bytes<T>()
+                > kStepSmemBudget)
+    --g;
+  return operand_region<T, W>(P, kt, g);
 }
 
 // sequences of one pass of a product of ``nop`` operands of width K: at
 // most max_groups / nop groups (a warp's split-K sums), as many as the
 // operand region holds
-template <typename T>
+template <typename T, bool W>
 __host__ __device__ inline int pass_rows(const StepParams& P, int K,
                                          int nop) {
   const size_t per = (size_t)nop * kGroup * a_stride<T>(K) * sizeof(T);
   int g = batch_groups<T>(P);
   const int by_sums = max_groups<T>() / nop;
-  const int fit = static_cast<int>(operand_bytes<T>(P) / per);
+  const int fit = static_cast<int>(operand_bytes<T, W>(P) / per);
   g = g < by_sums ? g : by_sums;
   g = g < fit ? g : fit;
   return (g > 1 ? g : 1) * kGroup;
 }
 
 // bytes of dynamic shared memory: the operand region, the attention
-// partials, every warp's split-K sums and query
-template <typename T>
+// partials, every warp's split-K sums and the round's queries
+template <typename T, bool W>
 __host__ __device__ inline size_t step_smem_bytes(const StepParams& P) {
-  return operand_bytes<T>(P)
-         + sizeof(float) * ((size_t)kMaxItems * (kStepDhMax + 2)
-                            + (size_t)kStepWarps
-                                  * (sums_per_warp<T>() + kStepDhMax));
+  return operand_bytes<T, W>(P) + fixed_bytes<T>();
 }
 
-template <typename T, bool ROUND>
+template <typename T, bool ROUND, bool W>
 __global__ void __launch_bounds__(kStepThreads, 1)
     decode_step_kernel(const StepParams P) {
   cg::grid_group grid = cg::this_grid();
@@ -622,14 +739,16 @@ __global__ void __launch_bounds__(kStepThreads, 1)
   const int d = P.d, H = P.n_heads, B = P.batch, dff = P.d_ff;
   const int pos = P.pos;
   T* aop = reinterpret_cast<T*>(smem4);
-  const int rows_d = pass_rows<T>(P, d, 1), rows_ff = pass_rows<T>(P, dff, 1);
-  const int rows_dual = pass_rows<T>(P, d, 2);
+  const int kt = ff_tile<T, W>(P);  // fc2's column tile of d_ff
+  const int rows_d = pass_rows<T, W>(P, d, 1);
+  const int rows_ff = pass_rows<T, W>(P, kt, 1);
+  const int rows_dual = pass_rows<T, W>(P, d, 2);
   T* aop2 = aop + (size_t)rows_dual * a_stride<T>(d);
-  float* parts = reinterpret_cast<float*>(smem4) + operand_bytes<T>(P) / 4;
-  float* red = parts + kMaxItems * (kStepDhMax + 2);
+  float* parts = reinterpret_cast<float*>(smem4) + operand_bytes<T, W>(P) / 4;
+  float* red = parts + kPartFloats;
   float* qs = red + kStepWarps * sums_per_warp<T>();
   const int warp = threadIdx.x / kWarp;
-  const int sd = a_stride<T>(d), sff = a_stride<T>(dff);
+  const int sd = a_stride<T>(d), sff = a_stride<T>(kt);
 
   const T* wqkv = static_cast<const T*>(P.wqkv);
   const T* bqkv = static_cast<const T*>(P.bqkv);
@@ -665,7 +784,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
         const T* er = emb + (size_t)P.token_in[b] * d;
         const T* pr = posfull + ((size_t)b * P.steps_pad + pos) * d;
         const bool owner = b % gridDim.x == blockIdx.x;
-        warp_ln_row<T>(
+        warp_ln_row<T, W>(
             [&](int i) {
               const float v = to_f(er[i]) + to_f(pr[i]);
               if (owner) x[(size_t)b * d + i] = v;
@@ -674,7 +793,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
             scale, bias, d, aop + m * sd);
       } else {
         const float* xr = x + (size_t)b * d;
-        warp_ln_row<T>([&](int i) { return ldcg(xr + i); }, scale, bias, d,
+        warp_ln_row<T, W>([&](int i) { return ldcg(xr + i); }, scale, bias, d,
                        aop + m * sd);
       }
     }
@@ -712,7 +831,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
     }
     barrier(wo + l * dd, d, d, P.aligned ? wo_c + l * dd : nullptr);
     // ---- B: self attention over cache rows < pos plus the fresh key
-    attend<T, ROUND>(P, P.qkv, 3 * d, kc, vc, cache_b, bias_l, P.l_pad, pos,
+    attend<T, ROUND, W>(P, P.qkv, 3 * d, kc, vc, cache_b, bias_l, P.l_pad, pos,
                      true, a, aop, parts, qs);
     barrier(nullptr, 0, 0);
     if (P.aligned) {
@@ -770,7 +889,7 @@ __global__ void __launch_bounds__(kStepThreads, 1)
       // ---- D2: cross attention over the e_src source keys
       const float* cross_l =
           P.cross_hm + ((size_t)l * P.steps_pad + pos) * H * P.e_pad;
-      attend<T, false>(P, P.qc, d, mem_k + (size_t)l * B * mem_b,
+      attend<T, false, W>(P, P.qc, d, mem_k + (size_t)l * B * mem_b,
                        const_cast<T*>(mem_v) + (size_t)l * B * mem_b, mem_b,
                        cross_l, P.e_pad, P.e_src, false, a, aop, parts, qs);
       barrier(nullptr, 0, 0);
@@ -799,17 +918,47 @@ __global__ void __launch_bounds__(kStepThreads, 1)
                            });
     }
     barrier(w2 + (size_t)l * d * dff, d, dff);
-    // ---- F: MLP out + residual
+    // ---- F: MLP out + residual (W: over column tiles of d_ff, one
+    // unless the operand would not fit; a tile's sums wait in ``parts``,
+    // free outside the attention, a slot per (sequence, row of this block))
     const T* b2_l = b2 + (size_t)l * d;
+    const int tile_rows = kTileRows * ((d / kTileRows + gridDim.x - 1)
+                                       / gridDim.x);
     for (int b0 = 0; b0 < B; b0 += rows_ff) {
       const int nb = min(rows_ff, B - b0);
-      stage_rows(mid, (size_t)dff, b0, nb, dff, aop, sff);
-      __syncthreads();
-      block_products<T, 1>({w2 + (size_t)l * d * dff}, {aop}, sff, d, dff, nb,
-                           red, [&](int m, int r, float v, float) {
-                             float* xr = x + (size_t)(b0 + m) * d + r;
-                             *xr = ldcg(xr) + (v + to_f(b2_l[r]));
-                           });
+      if (!W) {
+        stage_rows(mid, (size_t)dff, b0, nb, dff, aop, sff);
+        __syncthreads();
+        block_products<T, 1>({w2 + (size_t)l * d * dff}, {aop}, sff, d, dff,
+                             nb, red, [&](int m, int r, float v, float) {
+                               float* xr = x + (size_t)(b0 + m) * d + r;
+                               *xr = ldcg(xr) + (v + to_f(b2_l[r]));
+                             });
+        continue;
+      }
+      for (int k0 = 0; k0 < dff; k0 += kt) {
+        const bool first = k0 == 0, last = k0 + kt >= dff;
+        stage_rows(mid + k0, (size_t)dff, b0, nb, kt, aop, sff);
+        __syncthreads();
+        block_products<T, 1>(
+            {w2 + (size_t)l * d * dff + k0}, {aop}, sff, d, kt, nb, red,
+            [&](int m, int r, float v, float) {
+              float* xr = x + (size_t)(b0 + m) * d + r;
+              if (first && last) {
+                *xr = ldcg(xr) + (v + to_f(b2_l[r]));
+                return;
+              }
+              // the row's slot: its tile's place among this block's tiles
+              float* acc = parts + (size_t)m * tile_rows
+                           + (r / kTileRows - (int)blockIdx.x) / gridDim.x
+                                 * kTileRows
+                           + r % kTileRows;
+              const float t = first ? v : *acc + v;
+              if (last) *xr = ldcg(xr) + (t + to_f(b2_l[r]));
+              else *acc = t;
+            },
+            dff);
+      }
     }
     if (l + 1 < P.n_layers)
       barrier(wqkv + (size_t)(l + 1) * 3 * dd, 3 * d, d);
@@ -874,86 +1023,111 @@ __global__ void __launch_bounds__(kStepThreads, 1)
 
 // What the kernel does not take: a refusal is an error code, never another
 // route.
-template <typename T>
-inline cudaError_t step_shape_ok(const StepParams& P) {
+template <typename T, bool W>
+inline cudaError_t step_shape_ok(const StepParams& P, int grid) {
   const int d = P.d, H = P.n_heads;
   if (H < 1 || d % H || P.batch < 1 || P.n_layers < 1)
     return cudaErrorInvalidValue;
   const int dh = d / H;
   constexpr int CW = 4 * Vec<T>::N;  // K columns a product chunk takes
-  if (dh > kStepDhMax || dh % 8 || d % CW || P.d_ff % CW
-      || d > kLnPerLane * kWarp || P.channels < 1)
+  if (dh > kStepDhMax || dh % 8 || d % CW || P.d_ff % CW || P.channels < 1)
     return cudaErrorInvalidValue;
-  // an attention pair's chunks fit the kMaxItems partials
+  // an attention pair's chunks fit the partials
   constexpr int KC = key_chunk<T>();
+  const int items = max_items<W>(dh);
   if (P.pos < 0 || P.pos >= P.l_pad || P.pos >= P.steps_pad
-      || (P.l_pad + KC - 1) / KC > kMaxItems
-      || (!P.aligned && (P.e_src < 1 || (P.e_src + KC - 1) / KC > kMaxItems)))
+      || (P.l_pad + KC - 1) / KC > items
+      || (!P.aligned && (P.e_src < 1 || (P.e_src + KC - 1) / KC > items)))
     return cudaErrorInvalidValue;
+  // the operands fit the shared memory; with fc2 in column tiles, their
+  // sums fit the partials (grid blocks)
+  if (step_smem_bytes<T, W>(P) > kStepSmemBudget)
+    return cudaErrorInvalidValue;
+  const int kt = ff_tile<T, W>(P);
+  if (kt < P.d_ff) {
+    if (grid < 1) return cudaErrorInvalidConfiguration;
+    const int tile_rows = kTileRows * ((d / kTileRows + grid - 1) / grid);
+    if ((size_t)pass_rows<T, W>(P, kt, 1) * tile_rows > (size_t)kPartFloats)
+      return cudaErrorInvalidValue;
+  }
   return cudaSuccess;
 }
 
 // One block per SM, all co-resident (a cooperative launch); the kernel may
 // take up to the SM's opt-in shared memory.
-template <typename T, bool ROUND>
+template <typename T, bool ROUND, bool W>
 inline cudaError_t step_grid(const StepParams& P, int* blocks) {
-  cudaError_t e = step_shape_ok<T>(P);
-  if (e != cudaSuccess) return e;
   int dev = 0;
-  e = cudaGetDevice(&dev);
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   int sms = 0, coop = 0, optin = 0, per_sm = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  e = step_shape_ok<T, W>(P, sms);
+  if (e != cudaSuccess) return e;
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   if (!coop) return cudaErrorNotSupported;
-  const size_t smem = step_smem_bytes<T>(P);
+  const size_t smem = step_smem_bytes<T, W>(P);
   if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
-  e = cudaFuncSetAttribute(decode_step_kernel<T, ROUND>,
+  e = cudaFuncSetAttribute(decode_step_kernel<T, ROUND, W>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, decode_step_kernel<T, ROUND>, kStepThreads, smem);
+      &per_sm, decode_step_kernel<T, ROUND, W>, kStepThreads, smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   *blocks = sms;
   return cudaSuccess;
 }
 
-// info[0..5] = grid blocks, threads a block, dynamic shared-memory bytes,
-// registers a thread, local (spilled) bytes a thread, grid barriers a step
-template <typename T, bool ROUND>
+// info[0..6] = grid blocks, threads a block, dynamic shared-memory bytes,
+// registers a thread, local (spilled) bytes a thread, grid barriers a step,
+// 1 when the wide kernel runs
+template <typename T, bool ROUND, bool W>
 inline cudaError_t step_info(const StepParams& P, int* info) {
   int blocks = 0;
-  cudaError_t e = step_grid<T, ROUND>(P, &blocks);
+  cudaError_t e = step_grid<T, ROUND, W>(P, &blocks);
   if (e != cudaSuccess) return e;
   cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, decode_step_kernel<T, ROUND>);
+  e = cudaFuncGetAttributes(&attr, decode_step_kernel<T, ROUND, W>);
   if (e != cudaSuccess) return e;
   info[0] = blocks;
   info[1] = kStepThreads;
-  info[2] = static_cast<int>(step_smem_bytes<T>(P));
+  info[2] = static_cast<int>(step_smem_bytes<T, W>(P));
   info[3] = attr.numRegs;
   info[4] = static_cast<int>(attr.localSizeBytes);
   info[5] = (P.aligned ? 5 : 8) * P.n_layers + 1;
+  info[6] = W;
   return cudaSuccess;
 }
 
 // One step: a single cooperative launch of P.grid blocks (the grid that
 // step_info returned for this shape).
-template <typename T, bool ROUND>
+template <typename T, bool ROUND, bool W>
 inline cudaError_t step_launch(const StepParams& P, cudaStream_t s) {
-  cudaError_t e = step_shape_ok<T>(P);
-  if (e != cudaSuccess) return e;
   if (P.grid < 1) return cudaErrorInvalidConfiguration;
+  cudaError_t e = step_shape_ok<T, W>(P, P.grid);
+  if (e != cudaSuccess) return e;
   StepParams arg = P;
   void* args[] = {&arg};
   e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(decode_step_kernel<T, ROUND>), dim3(P.grid),
-      dim3(kStepThreads), args, step_smem_bytes<T>(P), s);
+      reinterpret_cast<void*>(decode_step_kernel<T, ROUND, W>), dim3(P.grid),
+      dim3(kStepThreads), args, step_smem_bytes<T, W>(P), s);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <typename T, bool ROUND>
+inline cudaError_t step_launch(const StepParams& P, cudaStream_t s) {
+  return step_wide<T>(P) ? step_launch<T, ROUND, true>(P, s)
+                         : step_launch<T, ROUND, false>(P, s);
+}
+
+template <typename T, bool ROUND>
+inline cudaError_t step_info(const StepParams& P, int* info) {
+  return step_wide<T>(P) ? step_info<T, ROUND, true>(P, info)
+                         : step_info<T, ROUND, false>(P, info);
 }
 
 // the C entry points of one step library (ROUND: see attend)

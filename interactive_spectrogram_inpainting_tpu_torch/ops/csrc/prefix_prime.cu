@@ -44,6 +44,11 @@
 // item leaves its rows' partial (max, sum, P V), and after a grid barrier a
 // warp a row combines the row's partials in key order.
 //
+// Widths: head_dim up to 128 (the attention tiles are instantiated for 64
+// and 128 dims, the shared memory sized for the head_dim of the call) and
+// d_model up to 2048 (a LayerNorm row above 1024, more than a warp holds in
+// registers, is read three times from L2).
+//
 // A batch of sequences shares every product (M = batch x p0 rows). Only
 // rows [0, p0) are computed: a causal prefix row never sees a later row, so
 // the padded rows the TPU kernel carried are not needed; cache rows [p0,
@@ -98,7 +103,8 @@ constexpr int kWarps = kThreads / kWarp;
 constexpr int kBM = 64, kBN = 64;  // output tile
 constexpr int kSub = 32;           // columns a fresh accumulator takes
 constexpr int kTile = 64;          // attention: query rows and keys a tile
-constexpr int kDhMax = 64;
+constexpr int kDhMax = 128;
+constexpr int kDMax = 2048;        // d_model
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -114,7 +120,10 @@ template <typename T> __host__ __device__ constexpr int bk_max() {
 template <typename T> __host__ __device__ constexpr int slice_ld() {
   return bk_max<T>() + pad<T>();
 }
-constexpr int kAttnLd = kDhMax + 4;  // float32 rows of the attention tiles
+// float32 rows of the attention tiles of head dims up to DH
+template <int DH> __host__ __device__ constexpr int attn_ld() { return DH + 4; }
+// the attention tiles' head-dim instantiation: 64 or 128
+__host__ __device__ inline int attn_dh(int dh) { return dh <= 64 ? 64 : 128; }
 
 // the depth of a product's slices: the deepest of bk_max, 64 and 32 that
 // divides K
@@ -143,11 +152,12 @@ template <typename T> __host__ __device__ constexpr int stages() {
 // Bytes of dynamic shared memory: the larger of a product's operands (the
 // slices of two A and two W operands) and the attention's Q, K, V tiles
 // (float32), the bias tile, and the T rows of K and V they are widened
-// from.
-template <typename T> __host__ __device__ inline size_t smem_bytes() {
+// from, for the head-dim instantiation of dh.
+template <typename T> __host__ __device__ inline size_t smem_bytes(int dh) {
+  const int DH = attn_dh(dh);
   const size_t ops = 4 * stages<T>() * slice_elems<T>() * sizeof(T);
-  const size_t attn = (size_t)4 * kTile * kAttnLd * sizeof(float)
-                      + (size_t)2 * kTile * kDhMax * sizeof(T);
+  const size_t attn = (size_t)4 * kTile * (DH + 4) * sizeof(float)
+                      + (size_t)2 * kTile * DH * sizeof(T);
   return ops > attn ? ops : attn;
 }
 
@@ -309,6 +319,21 @@ __device__ __forceinline__ void ln_row(const float* xr, int d,
                                        const float* scale, const float* bias,
                                        T* out) {
   const int lane = threadIdx.x % kWarp;
+  if (d > 32 * kWarp) {
+    // wider than the registers hold: the row read three times
+    float s = 0.f;
+    for (int k = lane; k < d; k += kWarp) s += __ldcg(xr + k);
+    const float mu = warp_sum(s) / d;
+    float var = 0.f;
+    for (int k = lane; k < d; k += kWarp) {
+      const float dv = __ldcg(xr + k) - mu;
+      var += dv * dv;
+    }
+    const float rs = rsqrtf(warp_sum(var) / d + 1e-6f);
+    for (int k = lane; k < d; k += kWarp)
+      out[k] = from_f<T>((__ldcg(xr + k) - mu) * rs * scale[k] + bias[k]);
+    return;
+  }
   float v[32];
   float s = 0.f;
 #pragma unroll
@@ -347,27 +372,27 @@ __device__ void ln_rows(const float* x, int M, int d, const float* scale,
 }
 
 // rows [r0, r0 + 64) of a [*, dh] operand (rows at row(r), r < n) into dst
-// [64][kAttnLd] float32, zeros past n: float32 rows straight in by
-// cp.async, T rows by cp.async into raw [64][dh] (widened by widen_tile
-// once they landed)
+// [64][ld] float32, zeros past n: float32 rows straight in by cp.async, T
+// rows by cp.async into raw [64][dh] (widened by widen_tile once they
+// landed)
 template <typename TS, typename Row>
-__device__ void load_attn_tile(float* dst, TS* raw, Row row, int r0, int n,
-                               int dh) {
+__device__ void load_attn_tile(float* dst, int ld, TS* raw, Row row, int r0,
+                               int n, int dh) {
   constexpr int V = Vec<TS>::N;
   const int per = dh / V;
   for (int e = threadIdx.x; e < kTile * per; e += kThreads) {
     const int r = e / per, c = (e % per) * V;
-    TS* to = sizeof(TS) == 4 ? reinterpret_cast<TS*>(dst + r * kAttnLd + c)
+    TS* to = sizeof(TS) == 4 ? reinterpret_cast<TS*>(dst + r * ld + c)
                              : raw + r * dh + c;
     if (r0 + r < n) cp_async16(to, row(r0 + r) + c);
     else *reinterpret_cast<uint4*>(to) = make_uint4(0, 0, 0, 0);
   }
 }
 template <typename TS>
-__device__ void widen_tile(float* dst, const TS* raw, int dh) {
+__device__ void widen_tile(float* dst, int ld, const TS* raw, int dh) {
   if (sizeof(TS) == 2) {
     for (int e = threadIdx.x; e < kTile * dh; e += kThreads)
-      dst[(e / dh) * kAttnLd + e % dh] = to_f(raw[e]);
+      dst[(e / dh) * ld + e % dh] = to_f(raw[e]);
   }
 }
 
@@ -377,34 +402,36 @@ __device__ void widen_tile(float* dst, const TS* raw, int dh) {
 // j]. The tile's partial of each row, {max s, sum exp(s - max), sum
 // exp(s - max) V}, goes to part [64][dh + 2] (rows past m not written).
 // q rows at qrow(i) (float32), key and value rows at krow(j), vrow(j)
-// (float32 or TK), bias rows at bias + i * bias_q.
-template <typename TK, typename QRow, typename KRow, typename VRow>
+// (float32 or TK), bias rows at bias + i * bias_q. DH: the tiles' head
+// dims (dh <= DH).
+template <int DH, typename TK, typename QRow, typename KRow, typename VRow>
 __device__ void attention_tile(float* sm, QRow qrow, KRow krow, VRow vrow,
                                const float* bias, size_t bias_q, int i0,
                                int j0, int m, int n_keys, bool causal, int dh,
                                float scale, float* part) {
   using MM = Mma<float>;
+  constexpr int kAttnLd = attn_ld<DH>();
   float* Qs = sm;
   float* Ks = Qs + kTile * kAttnLd;
   float* Vs = Ks + kTile * kAttnLd;
   float* Bs = Vs + kTile * kAttnLd;  // the tile's bias [query][key]
   TK* raw_k = reinterpret_cast<TK*>(Bs + kTile * kAttnLd);
-  TK* raw_v = raw_k + kTile * kDhMax;
+  TK* raw_v = raw_k + kTile * DH;
   const int warp = threadIdx.x / kWarp, g = lane_g(), t = lane_t();
   const int nd = dh / 8;  // n-blocks of the output
-  load_attn_tile(Qs, static_cast<float*>(nullptr), qrow, i0, m, dh);
-  load_attn_tile(Ks, raw_k, krow, j0, n_keys, dh);
-  load_attn_tile(Vs, raw_v, vrow, j0, n_keys, dh);
+  load_attn_tile(Qs, kAttnLd, static_cast<float*>(nullptr), qrow, i0, m, dh);
+  load_attn_tile(Ks, kAttnLd, raw_k, krow, j0, n_keys, dh);
+  load_attn_tile(Vs, kAttnLd, raw_v, vrow, j0, n_keys, dh);
   // bias rows i of keys [j0, j0 + 64) (within the padded rows)
-  load_attn_tile(Bs, static_cast<float*>(nullptr),
+  load_attn_tile(Bs, kAttnLd, static_cast<float*>(nullptr),
                  [&](int i) { return bias + (size_t)i * bias_q + j0; }, i0, m,
                  kTile);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
   if (sizeof(TK) == 2) {
-    widen_tile(Ks, raw_k, dh);
-    widen_tile(Vs, raw_v, dh);
+    widen_tile(Ks, kAttnLd, raw_k, dh);
+    widen_tile(Vs, kAttnLd, raw_v, dh);
     __syncthreads();
   }
   // 4 warps, 16 query rows each (the other 4 idle here)
@@ -447,16 +474,16 @@ __device__ void attention_tile(float* sm, QRow qrow, KRow krow, VRow vrow,
       }
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = quad_sum(l[h]);
-    float o[kDhMax / 8][4];
+    float o[DH / 8][4];
 #pragma unroll
-    for (int n = 0; n < kDhMax / 8; ++n)
+    for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
       const MM::A fa = MM::c_to_a(s, j);
 #pragma unroll
-      for (int n = 0; n < kDhMax / 8; ++n)
+      for (int n = 0; n < DH / 8; ++n)
         if (n < nd) MM::run(o[n], fa, b_kn_f32(Vs, kAttnLd, 8 * j, 8 * n));
     }
     const int row = dh + 2;
@@ -469,7 +496,7 @@ __device__ void attention_tile(float* sm, QRow qrow, KRow krow, VRow vrow,
       }
     }
 #pragma unroll
-    for (int n = 0; n < kDhMax / 8; ++n)
+    for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = rw + g + 8 * (e >> 1);
@@ -482,16 +509,17 @@ __device__ void attention_tile(float* sm, QRow qrow, KRow krow, VRow vrow,
 
 // The attention output of one row from its n key tiles' partials (rows
 // ``stride`` floats apart, in key order): out[c] = T(sum_t o_t[c] w_t /
-// sum_t l_t w_t), w_t = exp(m_t - max m); a warp a row, two dims a lane
-// (tiles that saw no key hold max -inf and zero sums)
+// sum_t l_t w_t), w_t = exp(m_t - max m); a warp a row, dims 2 lane,
+// 2 lane + 1 (and 64 above those for head_dim > 64) a lane (tiles that saw
+// no key hold max -inf and zero sums)
 template <typename T>
 __device__ __forceinline__ void combine_row(const float* part, size_t stride,
                                             int n, int dh, T* out) {
   const int lane = threadIdx.x % kWarp;
   float mm = -INFINITY;
   for (int k = 0; k < n; ++k) mm = fmaxf(mm, __ldcg(part + k * stride));
-  float den = 0.f, a0 = 0.f, a1 = 0.f;
-  const int c = 2 * lane;
+  float den = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  const int c = 2 * lane, c1 = c + 64;
   for (int k = 0; k < n; ++k) {
     const float* p = part + k * stride;
     const float mk = __ldcg(p);
@@ -501,10 +529,18 @@ __device__ __forceinline__ void combine_row(const float* part, size_t stride,
       a0 = fmaf(__ldcg(p + 2 + c), w, a0);
       a1 = fmaf(__ldcg(p + 3 + c), w, a1);
     }
+    if (c1 < dh) {
+      a2 = fmaf(__ldcg(p + 2 + c1), w, a2);
+      a3 = fmaf(__ldcg(p + 3 + c1), w, a3);
+    }
   }
   if (c < dh) {
     out[c] = from_f<T>(a0 / den);
     out[c + 1] = from_f<T>(a1 / den);
+  }
+  if (c1 < dh) {
+    out[c1] = from_f<T>(a2 / den);
+    out[c1 + 1] = from_f<T>(a3 / den);
   }
 }
 
@@ -656,13 +692,22 @@ __global__ void __launch_bounds__(kThreads, 1)
       int qt = 0, tt = it % tri;
       while (tt > qt) tt -= ++qt;  // (qt, kt = tt): the tri-th item
       const float* base = P.qkv + (size_t)b * m * 3 * d + h * dh;
-      attention_tile<float>(
-          smf, [&](int i) { return base + (size_t)i * 3 * d; },
-          [&](int j) { return base + (size_t)j * 3 * d + d; },
-          [&](int j) { return base + (size_t)j * 3 * d + 2 * d; },
-          bias_l + (size_t)h * P.l_pad, (size_t)H * P.l_pad, qt * kTile,
-          tt * kTile, m, m, true, dh, P.scale,
-          P.part + (size_t)it * kTile * prow);
+      const auto qrow = [&](int i) { return base + (size_t)i * 3 * d; };
+      const auto krow = [&](int j) { return base + (size_t)j * 3 * d + d; };
+      const auto vrow = [&](int j) {
+        return base + (size_t)j * 3 * d + 2 * d;
+      };
+      float* pt = P.part + (size_t)it * kTile * prow;
+      if (dh <= 64)
+        attention_tile<64, float>(smf, qrow, krow, vrow,
+                                  bias_l + (size_t)h * P.l_pad,
+                                  (size_t)H * P.l_pad, qt * kTile,
+                                  tt * kTile, m, m, true, dh, P.scale, pt);
+      else
+        attention_tile<128, float>(smf, qrow, krow, vrow,
+                                   bias_l + (size_t)h * P.l_pad,
+                                   (size_t)H * P.l_pad, qt * kTile,
+                                   tt * kTile, m, m, true, dh, P.scale, pt);
     }
     grid.sync();
     for (int w = warp_g; w < B * m * H; w += n_warps) {
@@ -742,13 +787,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float* qb = P.qc + (size_t)b * m * d + h * dh;
         const T* kb = mk_l + (size_t)b * P.e_pad * d + h * dh;
         const T* vb = mv_l + (size_t)b * P.e_pad * d + h * dh;
-        attention_tile<T>(
-            smf, [&](int i) { return qb + (size_t)i * d; },
-            [&](int j) { return kb + (size_t)j * d; },
-            [&](int j) { return vb + (size_t)j * d; },
-            cross_l + (size_t)h * P.e_pad, (size_t)H * P.e_pad, qt * kTile,
-            kt * kTile, m, P.e_src, false, dh, P.scale,
-            P.part + (size_t)it * kTile * prow);
+        const auto qrow = [&](int i) { return qb + (size_t)i * d; };
+        const auto krow = [&](int j) { return kb + (size_t)j * d; };
+        const auto vrow = [&](int j) { return vb + (size_t)j * d; };
+        float* pt = P.part + (size_t)it * kTile * prow;
+        if (dh <= 64)
+          attention_tile<64, T>(smf, qrow, krow, vrow,
+                                cross_l + (size_t)h * P.e_pad,
+                                (size_t)H * P.e_pad, qt * kTile, kt * kTile,
+                                m, P.e_src, false, dh, P.scale, pt);
+        else
+          attention_tile<128, T>(smf, qrow, krow, vrow,
+                                 cross_l + (size_t)h * P.e_pad,
+                                 (size_t)H * P.e_pad, qt * kTile, kt * kTile,
+                                 m, P.e_src, false, dh, P.scale, pt);
       }
       grid.sync();
       for (int w = warp_g; w < B * m * H; w += n_warps) {
@@ -804,7 +856,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // route.
 cudaError_t shape_ok(const PrimeParams& P) {
   const int d = P.d, H = P.n_heads;
-  if (H < 1 || d % H || d % kSub || P.d_ff % kSub || d > 32 * kWarp
+  if (H < 1 || d % H || d % kSub || P.d_ff % kSub || d > kDMax
       || P.m < 1 || P.batch < 1 || P.channels < 1 || P.n_layers < 1)
     return cudaErrorInvalidValue;
   const int dh = d / H;
@@ -826,7 +878,7 @@ cudaError_t grid_size(const PrimeParams& P, int* blocks) {
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   if (!coop) return cudaErrorNotSupported;
-  const size_t smem = smem_bytes<T>();
+  const size_t smem = smem_bytes<T>(P.d / P.n_heads);
   if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
   e = cudaFuncSetAttribute(prefix_prime_kernel<T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
@@ -848,7 +900,7 @@ cudaError_t prime(const PrimeParams& P, cudaStream_t s) {
   void* args[] = {&arg};
   e = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(prefix_prime_kernel<T>), dim3(blocks),
-      dim3(kThreads), args, smem_bytes<T>(), s);
+      dim3(kThreads), args, smem_bytes<T>(P.d / P.n_heads), s);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -865,7 +917,7 @@ cudaError_t info(const PrimeParams& P, int* out) {
   if (e != cudaSuccess) return e;
   out[0] = blocks;
   out[1] = kThreads;
-  out[2] = static_cast<int>(smem_bytes<T>());
+  out[2] = static_cast<int>(smem_bytes<T>(P.d / P.n_heads));
   out[3] = attr.numRegs;
   out[4] = static_cast<int>(attr.localSizeBytes);
   // grid barriers: set-up and the last layer's LN1, then 8 a layer (13 with

@@ -18,8 +18,8 @@
 //          (RW = 8 when N fills the card, fewer below so that small N still
 //          spreads over the SMs; the 8 / RW warps of a row tile split the
 //          codes). A warp's 16 rows are split into hi / lo once, as A
-//          fragments in registers (dim <= 64; wider rows come from a split
-//          tile in shared memory a k-step at a time). The codebook passes
+//          fragments in registers (dim <= 64; wider rows, up to 1024, 64
+//          dims at a time, vq_assign_wide_kernel). The codebook passes
 //          through shared memory in its own [dim, K] layout, a chunk of
 //          codes at a time by cp.async (the next chunk lands while this one
 //          is multiplied); one pass over a chunk forms |e_k|^2 (four
@@ -84,8 +84,8 @@ namespace {
 constexpr int kThreads = 256;  // both kernels
 constexpr int kWarps = kThreads / kWarp;
 constexpr int kGroup = 32;     // codes a warp multiplies per A fragment
-constexpr int kMaxDim = 256;
-constexpr int kMaxJ = kMaxDim / kWarp;  // dims a lane sums in P4
+constexpr int kMaxDim = 1024;
+constexpr int kMidDim = 256;   // widest rows of the middle stats kernel
 constexpr int kTile = 1024;    // sort positions one block ranks (P1, P3)
 constexpr int kPiece = 64;     // sorted positions one warp sums (P4)
 constexpr int kDigitBits = 11;
@@ -109,7 +109,7 @@ struct AssignGeom {
   int rw;      // row warps (16 rows each); kWarps / rw warps split the codes
   int chunk;   // codes staged per pass, a multiple of kGroup
   int dp;      // dim rounded up to the k-step (8)
-  bool reg_a;  // dp <= 8 kRegSteps: A in registers, no row tile in smem
+  bool wide;   // dp > 8 kRegSteps: vq_assign_wide_kernel
   int grid;
   size_t smem;
 };
@@ -117,22 +117,28 @@ struct AssignGeom {
 AssignGeom assign_geom(int n, int dim, int sms) {
   AssignGeom g;
   g.dp = (dim + 7) / 8 * 8;
-  g.reg_a = g.dp <= 8 * kRegSteps;
+  g.wide = g.dp > 8 * kRegSteps;
   g.rw = kWarps;
   while (g.rw > 1 && cdiv(n, 16 * g.rw) < sms) g.rw /= 2;
-  const auto xtile = [&]() {
-    return g.reg_a ? 0 : (size_t)16 * g.rw * (g.dp + 4) * 8;
-  };
-  while (g.rw > 1 && xtile() > 72 * 1024) g.rw /= 2;
+  if (g.wide) {
+    // one group of codes a warp: the chunk is kGroup x the code warps
+    g.chunk = kGroup * (kWarps / g.rw);
+    g.grid = cdiv(n, 16 * g.rw);
+    g.smem = (size_t)8 * kRegSteps * (g.chunk + 8) * 4
+             + (size_t)8 * kRegSteps * (g.chunk + 4) * 8
+             + sizeof(float) * 5 * g.chunk
+             + sizeof(float) * kWarps * 16 + sizeof(int) * kWarps * 16;
+    return g;
+  }
   g.chunk = 128 > kGroup * (kWarps / g.rw) ? 128 : kGroup * (kWarps / g.rw);
   // the staged chunk and its (hi, lo) pairs
   const auto stage = [&](int c) {
     return (size_t)g.dp * (c + 8) * 4 + (size_t)g.dp * (c + 4) * 8;
   };
-  while (g.chunk > kGroup && stage(g.chunk) + xtile() > kAssignSmemCap)
+  while (g.chunk > kGroup && stage(g.chunk) > kAssignSmemCap)
     g.chunk /= 2;
   g.grid = cdiv(n, 16 * g.rw);
-  g.smem = stage(g.chunk) + xtile() + sizeof(float) * g.chunk
+  g.smem = stage(g.chunk) + sizeof(float) * g.chunk
            + sizeof(float) * kWarps * 16 + sizeof(int) * kWarps * 16;
   return g;
 }
@@ -186,15 +192,13 @@ __device__ __forceinline__ bool better(float s, int k, float b, int bk) {
   return s < b || (s == b && k < bk);
 }
 
-// RegA: the warp's 16 rows as A fragments in registers for every k-step
-// (dim <= 64, the models' width); else from a split row tile in shared
-// memory, one k-step at a time
-template <bool RegA>
+// dim <= 64, the models' width: the warp's 16 rows as A fragments in
+// registers for every k-step
 __global__ void __launch_bounds__(kThreads)
     vq_assign_kernel(VqLookupParams P, int rw, int chunk) {
   extern __shared__ __align__(16) float smem[];
   const int dim = P.dim, K = P.n_embed, n = P.n;
-  const int dp = (dim + 7) / 8 * 8, xld = dp + 4, ld = chunk + 8;
+  const int dp = (dim + 7) / 8 * 8, ld = chunk + 8;
   const int ld2 = chunk + 4;  // (hi, lo) pairs a row: 64-bit loads and
                               // stores without bank conflicts
   const int cw = kWarps / rw, rows = 16 * rw;
@@ -203,8 +207,6 @@ __global__ void __launch_bounds__(kThreads)
   float* sq = reinterpret_cast<float*>(bhl + dp * ld2);       // [chunk]
   float* red_s = sq + chunk;                      // [cw][rows]
   int* red_k = reinterpret_cast<int*>(red_s + kWarps * 16);
-  float* xhi = reinterpret_cast<float*>(red_k + kWarps * 16);  // !RegA
-  float* xlo = xhi + rows * xld;
   const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.x * rows;
@@ -213,31 +215,19 @@ __global__ void __launch_bounds__(kThreads)
   const int ksteps = dp / 8;
 
   stage_chunk(raw, P.embed, dim, dp, K, 0, chunk, ld);
-  Mma<float>::A areg[RegA ? kRegSteps : 1];
-  if (RegA) {
+  Mma<float>::A areg[kRegSteps];
+  {
     const int r_lo = row0 + 16 * rwi + g, r_hi = r_lo + 8;
     const auto x = [&](int r, int d) {
       return r < n && d < dim ? __ldg(P.flat + (size_t)r * dim + d) : 0.f;
     };
 #pragma unroll
-    for (int ks = 0; ks < (RegA ? kRegSteps : 1); ++ks) {
+    for (int ks = 0; ks < kRegSteps; ++ks) {
       const int d = 8 * ks + t;
       areg[ks] = Mma<float>::make_a(x(r_lo, d), x(r_hi, d), x(r_lo, d + 4),
                                     x(r_hi, d + 4));
     }
-  } else {
-    for (int i = tid; i < rows * dp; i += kThreads) {
-      const int r = i / dp, d = i % dp;
-      const float v = row0 + r < n && d < dim
-                          ? __ldg(P.flat + (size_t)(row0 + r) * dim + d)
-                          : 0.f;
-      const float hi = __uint_as_float(to_tf32(v));
-      xhi[r * xld + d] = hi;
-      xlo[r * xld + d] = __uint_as_float(to_tf32(v - hi));
-    }
   }
-  const float* ah = xhi + 16 * rwi * xld;
-  const float* al = xlo + 16 * rwi * xld;
 
   float best[2] = {INFINITY, INFINITY};
   int best_k[2] = {0, 0};
@@ -295,27 +285,165 @@ __global__ void __launch_bounds__(kThreads)
           for (int i = 0; i < 4; ++i) acc[nt][i] += c[i];
         }
       };
-      if (RegA) {
 #pragma unroll
-        for (int ks = 0; ks < (RegA ? kRegSteps : 1); ++ks)
-          if (ks < ksteps) kstep(areg[ks], 8 * ks);
-      } else {
-        for (int ks = 0; ks < ksteps; ++ks) {
-          Mma<float>::A a;
-          const int ia = g * xld + 8 * ks + t;
-          a.hi[0] = __float_as_uint(ah[ia]);
-          a.hi[1] = __float_as_uint(ah[ia + 8 * xld]);
-          a.hi[2] = __float_as_uint(ah[ia + 4]);
-          a.hi[3] = __float_as_uint(ah[ia + 8 * xld + 4]);
-          a.lo[0] = __float_as_uint(al[ia]);
-          a.lo[1] = __float_as_uint(al[ia + 8 * xld]);
-          a.lo[2] = __float_as_uint(al[ia + 4]);
-          a.lo[3] = __float_as_uint(al[ia + 8 * xld + 4]);
-          kstep(a, 8 * ks);
-        }
-      }
+      for (int ks = 0; ks < kRegSteps; ++ks)
+        if (ks < ksteps) kstep(areg[ks], 8 * ks);
       // lane (g, t) holds rows g, g + 8 and codes 2t, 2t + 1 of each
       // 8-code tile: ascending within the lane, so the first best stays
+#pragma unroll
+      for (int nt = 0; nt < kGroup / 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int cc = cb + nt * 8 + 2 * t + j;
+          if (c0 + cc < K) {
+            const float e2 = sq[cc];
+            const float s0 = e2 - 2.0f * acc[nt][j];
+            const float s1 = e2 - 2.0f * acc[nt][2 + j];
+            if (s0 < best[0]) {
+              best[0] = s0;
+              best_k[0] = c0 + cc;
+            }
+            if (s1 < best[1]) {
+              best[1] = s1;
+              best_k[1] = c0 + cc;
+            }
+          }
+        }
+    }
+  }
+
+  // the quad's four lanes, then the warps of the row tile, as pairs
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      const float s = __shfl_xor_sync(0xffffffffu, best[i], o);
+      const int k = __shfl_xor_sync(0xffffffffu, best_k[i], o);
+      if (better(s, k, best[i], best_k[i])) {
+        best[i] = s;
+        best_k[i] = k;
+      }
+    }
+  if (t == 0) {
+    red_s[cwi * rows + 16 * rwi + g] = best[0];
+    red_k[cwi * rows + 16 * rwi + g] = best_k[0];
+    red_s[cwi * rows + 16 * rwi + g + 8] = best[1];
+    red_k[cwi * rows + 16 * rwi + g + 8] = best_k[1];
+  }
+  __syncthreads();
+  if (tid < rows && row0 + tid < n) {
+    float b = red_s[tid];
+    int bk = red_k[tid];
+    for (int w = 1; w < cw; ++w) {
+      const float s = red_s[w * rows + tid];
+      const int k = red_k[w * rows + tid];
+      if (better(s, k, b, bk)) {
+        b = s;
+        bk = k;
+      }
+    }
+    P.ids[row0 + tid] = bk;
+  }
+}
+
+// Rows wider than 64 (up to kMaxDim): the same scores, the dimensions
+// taken kWideDims at a time. Each warp of a row tile owns one group of
+// kGroup codes of a chunk (chunk = kGroup x the warps that split the
+// codes), so its accumulators stay in registers across the dimension
+// chunks; a dimension chunk stages its rows of the codebook chunk by
+// cp.async, splits them into (hi, lo) pairs, continues each code's four
+// |e|^2 partial sums (kept in shared memory), and runs its k-steps with the
+// warp's 16 rows as A fragments in registers. The k-steps and the |e|^2
+// sums run in the order of the single-tile kernel: the same bits.
+constexpr int kWideDims = 8 * kRegSteps;
+
+__global__ void __launch_bounds__(kThreads)
+    vq_assign_wide_kernel(VqLookupParams P, int rw, int chunk) {
+  extern __shared__ __align__(16) float smem[];
+  const int dim = P.dim, K = P.n_embed, n = P.n;
+  const int dp = (dim + 7) / 8 * 8, ld = chunk + 8, ld2 = chunk + 4;
+  const int cw = kWarps / rw, rows = 16 * rw;
+  float* raw = smem;                                             // [64][ld]
+  float2* bhl = reinterpret_cast<float2*>(raw + kWideDims * ld);  // [64][ld2]
+  float* sq4 = reinterpret_cast<float*>(bhl + kWideDims * ld2);  // [4 chunk]
+  float* sq = sq4 + 4 * chunk;                                   // [chunk]
+  float* red_s = sq + chunk;                                     // [cw][rows]
+  int* red_k = reinterpret_cast<int*>(red_s + kWarps * 16);
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * rows;
+  const int rwi = warp % rw, cwi = warp / rw;
+  const int cb = cwi * kGroup;  // the warp's codes in a chunk
+  const int r_lo = row0 + 16 * rwi + g, r_hi = r_lo + 8;
+  const auto x = [&](int r, int d) {
+    return r < n && d < dim ? __ldg(P.flat + (size_t)r * dim + d) : 0.f;
+  };
+
+  float best[2] = {INFINITY, INFINITY};
+  int best_k[2] = {0, 0};
+  for (int c0 = 0; c0 < K; c0 += chunk) {
+    float acc[kGroup / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kGroup / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+    for (int d0 = 0; d0 < dp; d0 += kWideDims) {
+      const int dc = min(kWideDims, dp - d0);
+      __syncthreads();  // the last chunk's pairs are consumed
+      stage_chunk(raw, P.embed + (size_t)d0 * K, dim - d0, dc, K, c0, chunk,
+                  ld);
+      Mma<float>::A areg[kRegSteps];
+#pragma unroll
+      for (int ks = 0; ks < kRegSteps; ++ks) {
+        const int d = d0 + 8 * ks + t;
+        areg[ks] = Mma<float>::make_a(x(r_lo, d), x(r_hi, d), x(r_lo, d + 4),
+                                      x(r_hi, d + 4));
+      }
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
+      // each code's four interleaved |e|^2 sums go on over these dims
+      // (lane q of a quad: dims q, q + 4, ...); the (hi, lo) pairs
+      for (int task = tid; task < 4 * chunk; task += kThreads) {
+        const int c = task >> 2, q = task & 3;
+        float s = d0 == 0 ? 0.f : sq4[task];
+        for (int d = q; d < dc; d += 4) {
+          const float v = raw[d * ld + c];
+          s = fmaf(v, v, s);
+          uint32_t hi, lo;
+          Mma<float>::split(v, hi, lo);
+          bhl[d * ld2 + c] =
+              make_float2(__uint_as_float(hi), __uint_as_float(lo));
+        }
+        sq4[task] = s;
+      }
+      __syncthreads();
+      if (c0 + cb < K) {
+#pragma unroll
+        for (int ks = 0; ks < kRegSteps; ++ks) {
+          if (8 * ks >= dc) break;
+#pragma unroll
+          for (int nt = 0; nt < kGroup / 8; ++nt) {
+            const int ib = (8 * ks + t) * ld2 + cb + nt * 8 + g;
+            const float2 e0 = bhl[ib], e1 = bhl[ib + 4 * ld2];
+            const uint32_t b_hi[2] = {__float_as_uint(e0.x),
+                                      __float_as_uint(e1.x)};
+            const uint32_t b_lo[2] = {__float_as_uint(e0.y),
+                                      __float_as_uint(e1.y)};
+            float c[4];
+            mma_tf32_zero(c, areg[ks].lo, b_hi);  // lo*hi + hi*lo + hi*hi
+            mma_tf32(c, areg[ks].hi, b_lo);
+            mma_tf32(c, areg[ks].hi, b_hi);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[nt][i] += c[i];
+          }
+        }
+      }
+    }
+    // |e_c|^2 = (s0 + s1) + (s2 + s3), as the single-tile kernel adds them
+    for (int c = tid; c < chunk; c += kThreads)
+      sq[c] = (sq4[4 * c] + sq4[4 * c + 1]) + (sq4[4 * c + 2] + sq4[4 * c + 3]);
+    __syncthreads();
+    if (c0 + cb < K) {
 #pragma unroll
       for (int nt = 0; nt < kGroup / 8; ++nt)
 #pragma unroll
@@ -418,7 +546,8 @@ StatsGeom stats_geom(int n, int dim, int K) {
   g.head = take((long)g.pieces * dim);
   g.et = take((long)K * dim);
   g.ints = o;
-  g.kj = dim <= 2 * kWarp ? 2 : kMaxJ;
+  g.kj = dim <= 2 * kWarp ? 2 : dim <= kMidDim ? kMidDim / kWarp
+                                                 : kMaxDim / kWarp;
   g.grid = 0;
   return g;
 }
@@ -762,12 +891,14 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 const void* assign_kernel(const AssignGeom& A) {
-  return A.reg_a ? reinterpret_cast<const void*>(vq_assign_kernel<true>)
-                 : reinterpret_cast<const void*>(vq_assign_kernel<false>);
+  return A.wide ? reinterpret_cast<const void*>(vq_assign_wide_kernel)
+                : reinterpret_cast<const void*>(vq_assign_kernel);
 }
 const void* stats_kernel(const StatsGeom& S) {
-  return S.kj == 2 ? reinterpret_cast<const void*>(vq_stats_kernel<2>)
-                   : reinterpret_cast<const void*>(vq_stats_kernel<kMaxJ>);
+  if (S.kj == 2) return reinterpret_cast<const void*>(vq_stats_kernel<2>);
+  return S.kj == kMidDim / kWarp
+             ? reinterpret_cast<const void*>(vq_stats_kernel<kMidDim / kWarp>)
+             : reinterpret_cast<const void*>(vq_stats_kernel<kMaxDim / kWarp>);
 }
 
 struct Device {
@@ -790,13 +921,12 @@ cudaError_t device_info(Device** out) {
                            dev);
     cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (!coop) return cudaErrorNotSupported;
-    for (const void* f : {reinterpret_cast<const void*>(
-                              vq_assign_kernel<true>),
-                          reinterpret_cast<const void*>(
-                              vq_assign_kernel<false>),
-                          reinterpret_cast<const void*>(vq_stats_kernel<2>),
-                          reinterpret_cast<const void*>(
-                              vq_stats_kernel<kMaxJ>)}) {
+    for (const void* f :
+         {reinterpret_cast<const void*>(vq_assign_kernel),
+          reinterpret_cast<const void*>(vq_assign_wide_kernel),
+          reinterpret_cast<const void*>(vq_stats_kernel<2>),
+          reinterpret_cast<const void*>(vq_stats_kernel<kMidDim / kWarp>),
+          reinterpret_cast<const void*>(vq_stats_kernel<kMaxDim / kWarp>)}) {
       e = cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                D.optin);
       if (e != cudaSuccess) return e;

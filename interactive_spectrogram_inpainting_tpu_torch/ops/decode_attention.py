@@ -34,6 +34,22 @@ STAGE_KEYS = 80    # keys a block stages a pass (kStageKeys)
 _FN = None
 
 
+# csrc/decode_attention.cu's widest head
+FLASH_DH_MAX = 128
+
+
+def flash_refusal(head_dim: int, length: int) -> Optional[str]:
+    """None when ``flash_decode_attention`` takes this shape on the card,
+    else why not, naming the shape."""
+    if head_dim % 2 or not 0 < head_dim <= FLASH_DH_MAX:
+        return (f"flash_decode_attention: head_dim {head_dim} is not even "
+                f"up to {FLASH_DH_MAX}")
+    if length % ATTN_CHUNK:
+        return (f"flash_decode_attention: cache length {length} is not a "
+                f"multiple of {ATTN_CHUNK}")
+    return None
+
+
 def _kernel():
     """The C entry point with its argument types, set once."""
     global _FN
@@ -67,14 +83,23 @@ def reference_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q.dtype)
 
 
+def stage_keys(head_dim: int, element_size: int) -> int:
+    """Keys the kernel stages a pass: STAGE_KEYS, fewer for rows wider
+    than a float32 head_dim 64 (its staging buffers hold STAGE_KEYS of
+    those, each row 16 bytes apart from the next beyond its length)."""
+    stride = -(-head_dim * element_size // 16) * 16 + 16
+    return min(STAGE_KEYS, STAGE_KEYS * (64 * 4 + 16) // stride)
+
+
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, pos: int,
                            bias_row: Optional[torch.Tensor]) -> torch.Tensor:
     """The kernel's order in plain PyTorch: the pos + 1 keys cut into
     ``SPLIT`` contiguous parts, each a running softmax over passes of
-    ``STAGE_KEYS`` keys (max, exp sum, exp-weighted V), the parts merged in
+    ``stage_keys`` keys (max, exp sum, exp-weighted V), the parts merged in
     order. Same arguments and result as ``reference_decode_attention``."""
     n_keys = int(pos) + 1
+    per_pass = stage_keys(q.shape[-1], q.element_size())
     scale = 1.0 / (q.shape[-1] ** 0.5)
     qf = q.float()
     parts = []
@@ -83,8 +108,8 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
         m = torch.full(q.shape[:2], float("-inf"), device=q.device)
         l_sum = torch.zeros(q.shape[:2], device=q.device)
         acc = torch.zeros(q.shape, device=q.device)
-        for js in range(j0, j1, STAGE_KEYS):
-            je = min(j1, js + STAGE_KEYS)
+        for js in range(j0, j1, per_pass):
+            je = min(j1, js + per_pass)
             s = torch.einsum("bhd,bkhd->bhk", qf,
                              k_cache[:, js:je].float()) * scale
             if bias_row is not None:
@@ -150,10 +175,11 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         if bias_row.dtype not in DTYPE_CODES:
             bias_row = bias_row.float()
         bias_row = bias_row.contiguous()
-    if length % ATTN_CHUNK or head_dim % 2 or head_dim > 64 \
-            or not 0 <= pos < length:
-        raise ValueError("the cache length must be a multiple of 128, "
-                         "head_dim even and <= 64, and 0 <= pos < length")
+    reason = flash_refusal(head_dim, length)
+    if reason is not None:
+        raise ValueError(reason)
+    if not 0 <= pos < length:
+        raise ValueError(f"pos {pos} outside the cache of length {length}")
     out = torch.empty_like(q)
     code = _kernel()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

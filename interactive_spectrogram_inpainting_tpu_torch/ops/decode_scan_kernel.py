@@ -41,12 +41,32 @@ from .common import (DTYPE_CODES, check_cuda, check_shape, layer_norm, ptr,
                      raise_on_error, round_to, struct_type)
 
 # the launch of csrc/decode_scan.cu: CLUSTERS clusters of CLUSTER blocks;
-# fc1 / fc2 split over the blocks in units of UNIT rows of d_ff
+# fc1 / fc2 split over the blocks in units of UNIT rows of d_ff; cluster c
+# takes the heads c, c + CLUSTERS, ...
 CLUSTER = 8
 CLUSTERS = 15
 UNIT = 8
+SCAN_DH_MAX = 128
 INFO_KEYS = ("grid", "cluster", "threads", "smem_bytes", "registers",
-             "local_bytes", "grid_barriers_per_step", "clusters_resident")
+             "local_bytes", "grid_barriers_per_step", "clusters_resident",
+             "heads_per_cluster", "staged_regions", "general_kernel")
+
+
+def scan_refusal(d_model: int, n_heads: int, d_ff: int) -> Optional[str]:
+    """None when ``fused_decode_scan`` takes this geometry on the card,
+    else why not, naming the shape (csrc/decode_scan.cu::shape_ok; the
+    shared memory adapts: regions that do not fit are read from device
+    memory)."""
+    shape = f"d_model {d_model}, {n_heads} heads, d_ff {d_ff}"
+    if n_heads < 1 or d_model % n_heads:
+        return f"fused_decode_scan: {n_heads} heads do not divide d_model " \
+               f"({shape})"
+    dh = d_model // n_heads
+    if dh % CLUSTER or dh > SCAN_DH_MAX or d_ff % UNIT:
+        return (f"fused_decode_scan: head_dim {dh} must be a multiple of "
+                f"{CLUSTER} up to {SCAN_DH_MAX} and d_ff a multiple of "
+                f"{UNIT} ({shape})")
+    return None
 
 _ScanParams = struct_type(
     "ScanParams",
@@ -285,11 +305,9 @@ def _launch_args(params, bias_hm, posfull, mem_kv, kv, tokens, mask, gumbel,
     if not (0 <= p0 < steps <= min(steps_pad, l_pad)
             and steps - channels < length):
         raise ValueError(f"bad scan range [{p0}, {steps})")
-    if d % nh or (d // nh) % CLUSTER or d // nh > 64 or d_ff % UNIT \
-            or nh > CLUSTERS:
-        raise ValueError(f"head_dim must be a multiple of {CLUSTER} and "
-                         f"<= 64, d_ff a multiple of {UNIT}, and at most "
-                         f"{CLUSTERS} heads")
+    reason = scan_refusal(d, nh, d_ff)
+    if reason is not None:
+        raise ValueError(reason)
 
     def f32(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)

@@ -345,7 +345,89 @@ _STEP_LIBRARIES = {
                                   "isi_decode_step_batched_info"),
 }
 _INFO_KEYS = ("grid_blocks", "threads", "smem_bytes", "registers",
-              "local_bytes", "barriers_per_step")
+              "local_bytes", "barriers_per_step", "wide_kernel")
+
+# The step kernels' limits and shared-memory plan, as in
+# csrc/decode_step_persistent.cuh (step_shape_ok, operand_bytes, ff_tile).
+STEP_DH_MAX = 128
+_STEP_WARPS, _GROUP, _TILE_ROWS, _MAX_ITEMS = 16, 16, 8, 128
+_PART_FLOATS = _MAX_ITEMS * (64 + 2)
+_QS_FLOATS = _STEP_WARPS * 64
+SMEM_BUDGET = 232448  # bytes of shared memory a block can have on the H100
+H100_SMS = 132
+
+
+def _step_layout(d: int, n_heads: int, d_ff: int, batch: int, es: int):
+    """(shared bytes, fc2's column tile, rows of an fc2 pass, wide kernel)
+    of a step kernel launch, as the kernel computes them."""
+    dh = d // n_heads
+    max_groups = 4 if es == 2 else 1
+    fixed = 4 * (_PART_FLOATS + _STEP_WARPS * max(max_groups, 2) * 128
+                 + _QS_FLOATS)
+    kc = 32 if es == 2 else 16
+
+    def a_stride(k):
+        return ((k + 63) // 64) * 64 + 32 if es == 2 else k
+
+    def region(kt, groups, wide):
+        ops = max(_GROUP * (a_stride(max(d, kt)) + a_stride(d)),
+                  groups * _GROUP * a_stride(d))
+        warps = _STEP_WARPS // 2 if wide else _STEP_WARPS
+        keys = warps * 2 * kc * ((128 if wide else 64) + 16 // es)
+        return max(ops, keys) * es
+
+    cw = 4 * (16 // es)
+    all_groups = min(-(-batch // _GROUP), max_groups)
+    wide = (dh > 64 or d > 32 * 32
+            or region(d_ff, all_groups, False) + fixed > SMEM_BUDGET)
+    kt, groups = d_ff, all_groups
+    while wide and kt % (2 * cw) == 0 \
+            and region(kt, 1, True) + fixed > SMEM_BUDGET:
+        kt //= 2
+    while wide and groups > 1 \
+            and region(kt, groups, True) + fixed > SMEM_BUDGET:
+        groups -= 1
+    operand = region(kt, groups, wide)
+    fit = operand // (_GROUP * a_stride(kt) * es)
+    rows_ff = max(min(all_groups, max_groups, fit), 1) * _GROUP
+    return operand + fixed, kt, rows_ff, wide
+
+
+def step_refusal(d_model: int, n_heads: int, d_ff: int, dtype: torch.dtype,
+                 l_pad: int, e_src: Optional[int] = None, batch: int = 64,
+                 sms: int = H100_SMS) -> Optional[str]:
+    """None when the step kernels (``fused_decode_step``,
+    ``fused_decode_step_batched``) take this geometry on the card, else
+    why not, naming the shape. ``e_src``: the source length of a
+    relative-bias cross attention (None: aligned); ``batch``: the largest
+    batch (the default covers every bucket)."""
+    shape = (f"d_model {d_model}, {n_heads} heads, d_ff {d_ff}, "
+             f"{str(dtype).replace('torch.', '')}")
+    if n_heads < 1 or d_model % n_heads:
+        return f"step kernels: {n_heads} heads do not divide d_model ({shape})"
+    dh = d_model // n_heads
+    es = 2 if dtype == torch.bfloat16 else 4
+    cw = 4 * (16 // es)
+    if dh % 8 or dh > STEP_DH_MAX:
+        return (f"step kernels: head_dim {dh} is not a multiple of 8 up to "
+                f"{STEP_DH_MAX} ({shape})")
+    if d_model % cw or d_ff % cw:
+        return (f"step kernels: d_model and d_ff must be multiples of {cw} "
+                f"({shape})")
+    kc = 32 if es == 2 else 16
+    smem, kt, rows_ff, wide = _step_layout(d_model, n_heads, d_ff, batch, es)
+    items = _PART_FLOATS // (dh + 2) if wide else _MAX_ITEMS
+    for name, n in (("cache length", l_pad), ("source length", e_src)):
+        if n is not None and -(-n // kc) > items:
+            return (f"step kernels: {name} {n} exceeds {items * kc} keys "
+                    f"({shape})")
+    if smem > SMEM_BUDGET:
+        return (f"step kernels: {smem} bytes of shared memory exceed "
+                f"{SMEM_BUDGET} ({shape})")
+    tile_rows = _TILE_ROWS * -(-(d_model // _TILE_ROWS) // sms)
+    if kt < d_ff and rows_ff * tile_rows > _PART_FLOATS:
+        return f"step kernels: fc2's column tiles do not fit ({shape})"
+    return None
 
 
 def _fixed_tensors(params, bias_hm, posfull, mem_kv, kv, cross_hm):
@@ -367,7 +449,8 @@ class StepPlan:
     the same objects at the same addresses, with the same scalars; any
     other call builds a new plan (``step_plan``). On the CPU a plan holds
     no scratch and launches nothing: the wrappers run the plain version
-    there. On CUDA the build asks the kernel for its grid and refuses
+    there. On CUDA the build checks ``step_refusal``, asks the kernel for
+    its grid and refuses
     (raises) a shape it does not take. ``StepPlan.builds`` counts the plans
     built in this process."""
 
@@ -410,9 +493,6 @@ class StepPlan:
                         (n_layers, steps_pad, nh, e_pad))
         if params["emb_padded"].shape[0] <= n_class:
             raise ValueError("emb_padded needs the all-zeros row n_class")
-        if d % nh or (d // nh) % 2 or d // nh > 64 or d % 8 or d_ff % 8:
-            raise ValueError("head_dim must be even and <= 64, and d_model "
-                             "and d_ff multiples of 8")
         fixed = _fixed_tensors(params, bias_hm, posfull, mem_kv, kv,
                                cross_hm)
         self._refs = tuple(None if t is None else (weakref.ref(t),
@@ -425,6 +505,14 @@ class StepPlan:
         self.scratch = {}
         self.info = None
         if kv.device.type == "cuda":
+            reason = step_refusal(
+                d, nh, d_ff, dtype, l_pad,
+                None if cross_hm is None else e_src, batch,
+                torch.cuda.get_device_properties(
+                    kv.device).multi_processor_count)
+            if reason is not None:
+                raise ValueError(reason)
+
             def f32(*shape):
                 return torch.empty(shape, device=kv.device,
                                    dtype=torch.float32)

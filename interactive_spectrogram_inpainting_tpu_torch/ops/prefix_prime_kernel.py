@@ -44,6 +44,28 @@ _PrimeParams = struct_type(
 
 _WEIGHTS = ("wqkv", "bqkv", "wo", "bo", "wo_c", "bo_c", "wq_c", "bq_c",
             "w1", "b1", "w2", "b2")
+# csrc/prefix_prime.cu's limits
+PRIME_DH_MAX = 128
+PRIME_D_MAX = 2048
+
+
+def prime_refusal(d_model: int, n_heads: int, d_ff: int) -> Optional[str]:
+    """None when ``fused_prefix_prime`` takes this geometry on the card,
+    else why not, naming the shape (csrc/prefix_prime.cu::shape_ok)."""
+    shape = f"d_model {d_model}, {n_heads} heads, d_ff {d_ff}"
+    if n_heads < 1 or d_model % n_heads:
+        return (f"fused_prefix_prime: {n_heads} heads do not divide d_model "
+                f"({shape})")
+    dh = d_model // n_heads
+    if dh % 8 or dh > PRIME_DH_MAX:
+        return (f"fused_prefix_prime: head_dim {dh} is not a multiple of 8 "
+                f"up to {PRIME_DH_MAX} ({shape})")
+    if d_model % 32 or d_ff % 32 or d_model > PRIME_D_MAX:
+        return (f"fused_prefix_prime: d_model and d_ff must be multiples of "
+                f"32, d_model at most {PRIME_D_MAX} ({shape})")
+    return None
+
+
 INFO_KEYS = ("grid", "threads", "smem_bytes", "registers", "local_bytes",
              "grid_barriers")
 
@@ -201,10 +223,9 @@ def _launch_args(params, bias_hm, x_prefix, mem_kv, kv, *, p0, channels,
             or x_prefix.shape[2] != d:
         raise ValueError(f"x_prefix must be [{batch}, >= {p0}, {d}], "
                          f"got {tuple(x_prefix.shape)}")
-    if d % nh or d // nh > 64 or (d // nh) % 8 or d % 32 or d_ff % 32 \
-            or d > 1024:
-        raise ValueError("head_dim must be a multiple of 8 and <= 64, d_model "
-                         "and d_ff multiples of 32, d_model at most 1024")
+    reason = prime_refusal(d, nh, d_ff)
+    if reason is not None:
+        raise ValueError(reason)
     m = p0
     rows = batch * m
 

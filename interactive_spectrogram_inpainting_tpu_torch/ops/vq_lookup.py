@@ -29,14 +29,15 @@ without float atomics: two calls on the same inputs give the same bits.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .common import ptr, raise_on_error, struct_type
 
-# widest embedding the kernels take
-MAX_DIM = 256
+# widest embedding the kernels take (rows above 64 wide are scored 64 dims
+# at a time)
+MAX_DIM = 1024
 # sorted positions one warp of the statistics kernel sums (kPiece)
 PIECE_ROWS = 64
 
@@ -154,6 +155,14 @@ def _params(flat, embed, ids=None, quantize=None, counts=None,
         n_embed=embed.shape[1])
 
 
+def vq_refusal(dim: int) -> Optional[str]:
+    """None when ``fused_vq_lookup`` takes rows of this width on the card,
+    else why not, naming the width."""
+    if not 0 < dim <= MAX_DIM:
+        return f"fused_vq_lookup: embedding dim {dim} is not in 1..{MAX_DIM}"
+    return None
+
+
 def _check(flat: torch.Tensor, embed: torch.Tensor) -> None:
     """What the kernel takes: detached float32 CUDA tensors on one device,
     contiguous, N > 0, K > 0 and 0 < dim <= MAX_DIM."""
@@ -167,9 +176,11 @@ def _check(flat: torch.Tensor, embed: torch.Tensor) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     n, dim = flat.shape
-    if n == 0 or not 0 < dim <= MAX_DIM or embed.shape[1] == 0:
-        raise ValueError(f"fused_vq_lookup needs N > 0, K > 0 and "
-                         f"0 < dim <= {MAX_DIM}")
+    reason = vq_refusal(dim)
+    if reason is not None:
+        raise ValueError(reason)
+    if n == 0 or embed.shape[1] == 0:
+        raise ValueError("fused_vq_lookup needs N > 0 and K > 0")
 
 
 def fused_vq_lookup(flat: torch.Tensor, embed: torch.Tensor) -> VqOutputs:

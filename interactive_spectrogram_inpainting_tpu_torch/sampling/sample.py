@@ -39,13 +39,13 @@ import torch
 import torch.nn.functional as F
 
 from ..models.prior.transformer import VQNSynthTransformer
-from ..ops.decode_scan_kernel import fused_decode_scan
+from ..ops.decode_scan_kernel import fused_decode_scan, scan_refusal
 from ..ops.decode_step_batched import fused_decode_step_batched
 from ..ops.decode_step_kernel import (
     MAX_SMALL_BATCH, _round_up, fused_decode_step, pack_decode_params,
     precompute_bias_rows, precompute_cross_bias_rows, precompute_mem_values,
-    precompute_position_features)
-from ..ops.prefix_prime_kernel import fused_prefix_prime
+    precompute_position_features, step_refusal)
+from ..ops.prefix_prime_kernel import fused_prefix_prime, prime_refusal
 from ..utils.device import DeviceLike, resolve_device
 
 NEG_INF = -1e9
@@ -97,6 +97,40 @@ def precompute_decode_state(model: VQNSynthTransformer,
         "cross_hm": (cross_rows.transpose(2, 3).contiguous()
                      if cross_rows is not None else None),
     }
+
+
+def fused_unsupported(model: VQNSynthTransformer, top_k_sampling_k: int = 0,
+                      top_p_sampling_p: float = 0.0) -> Optional[str]:
+    """Why the fused sampler cannot serve this prior with these options
+    (None when it can): it covers aligned or relative-bias cross attention,
+    without filtering and without positional class conditioning."""
+    cfg = model.config
+    if not (cfg.use_aligned_decoder or not cfg.use_identity_memory_mask):
+        return "the fused step covers aligned or relative-bias cross attention"
+    if top_k_sampling_k != 0 or top_p_sampling_p != 0.0:
+        return "the fused step does not support top-k/top-p filtering"
+    if cfg.positional_class_conditioning:
+        return ("the fused step does not support positional class "
+                "conditioning")
+    return None
+
+
+def fused_refusal(model: VQNSynthTransformer,
+                  compute_dtype: Optional[torch.dtype] = None
+                  ) -> Optional[str]:
+    """None when every kernel the fused sampler can launch for this prior
+    takes its geometry on the card (the B = 1 scan and its prefix prime,
+    the step kernels at B > 1), else the first refusal, naming the kernel
+    and the shape. The kernels' own checks are the same predicates."""
+    cfg = model.config
+    d, nh, d_ff = cfg.d_model, cfg.conditional_model_nhead, cfg.d_ff
+    l_pad = _round_up(cfg.target_sequence_length + cfg.target_num_channels,
+                      128)
+    e_pad = _round_up(cfg.source_sequence_length + 1, 128)
+    return (scan_refusal(d, nh, d_ff) or prime_refusal(d, nh, d_ff)
+            or step_refusal(d, nh, d_ff, compute_dtype or torch.float32,
+                            l_pad, None if cfg.use_aligned_decoder
+                            else e_pad))
 
 
 def gumbel_noise(shape: Tuple[int, ...], device: torch.device,
@@ -473,15 +507,9 @@ def sample_model(model: VQNSynthTransformer,
         raise ValueError(f"model is on {model.device}, expected {dev}")
     cfg = model.config
     if use_fused_step and not use_predictive_sampling:
-        if not (cfg.use_aligned_decoder or not cfg.use_identity_memory_mask):
-            raise ValueError("the fused step covers aligned or "
-                             "relative-bias cross attention")
-        if top_k_sampling_k != 0 or top_p_sampling_p != 0.0:
-            raise ValueError("the fused step does not support top-k/top-p "
-                             "filtering")
-        if cfg.positional_class_conditioning:
-            raise ValueError("the fused step does not support positional "
-                             "class conditioning")
+        reason = fused_unsupported(model, top_k_sampling_k, top_p_sampling_p)
+        if reason is not None:
+            raise ValueError(reason)
     shape = tuple(codemap_size or cfg.shape)
     if shape != tuple(cfg.shape):
         raise ValueError(f"codemap_size {shape} != model shape {cfg.shape}")

@@ -46,11 +46,9 @@ import argparse
 import io
 import json
 import logging
-import struct
 import threading
 import time
 import zipfile
-import zlib
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -62,10 +60,14 @@ from ..models.prior.transformer import (
     SelfAttentiveVQTransformer, TransformerConfig, UpsamplingVQTransformer,
     VQNSynthTransformer)
 from ..models.vqvae.vqvae import VQVAE, VQVAEConfig
-from ..sampling.sample import precompute_decode_state, sample_model
+from ..ops.vq_lookup import vq_refusal
+from ..sampling.sample import (fused_refusal, fused_unsupported,
+                               precompute_decode_state, sample_model)
 from ..signal.spectrogram import (get_spectrograms_helper,
                                   make_masked_phase_transform)
 from ..utils.device import DeviceLike, resolve_device, set_float32_precision
+from ..utils.visualization import encode_png as _encode_png
+from ..utils.visualization import viridis_lut as _viridis_lut
 from ..utils.weights import init_like_flax
 from .http_app import App, Request, jsonify, send_bytes
 
@@ -107,12 +109,41 @@ def _log_predictive_speedup(which: str, diag) -> None:
         num_steps / max(num_forwards, 1))
 
 
+def kernel_refusals(vqvae_model: VQVAE, top_model: VQNSynthTransformer,
+                    bottom_model: VQNSynthTransformer) -> Dict[str, str]:
+    """The decision a server on the card takes when it loads its models:
+    raise for a VQ-VAE with the fused lookup whose embedding the lookup
+    kernel does not take; for each prior whose geometry a fused kernel
+    does not take (``fused_refusal``, the server's bfloat16), log one line
+    naming the kernel and the shape. -> {'top' | 'bottom': reason} of the
+    priors the dense sampler serves."""
+    vq_cfg = vqvae_model.config
+    reason = (vq_refusal(vq_cfg.embed_dim) if vq_cfg.use_pallas_lookup
+              else None)
+    if reason is not None:
+        raise ValueError(f"the VQ-VAE cannot be served: {reason}")
+    refusals = {}
+    for which, model in (("top", top_model), ("bottom", bottom_model)):
+        reason = fused_refusal(model, torch.bfloat16)
+        if reason is not None:
+            logger.warning("%s prior served by the dense sampler: %s",
+                           which, reason)
+            refusals[which] = reason
+    return refusals
+
+
 class ServerState:
     """Models, decode tables and the per-request sampling closures.
 
     ``sampling_options`` (``top_k``, ``top_p``, ``predictive``) choose the
     sampler for every request: the fused kernels unless filtering or
     predictive sampling is asked for (``_fused_ok``).
+
+    On CUDA the models' shapes are checked when the state is built: a
+    prior whose geometry a fused kernel does not take (``fused_refusal``)
+    is served by the dense sampler, with one log line naming the kernel
+    and the shape; a VQ-VAE with the fused lookup whose embedding the
+    lookup kernel does not take raises.
 
     ``gumbel_source``, when set, is called as ``gumbel_source(which)``
     (``'top'`` or ``'bottom'``) and returns the Gumbel noise of that
@@ -129,6 +160,10 @@ class ServerState:
                  spectrograms_upsampling_factor: int = 4):
         self.device = resolve_device(device)
         set_float32_precision()
+        # which: why a fused kernel does not take that prior's geometry
+        self._fused_refusals = (
+            kernel_refusals(vqvae_model, top_model, bottom_model)
+            if self.device.type == "cuda" else {})
         self.vqvae = vqvae_model.to(self.device).eval()
         self.top = top_model.to(self.device).eval()
         self.bottom = bottom_model.to(self.device).eval()
@@ -199,15 +234,14 @@ class ServerState:
         return self.gumbel_source(which) if self.gumbel_source else None
 
     def _fused_ok(self, which: str) -> bool:
-        cfg = (self.top if which == "top" else self.bottom).config
-        top_k = int(self.sampling_options.get("top_k", 0))
-        top_p = float(self.sampling_options.get("top_p", 0.0))
+        model = self.top if which == "top" else self.bottom
         if self.sampling_options.get("predictive", False):
             return False  # predictive sampling runs full forwards
-        return (top_k == 0 and top_p == 0.0
-                and not cfg.positional_class_conditioning
-                and (cfg.use_aligned_decoder
-                     or not cfg.use_identity_memory_mask))
+        if which in self._fused_refusals:
+            return False  # a kernel does not take the prior's geometry
+        return fused_unsupported(
+            model, int(self.sampling_options.get("top_k", 0)),
+            float(self.sampling_options.get("top_p", 0.0))) is None
 
     def _sample(self, which: str, generator, batch_size: int, temperature,
                 condition, initial_code, mask, class_conditioning, ti_src,
@@ -755,42 +789,6 @@ def top_conditioned_sample(request: Request):
             write_wav(wav_buf, wave, state.fs_hz)
             zf.writestr(f"{family}-{pitch}.wav", wav_buf.getvalue())
     return send_bytes(buf.getvalue(), "application/zip", "samples.zip")
-
-
-_VIRIDIS_LUT: Optional[np.ndarray] = None
-
-
-def _viridis_lut() -> np.ndarray:
-    """[256, 3] uint8 viridis colormap table (built once; a grayscale ramp
-    where matplotlib is not installed)."""
-    global _VIRIDIS_LUT
-    if _VIRIDIS_LUT is None:
-        try:
-            from matplotlib import colormaps
-            _VIRIDIS_LUT = (colormaps["viridis"](
-                np.linspace(0.0, 1.0, 256))[:, :3] * 255 + 0.5
-            ).astype(np.uint8)
-        except ImportError:
-            ramp = np.arange(256, dtype=np.uint8)
-            _VIRIDIS_LUT = np.stack([ramp] * 3, axis=1)
-    return _VIRIDIS_LUT
-
-
-def _encode_png(rgb: np.ndarray) -> bytes:
-    """Minimal RGB8 PNG encoder (filter 0 scanlines, one IDAT, deflate
-    level 1: latency over size on a local interface)."""
-    h, w, _ = rgb.shape
-    raw = np.zeros((h, 1 + w * 3), np.uint8)  # filter byte 0 per scanline
-    raw[:, 1:] = rgb.reshape(h, w * 3)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data)))
-
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    idat = zlib.compress(raw.tobytes(), 1)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
-            + chunk(b"IDAT", idat) + chunk(b"IEND", b""))
 
 
 def spectrogram_image_indices(logmag: torch.Tensor,

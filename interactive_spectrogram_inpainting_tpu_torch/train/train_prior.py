@@ -415,6 +415,32 @@ def iterate_batches(dataset, batch_size: int, shuffle: bool, epoch: int,
                put(weights))
 
 
+@torch.no_grad()
+def prediction_figure(model: VQNSynthTransformer, dataset, hier: str,
+                      batch_size: int, device, path: pathlib.Path) -> None:
+    """The target-vs-predicted success map of the first codemap of the
+    first batch, written to ``path`` (reference
+    ``train_autoregressive_model.py:308-346``); one log line instead when
+    matplotlib is not installed."""
+    from ..utils.visualization import (have_matplotlib,
+                                       plot_prediction_success_map,
+                                       save_figure)
+    if not have_matplotlib():
+        print("codemap prediction figure skipped: matplotlib is not "
+              "installed")
+        return
+    tops, bottoms, cc, _ = next(iterate_batches(dataset, batch_size, False,
+                                                0, device=device))
+    target_map = tops if hier == "top" else bottoms
+    src_seq, tgt_seq = model.to_sequences(target_map, tops,
+                                          class_conditioning=cc)
+    logits, _ = model(tgt_seq, src_seq, deterministic=True)
+    pred = model.config.target_codemaps_helper().to_time_frequency_map(
+        torch.argmax(logits, dim=-1))
+    save_figure(plot_prediction_success_map(
+        target_map[0].cpu().numpy(), pred[0].cpu().numpy()), path)
+
+
 def _check_devices(args) -> None:
     if args.num_devices_model != 1 or args.num_devices_data not in (None, 1):
         raise SystemExit(
@@ -594,9 +620,10 @@ def main(argv=None):
                 validation_loss = val.get("loss")
                 writer.scalars(f"{args.hier}/validation", val, global_step)
                 if writes:
-                    print("codemap prediction figure skipped: "
-                          "utils/visualization.py is not ported "
-                          "(ROADMAP.md, 'Rest')")
+                    prediction_figure(
+                        model, dataset, args.hier, args.batch_size, device,
+                        writer.directory / "media"
+                        / f"codemap_prediction-{epoch}.png")
 
             if checkpointer is not None:
                 checkpointer.save(epoch, {"model": model.state_dict(),

@@ -21,10 +21,10 @@ the files the server, the extractor and the JAX package load.
 
 Not carried over from the JAX trainer: its host-side spectrogram branch
 (a workaround for a TPU backend without complex FFTs; ``torch.fft`` runs
-on the card), ``--num_devices_data`` other than 1 (data parallelism
-belongs to the parallel slice of the port) and the reconstruction figure of
-the media dump (it waits for ``utils/visualization.py``; the run logs one
-line instead).
+on the card) and ``--num_devices_data`` other than 1 (data parallelism
+belongs to the parallel slice of the port). The reconstruction figure of
+the media dump needs matplotlib (without it the run logs one line
+instead).
 """
 
 from __future__ import annotations
@@ -207,6 +207,26 @@ def build_config(args) -> VQVAEConfig:
         resnet_expansion=args.resnet_expansion,
         use_pallas_lookup=args.pallas_vq,
     )
+
+
+def reconstruction_figure(spec: torch.Tensor, dec: torch.Tensor,
+                          hop_length: int, fs_hz: int,
+                          path: pathlib.Path) -> None:
+    """The (log-mel magnitude, IF) grid of the input spectrograms and
+    their reconstructions, written to ``path`` (reference
+    ``train_vqvae.py:373-427``); one log line instead when matplotlib is
+    not installed."""
+    from ..utils.visualization import (have_matplotlib,
+                                       plot_mel_representations_batch,
+                                       save_figure)
+    if not have_matplotlib():
+        print("reconstruction figure skipped: matplotlib is not installed")
+        return
+    spec, dec = spec.float().cpu().numpy(), dec.float().cpu().numpy()
+    save_figure(plot_mel_representations_batch(
+        np.concatenate([spec[:, 0], dec[:, 0]]),
+        np.concatenate([spec[:, 1], dec[:, 1]]),
+        hop_length=hop_length, fs_hz=fs_hz), path)
 
 
 def _spectrogram(spectrograms_helper, input_transform, audio: torch.Tensor
@@ -527,17 +547,18 @@ def main(argv=None) -> VQVAE:
                 audio = torch.as_tensor(np.stack(
                     [valid[i][0] for i in range(n)])).to(device)
                 with torch.no_grad():
-                    dec = model(_spectrogram(helper, input_transform,
-                                             audio))[0]
+                    spec = _spectrogram(helper, input_transform, audio)
+                    dec = model(spec)[0]
                     rec = helper.to_audio(dec.float())
                 for i in range(len(audio)):
                     writer.audio(f"original/{i}", audio[i], global_step,
                                  args.fs_hz)
                     writer.audio(f"reconstruction/{i}", rec[i], global_step,
                                  args.fs_hz)
-                print("reconstruction figure skipped: "
-                      "utils/visualization.py is not ported "
-                      "(ROADMAP.md, 'Rest')")
+                reconstruction_figure(
+                    spec, dec, args.hop_length, args.fs_hz,
+                    writer.directory / "media"
+                    / f"reconstructions-{global_step}.png")
 
             validation_loss = None
             if valid_loader is not None and (

@@ -43,6 +43,18 @@ and the wall time of the dense sampler (``sample_model`` at B 2,
 ``top_p`` 0.9, ``use_flash=True``, bf16) on the full-width bottom prior,
 the second of two runs.
 
+``python3 step_phases.py --kernel-times`` times, with CUDA events and the
+plain builds (no stamps), each decode and encode kernel at the full-width
+test priors' shapes in bf16: each prior's whole scan (greedy, from the
+primed cache of the server request) and prefix prime, 32 steps of
+``fused_decode_step`` at bottom and top B 2 and of the batched kernel at
+bottom B 16, 64 flash attention calls (device time) and the VQ lookup at N
+8 192 and 65 536 with K 512 and dim 64, 128, 200, 256 and 512; with a
+checkout whose ``chip_smoke.py`` has ``prior_state``, also the scan and
+the prime of priors with 16 heads (the reference's geometry, the full
+models' depth). One JSON line; run it in two checkouts in turns to compare
+them on one card.
+
 The stamps go into the kernel
 source found beside this script, so a copy of an earlier checkout with this
 script dropped into it times that checkout's kernel. Imports nothing of
@@ -338,6 +350,95 @@ def vq_flash_main(torch):
           f"{wall:.3f} s wall (second run)", flush=True)
 
 
+def kernel_times(torch, state):
+    """{kernel case: ms} of the decode and encode kernels on ``state``'s
+    priors (CUDA events, warm)."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        decode_scan_kernel as dsc, decode_step_batched as dsb,
+        decode_step_kernel as dsk)
+    from interactive_spectrogram_inpainting_tpu_torch.ops.prefix_prime_kernel \
+        import fused_prefix_prime
+    out = {}
+    for name, _, inp in chip_smoke.prior_setups(torch, state,
+                                                torch.bfloat16):
+        kv0 = chip_smoke.run_prime(torch, fused_prefix_prime, inp,
+                                   torch.bfloat16)
+        noise = torch.zeros(inp["steps"] - inp["p0"], inp["n_class"],
+                            device=kv0.device)
+        call = ((inp["params"], inp["bias_hm"], inp["posfull"], inp["mem"],
+                 kv0.clone(), inp["tokens"], inp["mask"], noise, 1.0),
+                dict(p0=inp["p0"], steps=inp["steps"], n_class=inp["n_class"],
+                     channels=inp["c"], cross_hm=inp["cross_hm"],
+                     e_src_real=inp["e_src"]))
+        out[f"scan {name}"] = chip_smoke.time_calls(
+            torch, dsc.fused_decode_scan, [call], reps=5)
+        kv = torch.zeros(inp["kv_shape"], dtype=torch.bfloat16,
+                         device="cuda")
+        call = ((inp["params"], inp["bias_hm"], inp["x_prefix"], inp["mem"],
+                 kv), dict(p0=inp["p0"], channels=inp["c"],
+                           cross_hm=inp["cross_hm"], e_src_real=inp["e_src"]))
+        out[f"prime {name}"] = chip_smoke.time_calls(
+            torch, fused_prefix_prime, [call], reps=10)
+    return out
+
+
+# the VQ lookup's widths: the models' 64, the widths between 64 and 256
+# (split TF32 from a row tile in shared memory, or 64 dims at a time), 512
+VQ_DIMS = (64, 128, 200, 256, 512)
+
+
+def kernel_times_main(torch):
+    """Warm CUDA-event ms of each kernel at today's shapes (and the 16-head
+    scan and prime where this checkout builds such priors)."""
+    import json
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        decode_step_batched as dsb, decode_step_kernel as dsk)
+    from interactive_spectrogram_inpainting_tpu_torch.ops.decode_attention \
+        import flash_decode_attention
+    from interactive_spectrogram_inpainting_tpu_torch.ops.prefix_prime_kernel \
+        import fused_prefix_prime
+    from interactive_spectrogram_inpainting_tpu_torch.ops.vq_lookup import (
+        fused_vq_lookup)
+    state = chip_smoke.full_priors(torch, "cuda")
+    out = kernel_times(torch, state)
+    for prior, batch in (("bottom", 2), ("top", 2), ("bottom", 16)):
+        inp = chip_smoke.batch_setup(torch, state, prior, batch,
+                                     torch.bfloat16)
+        kv = chip_smoke.run_prime(torch, fused_prefix_prime, inp,
+                                  torch.bfloat16)
+        batched = prior == "bottom" and batch > dsk.MAX_SMALL_BATCH
+        fn = dsb.fused_decode_step_batched if batched \
+            else dsk.fused_decode_step
+        out[f"{fn.__name__} {prior} B={batch}, {STEPS} steps"] = \
+            chip_smoke.time_calls(torch, fn, step_calls(inp, kv, batched),
+                                  reps=3)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    heads, dh, length, batch = 8, 64, 640, 2
+    q = torch.randn(batch, heads, dh, generator=gen,
+                    device="cuda").bfloat16()
+    k, v = (torch.randn(batch, length, heads, dh, generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    bias = torch.randn(heads, length, generator=gen, device="cuda")
+    out["flash 64 calls (device)"] = chip_smoke.device_ms(
+        torch, flash_decode_attention,
+        [((q, k, v, (j * (length - 1)) // 63, bias), {}) for j in range(64)])
+    for dim in VQ_DIMS:
+        embed = torch.randn(dim, 512, generator=gen, device="cuda")
+        for n in (8192, 65536):
+            out[f"vq dim {dim} N={n}"] = chip_smoke.time_calls(
+                torch, fused_vq_lookup,
+                [((torch.randn(n, dim, generator=gen, device="cuda"), embed),
+                  {})], reps=20)
+    if hasattr(chip_smoke, "prior_state"):
+        del state
+        torch.cuda.empty_cache()
+        ref = chip_smoke.prior_state(torch, 512, 16, 2048)
+        out.update({f"{k} (16 heads)": v
+                    for k, v in kernel_times(torch, ref).items()})
+    print("kernel times, ms: " + json.dumps(
+        {k: round(v, 4) for k, v in out.items()}), flush=True)
+
+
 def step_calls(inp, kv, batched):
     """The wrapper calls of STEPS consecutive steps from p0 (greedy noise),
     as the batch samplers' token loop makes them."""
@@ -380,6 +481,9 @@ def main():
     parser.add_argument("--vq-flash", action="store_true",
                         help="the VQ lookup's and the flash attention's "
                         "times and launches")
+    parser.add_argument("--kernel-times", action="store_true",
+                        help="each kernel's ms at today's shapes, plain "
+                        "builds")
     args = parser.parse_args()
     torch = chip_smoke.setup()
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
@@ -401,6 +505,9 @@ def main():
         return
     if args.vq_flash:
         vq_flash_main(torch)
+        return
+    if args.kernel_times:
+        kernel_times_main(torch)
         return
     libs = stamped_libraries(args.double_barriers)
     state = chip_smoke.full_priors(torch, "cuda")

@@ -2,7 +2,8 @@
 
 Marked ``cuda``: each test asks its fixture for a CUDA device and skips
 where there is none (as in the CPU test run). They hold the kernels at
-small widths (d_model 32, 4 heads of 8, d_ff 64, 16 classes); the full
+small widths (d_model 32, 4 heads of 8, d_ff 64, 16 classes) and at the
+widened geometries of ``WIDE`` on the same small codemaps; the full
 widths are held by ``chip_smoke.py``. Torch only, so they run on a machine
 without JAX:
 
@@ -44,13 +45,15 @@ def device():
     return torch.device("cuda")
 
 
-def tiny_prior(variant):
+def tiny_prior(variant, **widths):
+    """The small prior (``widths`` override d_model, heads, d_ff)."""
     base = tt.TransformerConfig(
         shape=(8, 4), n_class=16, d_model=32, embeddings_dim=8,
         positional_embeddings_dim=8, dropout=0.0, condition_shape=(4, 2),
         conditional_model_num_encoder_layers=2,
         conditional_model_num_decoder_layers=2, conditional_model_nhead=4,
         d_ff=64)
+    base = dataclasses.replace(base, **widths)
     if variant == "aligned":
         model = tt.UpsamplingVQTransformer(
             dataclasses.replace(base, use_aligned_decoder=True))
@@ -61,7 +64,11 @@ def tiny_prior(variant):
 
 @pytest.fixture(scope="module", params=["aligned", "cross"])
 def prior(request, device):
-    model = tiny_prior(request.param).to(device)
+    return prior_case(tiny_prior(request.param).to(device))
+
+
+def prior_case(model):
+    """(model, codemap, condition, mask): a two-column inpaint."""
     cfg = model.config
     rng = np.random.default_rng(1)
     codemap = rng.integers(0, cfg.n_class, cfg.shape)
@@ -356,14 +363,15 @@ def test_decode_step_is_one_launch_per_step(device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_step_kernels_refuse_what_they_do_not_take(device, dtype,
                                                    monkeypatch):
-    """d_ff 8192 needs more shared memory than a block has: both step
-    kernels raise, launch nothing and never run the plain version."""
+    """head_dim 12 (d_model 48, 4 heads) is no multiple of 8: both step
+    kernels raise naming the shape, launch nothing and never run the plain
+    version."""
     import chip_smoke
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
         decode_step_batched as dsb, decode_step_kernel as dsk)
     base = tiny_prior("aligned").config
     model = init_like_flax(
-        tt.UpsamplingVQTransformer(dataclasses.replace(base, d_ff=8192)),
+        tt.UpsamplingVQTransformer(dataclasses.replace(base, d_model=48)),
         torch.Generator().manual_seed(0)).eval().to(device)
 
     def plain(*args, **kwargs):
@@ -377,9 +385,163 @@ def test_step_kernels_refuse_what_they_do_not_take(device, dtype,
         kv0 = torch.zeros(inp["kv_shape"], dtype=dtype, device=device)
         zeros = torch.zeros(1, batch, inp["n_class"], device=device)
         before = fn.launches
-        with pytest.raises(RuntimeError, match="does not take this shape"):
+        with pytest.raises(ValueError, match="head_dim 12 .*d_model 48"):
             chip_smoke.run_steps(torch, fn, inp, kv0, zeros, 1.0, 1)
         assert fn.launches == before
+
+
+def test_step_refusal_is_the_kernels_own_decision(device):
+    """``step_refusal`` (which the server and the CLI ask when a prior
+    loads) mirrors the kernels' shared-memory plan: over a sweep of
+    d_model, head_dim, d_ff, batch, cache length, dtype and aligned / cross
+    attention, it returns None exactly where the kernel's info call takes
+    the shape, and ``_step_layout`` gives the kernel's shared memory and
+    choice of the wide instantiation."""
+    import ctypes
+    import itertools
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        build, decode_step_kernel as dsk)
+    from interactive_spectrogram_inpainting_tpu_torch.ops.common import (
+        DTYPE_CODES)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    e_src = 129
+    taken = refused = 0
+    for kernel, cross in (("fused_decode_step", False),
+                          ("fused_decode_step", True),
+                          ("fused_decode_step_batched", False)):
+        library, _, info_symbol = dsk._STEP_LIBRARIES[kernel]
+        info_fn = getattr(build.load(library), info_symbol)
+        for d, dh, d_ff, batch, l_pad, dtype in itertools.product(
+                (256, 512, 1024, 1536, 2048), (8, 12, 32, 64, 96, 128, 136),
+                (512, 2048, 8192, 32768), (1, 2, 16, 64), (640, 2048),
+                (torch.float32, torch.bfloat16)):
+            heads = max(d // dh, 1)
+            params = dsk._StepParams(
+                n_layers=2, d=d, d_ff=d_ff, n_heads=heads, n_class=16,
+                batch=batch, l_pad=l_pad, e_pad=256, steps_pad=l_pad,
+                channels=1, e_src=e_src if cross else 256,
+                aligned=int(not cross), pos=0, take=0, grid=0, scale=1.0,
+                inv_temperature=1.0)
+            info = (ctypes.c_int * len(dsk._INFO_KEYS))()
+            code = info_fn(ctypes.byref(params),
+                           ctypes.c_int(DTYPE_CODES[dtype]), info)
+            reason = dsk.step_refusal(d, heads, d_ff, dtype, l_pad,
+                                      e_src if cross else None, batch, sms)
+            shape = (kernel, cross, d, heads, d_ff, batch, l_pad, dtype)
+            assert (code == 0) == (reason is None), (shape, code, reason)
+            if code:
+                refused += 1
+                continue
+            taken += 1
+            got = dict(zip(dsk._INFO_KEYS, info))
+            smem, _, _, wide = dsk._step_layout(
+                d, heads, d_ff, batch, 2 if dtype == torch.bfloat16 else 4)
+            assert (got["smem_bytes"], got["wide_kernel"]) == (
+                smem, int(wide)), shape
+    assert taken and refused
+
+
+# prior geometries the kernels take since the full test models' (d_model,
+# heads, d_ff): more heads than the scan's 15 clusters, head_dim 128, shared
+# memory regions read from device memory (d_model 1024, d_ff 4096), d_model
+# 2048, d_ff 8192
+WIDE = {"16_heads": (128, 16, 64), "24_heads": (192, 24, 64),
+        "head_dim_128": (256, 2, 64), "d_model_1024": (1024, 8, 4096),
+        "d_model_2048": (2048, 16, 128), "d_ff_8192": (32, 4, 8192)}
+
+
+def wide_case(device, variant, geometry):
+    d_model, heads, d_ff = WIDE[geometry]
+    return prior_case(tiny_prior(variant, d_model=d_model,
+                                 conditional_model_nhead=heads,
+                                 d_ff=d_ff).to(device))
+
+
+@pytest.mark.parametrize("geometry", ["16_heads", "24_heads", "head_dim_128",
+                                      "d_model_1024"])
+@pytest.mark.parametrize("variant", ["aligned", "cross"])
+def test_decode_scan_wide_geometry_matches_plain(device, variant, geometry):
+    """float32: the token streams equal (greedy and with noise), the cache
+    within 3e-4; bfloat16 teacher-forced: the cache within 5e-2."""
+    import chip_smoke
+    model, codemap, condition, mask = wide_case(device, variant, geometry)
+    for dtype in (torch.float32, torch.bfloat16):
+        inp = inputs(model, codemap, condition, mask, dtype)
+        kv0 = chip_smoke.run_prime(torch, fused_prefix_prime, inp, dtype)
+        n = inp["steps"] - inp["p0"]
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        noise = gumbel_noise((n, inp["n_class"]), kv0.device, gen)
+        if dtype == torch.float32:
+            for gumbel in (noise, torch.zeros_like(noise)):
+                tk, kvk = chip_smoke.run_scan(torch, fused_decode_scan, inp,
+                                              kv0, inp["mask"], gumbel, 0.8)
+                tp, kvp = chip_smoke.run_scan(torch, decode_scan_plain, inp,
+                                              kv0, inp["mask"], gumbel, 0.8)
+                torch.cuda.synchronize()
+                assert torch.equal(tk, tp)
+                torch.testing.assert_close(kvk, kvp, atol=3e-4, rtol=1e-3)
+        else:
+            none = torch.zeros_like(inp["mask"])
+            tk, kvk = chip_smoke.run_scan(torch, fused_decode_scan, inp, kv0,
+                                          none, noise)
+            tp, kvp = chip_smoke.run_scan(torch, decode_scan_plain, inp, kv0,
+                                          none, noise)
+            torch.cuda.synchronize()
+            assert torch.equal(tk, inp["tokens"])
+            torch.testing.assert_close(kvk.float(), kvp.float(), atol=5e-2,
+                                       rtol=5e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geometry", ["16_heads", "head_dim_128",
+                                      "d_model_2048"])
+@pytest.mark.parametrize("variant", ["aligned", "cross"])
+def test_prefix_prime_wide_geometry_matches_plain(device, variant, geometry,
+                                                  dtype):
+    import chip_smoke
+    model = wide_case(device, variant, geometry)[0]
+    inp = batch_inputs(model, 2, dtype)
+    kv_k = chip_smoke.run_prime(torch, fused_prefix_prime, inp, dtype)
+    kv_p = chip_smoke.run_prime(torch, prefix_prime_plain, inp, dtype)
+    torch.cuda.synchronize()
+    p0 = inp["p0"]
+    tol = 3e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(kv_k[:, :, :, :p0].float(),
+                               kv_p[:, :, :, :p0].float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geometry", ["head_dim_128", "d_ff_8192",
+                                      "16_heads"])
+@pytest.mark.parametrize("kernel,variant,batch", [
+    ("fused_decode_step", "aligned", 2), ("fused_decode_step", "cross", 2),
+    ("fused_decode_step_batched", "aligned", 16)])
+def test_step_kernels_wide_geometry_match_plain(device, kernel, variant,
+                                                batch, geometry, dtype):
+    """Every position of the two-column inpaint: the caches within the
+    step tolerance, float32 tokens equal (d_ff 8192: fc2 in column tiles of
+    d_ff)."""
+    import chip_smoke
+    model = wide_case(device, variant, geometry)[0]
+    fn, plain = {"fused_decode_step": (fused_decode_step, decode_step_plain),
+                 "fused_decode_step_batched": (fused_decode_step_batched,
+                                               decode_step_batched_plain)
+                 }[kernel]
+    inp = batch_inputs(model, batch, dtype)
+    kv0 = chip_smoke.run_prime(torch, fused_prefix_prime, inp, dtype)
+    n = inp["steps"] - inp["p0"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    noise = gumbel_noise((n, batch, inp["n_class"]), kv0.device, gen)
+    before = fn.launches
+    tk, kvk = chip_smoke.run_steps(torch, fn, inp, kv0, noise, 0.8, n)
+    tp, kvp = chip_smoke.run_steps(torch, plain, inp, kv0, noise, 0.8, n)
+    torch.cuda.synchronize()
+    assert fn.launches == before + n
+    tol = ((3e-4, 1e-3) if dtype == torch.float32 else (5e-2, 5e-2))
+    torch.testing.assert_close(kvk.float(), kvp.float(), atol=tol[0],
+                               rtol=tol[1])
+    if dtype == torch.float32:
+        assert torch.equal(tk, tp)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -419,7 +581,7 @@ def device_kernels(fn, *args, calls=8):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batch", [1, 2, 16])
-@pytest.mark.parametrize("head_dim", [32, 64])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
 def test_flash_decode_attention_at_the_sampler_cache(device, dtype, batch,
                                                      head_dim):
     """The bottom prior's cache (640 rows, 8 heads): pos at the first key,
@@ -474,9 +636,9 @@ def test_flash_decode_attention_refuses_what_the_kernel_does_not_take(
         (q, k, k.cpu(), 5, bias),                     # v on the CPU
         (q, k.transpose(0, 1).contiguous().transpose(0, 1), k, 5, bias),
         (q[..., :7], k[..., :7], k[..., :7], 5, bias),          # Dh odd
-        (torch.zeros(2, 4, 66, device=device),
-         torch.zeros(2, 128, 4, 66, device=device),
-         torch.zeros(2, 128, 4, 66, device=device), 5, bias),  # Dh > 64
+        (torch.zeros(2, 4, 130, device=device),
+         torch.zeros(2, 128, 4, 130, device=device),
+         torch.zeros(2, 128, 4, 130, device=device), 5, bias),  # Dh > 128
     ]
     for args in bad:
         with pytest.raises(ValueError):
@@ -560,7 +722,8 @@ def vq_margin_rows(flat, embed, margin=1e-4):
 
 @pytest.mark.parametrize("n,dim,n_embed", [
     (128, 64, 512), (700, 64, 512), (1, 64, 512), (33, 8, 32), (257, 5, 7),
-    (96, 64, 130), (4096, 200, 64), (5000, 64, 512), (6145, 32, 33)])
+    (96, 64, 130), (4096, 200, 64), (5000, 64, 512), (6145, 32, 33),
+    (2048, 512, 64), (700, 1024, 130), (300, 300, 33)])
 def test_vq_lookup_kernel_matches_plain(device, n, dim, n_embed):
     """ids equal wherever the two best scores differ by more than 1e-4;
     quantize is the codebook row bit for bit; counts exact; embed_sum within
@@ -717,9 +880,9 @@ def test_vq_lookup_refuses_what_the_kernel_does_not_take(device):
         fused_vq_lookup(torch.zeros(8, 4, device=device).T, embed)
     with pytest.raises(ValueError):
         fused_vq_lookup(flat.requires_grad_(), embed)
-    with pytest.raises(ValueError):
-        fused_vq_lookup(torch.zeros(4, 300, device=device),
-                        torch.zeros(300, 16, device=device))
+    with pytest.raises(ValueError, match="dim 1100"):
+        fused_vq_lookup(torch.zeros(4, 1100, device=device),
+                        torch.zeros(1100, 16, device=device))
 
 
 def test_bottleneck_on_the_card_runs_the_kernel(device):

@@ -92,7 +92,7 @@ def test_train_resume_export_and_jax_load(store, tmp_path):
                  "best_validation_loss.json", "top-model_parameters.json",
                  "top-weights.msgpack", "checkpoints/0/state.pt",
                  "best/0/state.pt", "tb/metrics.jsonl",
-                 "profile/trace.json"):
+                 "profile/trace.json", "tb/media/codemap_prediction-0.png"):
         assert (run_dir / name).exists(), name
     records = [json.loads(line) for line in
                (run_dir / "tb" / "metrics.jsonl").read_text().splitlines()]

@@ -86,7 +86,8 @@ def test_main_trains_resumes_and_the_jax_package_loads_it(nsynth_dir,
                  "vqvae-model_parameters.json", "vqvae-weights.msgpack",
                  "checkpoints/0/state.pt", "best/0/state.pt",
                  "tb/metrics.jsonl", "tb/media/original_0-2.wav",
-                 "tb/media/reconstruction_0-2.wav", "profile/trace.json",
+                 "tb/media/reconstruction_0-2.wav",
+                 "tb/media/reconstructions-2.png", "profile/trace.json",
                  "samples/00001_00000_spectrogram.png",
                  "samples/00001_00000_instantaneous_frequency.png"):
         assert (run_dir / name).exists(), name
