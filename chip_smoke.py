@@ -135,6 +135,33 @@ Phases, each failing the run with a nonzero exit:
    VQ-VAE with the two priors of phase 9, loaded by
    ``load_state_from_checkpoints``, serves ``/analyze-audio``,
    ``/timerange-change`` and ``/get-audio``;
+10b. parallel (``phase_parallel``): NCCL at world size 1 in this process,
+   through the port's ``initialize_multihost``: both trainers' ``main``
+   for a few steps at the flagship width (the bottom prior, batch 32, in
+   float32 and with ``--bf16``; the VQ-VAE at the flagship flags,
+   batch 64, ``spectral_jukebox``, ``--pallas_vq``) with
+   ``--num_devices_data 1`` (and ``--num_devices_model 1``), the steps'
+   losses and the weights bit for bit those of the same runs with no
+   process group (deterministic algorithms on for both), their kernels
+   launched; the warm step time of each trainer's step with and without
+   the group (the data-parallel machinery's cost on one card). The
+   training attention at a model rank's heads (4 of 8 heads of 64, 8 of 16
+   of 32) against its plain version, as in phase 7; the device time of a
+   bottom step's dropout masks drawn for 16 rows and for the global 32 (a
+   rank's draw at data 2). Then two processes share the card over gloo
+   with CUDA tensors (NCCL refuses two ranks on one device): one step of
+   the bottom prior at data 2, of the top prior at model 2 (4 of 8 heads a
+   rank in the training attention) and of the VQ-VAE at data 2 (the
+   spectral-loss and VQ-lookup kernels on each rank's 32 rows), each
+   against the one-process step of the whole batch on the card (loss rtol
+   1e-5; each leaf's gradient within ``PARALLEL_GRAD_RTOL`` of the run,
+   as ``||g2 - g1|| / ||g1||``, the five farthest leaves logged with their
+   gradient's rms; weights after the Adam step atol 5e-4 for the priors
+   and 1e-4 for the VQ-VAE, or 2 lr where the gradient is within atol
+   2e-4 / rtol 2e-3 of 0, codebooks atol and rtol 1e-5),
+   and ``make_sharded_sampling_fn`` of the bottom prior at 2 and 16 rows,
+   float32 and greedy, fused: each rank's tokens equal the one-process run
+   of its shard, each rank launched the kernels of its shard's size;
 11. a ``{"kernels": [...]}`` line: each kernel's main-path launches, its
    error against the plain version, its time and the plain version's time
    on the main path's shapes, its bound on this card and, where PyTorch
@@ -251,6 +278,15 @@ VQVAE_MODEL_ARGS: list = []
 SPECTRAL_BATCH = 64        # the flagship batch of 4 s notes
 SPECTRAL_SAMPLES = 65536   # audio decoded from a [2, 1024, 128] spectrogram
 SPECTRAL_DRAWS = 8         # audio draws of the float64 readings on DDSP
+PARALLEL_STEPS = 3         # prior steps of each main run of phase_parallel
+PARALLEL_TIMED = 6         # warm steps timed with and without the group
+PARALLEL_TIMEOUT_S = 300   # the two gloo ranks of phase_parallel
+# two ranks against one process: each leaf's gradient within this relative
+# difference ||g2 - g1|| / ||g1|| of the one-process gradient (about 10x
+# the largest leaf of sound runs on the H100: 7.2e-5, 4.2e-4, 3.4e-3;
+# parallel_faults.py shows a dropped collective at 0.16-1.07)
+PARALLEL_GRAD_RTOL = {"prior data 2": 7e-4, "prior model 2": 4e-3,
+                      "vqvae data 2": 3e-2}
 DEVICE = "cuda"
 TEST_SIZE = "full"  # the test models' size (a rehearsal on the CPU: tiny)
 
@@ -1871,13 +1907,13 @@ def attention_shapes(state):
             ("encoder self", ls, ls, attention.anti_causal_mask(ls, DEVICE))]
 
 
-def phase_train_attention(torch, state, results):
+def phase_train_attention(torch, state, results, heads=8, head_dim=64):
     """The training-attention kernels against their plain versions at the
-    three attention shapes of a training step, B = 32, 8 heads of 64."""
+    three attention shapes of a training step, B = 32, 8 heads of 64 (or
+    ``heads`` of ``head_dim``: a model rank's share)."""
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
         train_attention as ta)
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    heads, head_dim = 8, 64
     tol = {torch.float32: ((1e-5, 1e-5), (2e-4, 1e-4)),
            torch.bfloat16: ((3e-2, 3e-2), (3e-2, 3e-2))}
     for name, lq, lk, mask in attention_shapes(state):
@@ -1907,7 +1943,8 @@ def phase_train_attention(torch, state, results):
                                            atol=ga, rtol=gr)
                 ok = ok and bool(torch.isfinite(got.float()).all())
             same = all(torch.equal(a, b) for a, b in zip(grads, again))
-            log(f"train_attention {name} {lq}x{lk} {str(dtype)[6:]}: "
+            log(f"train_attention {name} {lq}x{lk} {str(dtype)[6:]}, "
+                f"{heads} heads of {head_dim}: "
                 "max_abs_err " + ", ".join(f"{k} {v:.3e}"
                                            for k, v in errs.items())
                 + f" (forward atol {fa} rtol {fr}, gradients atol {ga} "
@@ -1917,7 +1954,8 @@ def phase_train_attention(torch, state, results):
                      "plain version")
             key = ("fused_train_attention" if dtype == torch.float32
                    else "fused_train_attention_bf16")
-            results.setdefault(key, []).extend(errs.values())
+            if results is not None:
+                results.setdefault(key, []).extend(errs.values())
 
 
 def write_train_store(torch, state, path):
@@ -1953,8 +1991,9 @@ def train_args(store, runs, hier, *extra):
 
 
 def step_setup(torch, store, hier, fused=True, bf16=False, dropout=None,
-               seed=0):
-    """(model, train_step, batches) of the trainer at its defaults."""
+               seed=0, mesh=None):
+    """(model, train_step, batches) of the trainer at its defaults; on
+    ``mesh`` the model is this rank's shard and the batches its rows."""
     from interactive_spectrogram_inpainting_tpu_torch.data.lmdb_compat import (
         open_codes_dataset)
     from interactive_spectrogram_inpainting_tpu_torch.train import (
@@ -1966,15 +2005,20 @@ def step_setup(torch, store, hier, fused=True, bf16=False, dropout=None,
     dataset = open_codes_dataset(store, args.classes_for_conditioning)
     model = tp.build_model(args, dataset, fused)
     init_like_flax(model, torch.Generator().manual_seed(seed)).to(DEVICE)
+    if mesh is not None:
+        from interactive_spectrogram_inpainting_tpu_torch.parallel.mesh \
+            import shard_prior_parameters
+        shard_prior_parameters(model, mesh)
     cfg = model.config
     sampler = None if hier == "bottom" else tp.make_mask_sampler(
         args.mask_sampler, cfg.source_sequence_length, cfg.mask_token_index,
         args.mask_probability, args.mask_min_masking_ratio)
     optimizer = scheduler.get_optimizer(model.parameters(), "adam", None,
                                         args.lr, 100)
-    step, _ = tp.make_steps(model, optimizer, hier, sampler, 0.0, bf16=bf16)
+    step, _ = tp.make_steps(model, optimizer, hier, sampler, 0.0, bf16=bf16,
+                            mesh=mesh)
     batches = list(tp.iterate_batches(dataset, TRAIN_BATCH, True, 0,
-                                      device=DEVICE))
+                                      device=DEVICE, mesh=mesh))
     return model, step, batches
 
 
@@ -2622,10 +2666,11 @@ def vqvae_args(data, runs, *extra, split="train"):
             + VQVAE_FLAGS + VQVAE_MODEL_ARGS + list(extra))
 
 
-def vqvae_step_setup(torch, data, *extra, seed=0):
+def vqvae_step_setup(torch, data, *extra, seed=0, mesh=None):
     """(model, train_step, audio batches on the card) of the VQ-VAE trainer
     at the flagship flags, weights from ``seed``, the normalization
-    statistics of the first batch."""
+    statistics of the first batch; on ``mesh`` the batches are this rank's
+    rows and the codebooks' statistics global."""
     from interactive_spectrogram_inpainting_tpu_torch.data.loader import (
         BatchLoader)
     from interactive_spectrogram_inpainting_tpu_torch.data.nsynth import NSynth
@@ -2648,20 +2693,28 @@ def vqvae_step_setup(torch, data, *extra, seed=0):
         prefetch=0)
     batches = [torch.as_tensor(b[0] if isinstance(b, tuple) else b).to(DEVICE)
                for b in loader]
+    if mesh is not None:
+        from interactive_spectrogram_inpainting_tpu_torch.parallel.mesh \
+            import shard_batch
+        batches = [shard_batch(mesh, b) for b in batches]
     stats = tv.compute_normalization_statistics(helper, [batches[0]],
-                                                device=DEVICE)
+                                                device=DEVICE, mesh=mesh)
     config = dataclasses.replace(tv.build_config(args),
                                  normalizer_statistics=dataclasses.asdict(
                                      stats))
     model = init_like_flax(VQVAE(config), torch.Generator().manual_seed(
         seed)).to(DEVICE)
+    if mesh is not None:
+        from interactive_spectrogram_inpainting_tpu_torch.parallel.mesh \
+            import set_data_mesh
+        set_data_mesh(model, mesh)
     optimizer = scheduler.get_optimizer(model.parameters(), "adam", None,
                                         args.lr, 100)
     criterion = losses.get_reconstruction_criterion(
         args.reconstruction_criterion, helper,
         precision=args.spectral_precision)
     step = tv.make_train_step(model, optimizer, criterion, 0.25, helper,
-                              bf16=args.bf16)
+                              bf16=args.bf16, mesh=mesh)
     return model, step, batches
 
 
@@ -3331,6 +3384,508 @@ def spaced(calls, n):
     return [calls[(k * len(calls)) // n] for k in range(n)]
 
 
+# -- the parallel layer ---------------------------------------------------------
+
+# module settings a rehearsal on the CPU changes; the gloo ranks take the
+# parent's
+SETTINGS = ("DEVICE", "TRAIN_RECORDS", "TRAIN_BATCH", "TRAIN_MODEL_ARGS",
+            "VQVAE_TRAIN_NOTES", "VQVAE_VALID_NOTES", "VQVAE_BATCH",
+            "NOTE_SECONDS", "VQVAE_FLAGS", "VQVAE_MODEL_ARGS",
+            "PARALLEL_STEPS", "PARALLEL_TIMED")
+
+
+def synchronize(torch):
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def kernel_counters():
+    """The launch counters of the kernels the parallel paths run."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        decode_scan_kernel as dsk, decode_step_batched as dsb,
+        decode_step_kernel as dst, prefix_prime_kernel as ppk,
+        spectral_loss_kernel as sk, train_attention as ta, vq_lookup as vql)
+    return {"train_attention_forward": ta.train_attention_forward,
+            "train_attention_backward": ta.train_attention_backward,
+            "scale_loss_forward": sk.scale_loss_forward,
+            "scale_loss_backward": sk.scale_loss_backward,
+            "fused_vq_lookup": vql.fused_vq_lookup,
+            "fused_prefix_prime": ppk.fused_prefix_prime,
+            "fused_decode_scan": dsk.fused_decode_scan,
+            "fused_decode_step": dst.fused_decode_step,
+            "fused_decode_step_batched": dsb.fused_decode_step_batched}
+
+
+def reset_counters():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {k: fn.launches for k, fn in kernel_counters().items()
+            if fn.launches}
+
+
+def parallel_mains(torch, store, data, flags):
+    """Both trainers' ``main`` for a few steps at the flagship width with
+    ``flags`` added, deterministic algorithms on: per run the steps' losses
+    (kept on the card, read at the end), the weights, the kernels launched
+    and the ops PyTorch warned have no deterministic version."""
+    import warnings
+    from interactive_spectrogram_inpainting_tpu_torch.train import (
+        train_prior as tp, train_vqvae as tv)
+    runs = {
+        "prior f32": (tp, train_args(
+            store, "", "bottom", "--num_training_samples",
+            str(PARALLEL_STEPS * TRAIN_BATCH), "--disable_writes_to_disk",
+            *flags, "--num_devices_model", "1")),
+        "prior bf16": (tp, train_args(
+            store, "", "bottom", "--num_training_samples",
+            str(PARALLEL_STEPS * TRAIN_BATCH), "--disable_writes_to_disk",
+            "--bf16", *flags, "--num_devices_model", "1")),
+        "vqvae": (tv, vqvae_args(data, "", "--disable_writes_to_disk",
+                                 *flags, split="train_small"))}
+    losses = []
+
+    def recording(step):
+        def wrapped(*args, **kwargs):
+            metrics = step(*args, **kwargs)
+            losses.append(metrics.get("loss", metrics.get("vqvae_loss"))
+                          .detach().clone())
+            return metrics
+        return wrapped
+
+    make_steps, make_train_step = tp.make_steps, tv.make_train_step
+    tp.make_steps = lambda *a, **k: (lambda pair: (
+        recording(pair[0]), pair[1]))(make_steps(*a, **k))
+    tv.make_train_step = lambda *a, **k: recording(make_train_step(*a, **k))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for name, (module, argv) in runs.items():
+            losses.clear()
+            reset_counters()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                model = module.main(argv)
+                synchronize(torch)
+            out[name] = {
+                "losses": torch.stack(losses).cpu(),
+                "state": {k: v.detach().cpu().clone()
+                          for k, v in model.state_dict().items()},
+                "launches": read_counters(),
+                "nondeterministic": sorted({
+                    str(w.message).split(" does not have")[0][:80]
+                    for w in caught
+                    if "deterministic" in str(w.message)})}
+            del model
+    finally:
+        tp.make_steps, tv.make_train_step = make_steps, make_train_step
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def parallel_step_times(torch, store, data, mesh):
+    """Warm ms of the bottom prior's float32 step and the VQ-VAE step, with
+    ``mesh`` (its data group's collectives) or without (None)."""
+    out = {}
+    gen = torch.Generator().manual_seed(4)
+    model, step, batches = step_setup(torch, store, "bottom", mesh=mesh)
+    for batch in batches[:2]:
+        step(*batch[:3], gen)
+    synchronize(torch)
+    t0 = time.perf_counter()
+    for i in range(PARALLEL_TIMED):
+        step(*batches[2 + i % (len(batches) - 2)][:3], gen)
+    synchronize(torch)
+    out["prior bottom f32"] = (time.perf_counter() - t0) * 1e3 / PARALLEL_TIMED
+    del model, step, batches
+    model, step, batches = vqvae_step_setup(torch, data, mesh=mesh)
+    vgen = torch.Generator(device=DEVICE).manual_seed(4)
+    for _ in range(2):
+        step(batches[0], vgen)
+    synchronize(torch)
+    t0 = time.perf_counter()
+    for i in range(PARALLEL_TIMED):
+        step(batches[i % len(batches)], vgen)
+    synchronize(torch)
+    out["vqvae spectral_jukebox f32"] = (
+        (time.perf_counter() - t0) * 1e3 / PARALLEL_TIMED)
+    del model, step, batches
+    return out
+
+
+def whole_grads(model, mesh):
+    """Every gradient of a prior, whole (shards gathered), on the host."""
+    from interactive_spectrogram_inpainting_tpu_torch.parallel.collectives \
+        import all_gather_dim
+    dims = getattr(model, "param_dims", {})
+    return {name: (all_gather_dim(p.grad, dims[name], mesh.model_group)
+                   if mesh is not None and dims.get(name) is not None
+                   else p.grad).cpu()
+            for name, p in model.named_parameters()}
+
+
+def parallel_runs(torch, store, data, sampling, mesh_for):
+    """The steps and samples ``phase_parallel`` compares: each on the mesh
+    ``mesh_for(kind)`` gives (None: one process, the whole batch)."""
+    from interactive_spectrogram_inpainting_tpu_torch.parallel.mesh import (
+        gather_prior_parameters)
+    from interactive_spectrogram_inpainting_tpu_torch.sampling.sample import (
+        make_sharded_sampling_fn, sample_model)
+    from interactive_spectrogram_inpainting_tpu_torch.utils.checkpoint_io \
+        import prior_from_parameters_and_weights
+    out = {}
+    for name, hier in (("prior data 2", "bottom"), ("prior model 2", "top")):
+        mesh = mesh_for(name)
+        reset_counters()
+        model, step, batches = step_setup(torch, store, hier, mesh=mesh)
+        metrics = step(*batches[0][:3], torch.Generator().manual_seed(7))
+        synchronize(torch)
+        launches = read_counters()
+        params = (gather_prior_parameters(model) if mesh is not None
+                  else model.state_dict())
+        out[name] = {"loss": float(metrics["loss"]),
+                     "grads": whole_grads(model, mesh),
+                     "params": {k: v.cpu() for k, v in params.items()},
+                     "launches": launches,
+                     "heads_a_rank": (model.decoder_layers[0].self_attn.q
+                                      .weight.shape[0]
+                                      // (model.config.d_model
+                                          // model.config
+                                          .conditional_model_nhead))}
+        del model, step, batches
+    mesh = mesh_for("vqvae data 2")
+    reset_counters()
+    model, step, batches = vqvae_step_setup(torch, data, mesh=mesh)
+    metrics = step(batches[0], torch.Generator(device=DEVICE).manual_seed(7))
+    synchronize(torch)
+    out["vqvae data 2"] = {
+        "loss": float(metrics["vqvae_loss"]), "launches": read_counters(),
+        "grads": {k: p.grad.cpu() for k, p in model.named_parameters()},
+        "params": {k: v.cpu() for k, v in model.state_dict().items()}}
+    del model, step, batches
+    model = prior_from_parameters_and_weights(
+        sampling["parameters"], sampling["weights"]).to(DEVICE)
+    mesh = mesh_for("sampling")
+    for rows in (2, 16):
+        reset_counters()
+        condition = sampling["condition"][:rows]
+        initial = sampling["initial"][:rows]
+        per = rows // 2
+        noise = [torch.zeros(sampling["noise_shape"][per == 1] + (
+            model.config.n_class,)) for _ in range(2)]
+        if mesh is not None:
+            fn = make_sharded_sampling_fn(model, rows, mesh, temperature=1.0,
+                                          device=DEVICE)
+            codes = fn(None, condition, initial, sampling["mask"], {},
+                       gumbels=noise).cpu()
+        else:
+            codes = torch.cat([sample_model(
+                model, None, per, condition=condition[s * per:(s + 1) * per],
+                initial_code=initial[s * per:(s + 1) * per],
+                mask=sampling["mask"], temperature=1.0, gumbel=noise[s],
+                device=DEVICE)
+                for s in range(2)]).cpu()
+        synchronize(torch)
+        out[f"sampling {rows} rows"] = {"codes": codes,
+                                        "launches": read_counters()}
+    return out
+
+
+def dropout_draws_ms(torch, batch, reps=10):
+    """Device ms of the dropout masks of one bottom prior step at the
+    flagship width drawn for ``batch`` rows (float32): 6 encoder layers
+    ([B, 129, 512] attention output, [B, 129, 2048] feed-forward) and 8
+    decoder layers (two [B, 516, 512], one [B, 516, 2048]). At data 2 a
+    rank draws the global batch's (B 32) and keeps its 16 rows."""
+    shapes = ([(batch, 129, 512), (batch, 129, 2048)] * 6
+              + [(batch, 516, 512)] * 16 + [(batch, 516, 2048)] * 8)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+
+    def draw():
+        for shape in shapes:
+            torch.empty(shape, device=DEVICE).bernoulli_(0.9, generator=gen)
+
+    draw()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        draw()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def gradient_agreement(torch, got, ref, limit):
+    """Each leaf's relative gradient difference ``||got - ref|| / ||ref||``
+    (float64) -> (ok: every leaf within ``limit``; the largest, and the
+    five largest leaves with their one-process gradient's rms and their
+    largest absolute difference). A leaf whose gradient is rounding noise
+    (the keys' biases: softmax ignores a shift shared by every key) is held
+    against a floor instead of its own norm: an rms of 1e-3 of the median
+    leaf's."""
+    rms = {k: float(v.double().square().mean().sqrt())
+           for k, v in ref.items()}
+    median = sorted(rms.values())[len(rms) // 2]
+    rows = []
+    for k, v in ref.items():
+        v = v.double()
+        diff = got[k].double() - v
+        floor = 1e-3 * median * math.sqrt(v.numel())
+        rel = float(diff.norm()) / max(float(v.norm()), floor)
+        rows.append((rel, k, rms[k], float(diff.abs().max())))
+    rows.sort(key=lambda row: row[0], reverse=True)
+    return rows[0][0] <= limit, {
+        "largest_rel": rows[0][0], "limit": limit, "leaves": len(rows),
+        "median_rms": median,
+        "worst": [{"leaf": k, "rel": rel, "rms": r, "max_abs_diff": d}
+                  for rel, k, r, d in rows[:5]]}
+
+
+def params_close(torch, got, ref, grads, atol, lr):
+    """Weights after one Adam step at two ranks against one process: within
+    ``atol``, or within 2 lr where the one-process gradient is within atol
+    2e-4 / rtol 2e-3 of 0 (the first Adam step moves a weight by
+    lr g / (|g| + eps), about lr sign(g), so a gradient that rounding can
+    flip may move it by 2 lr; the gradients themselves are held by
+    ``gradient_agreement``); the EMA codebooks within atol 1e-5, rtol
+    1e-5. -> (ok, the largest differences and the count of weights that
+    took the near-zero allowance)."""
+    worst = {"weights": 0.0, "codebooks": 0.0, "codebooks_largest": 0.0}
+    near_zero, ok = 0, True
+    for k, v in ref.items():
+        diff = (got[k].float() - v.float()).abs()
+        kind = "weights" if k in grads else "codebooks"
+        worst[kind] = max(worst[kind], float(diff.max()))
+        if kind == "codebooks":
+            # a code's embed_sum adds up to 2 x 16 384 rows at the flagship
+            # batch, in another order at two ranks: rtol 1e-5 beside atol
+            worst["codebooks_largest"] = max(worst["codebooks_largest"],
+                                             float(v.abs().max()))
+            ok = ok and torch.allclose(got[k].float(), v.float(), atol=1e-5,
+                                       rtol=1e-5)
+            continue
+        g = grads[k].float().abs()
+        flat = g <= 2e-4 + 2e-3 * g
+        over = diff > atol
+        near_zero += int((over & flat).sum())
+        ok = ok and not bool((over & ~flat).any()) and \
+            float(diff.max()) <= max(atol, 2 * lr * 1.0001)
+    return ok, dict(worst, near_zero_weights_over_atol=near_zero)
+
+
+def parallel_rank(rank, workdir):
+    """One of ``phase_parallel``'s two gloo ranks on the one card."""
+    sys.path.insert(0, HERE)
+    import torch
+    payload = torch.load(os.path.join(workdir, "parallel.pt"),
+                         weights_only=False)
+    globals().update(payload["settings"])
+    from interactive_spectrogram_inpainting_tpu_torch.parallel.distributed \
+        import initialize_multihost
+    from interactive_spectrogram_inpainting_tpu_torch.parallel.mesh import (
+        make_mesh)
+    from interactive_spectrogram_inpainting_tpu_torch.utils.device import (
+        set_float32_precision)
+    set_float32_precision()
+    initialize_multihost(backend="gloo",
+                         init_method=f"file://{workdir}/gloo-rendezvous",
+                         world_size=2, rank=rank, device=DEVICE)
+    import torch.distributed as dist
+    try:
+        meshes = {(2, 1): make_mesh(2, 1), (1, 2): make_mesh(1, 2)}
+        out = parallel_runs(
+            torch, payload["store"], payload["data"], payload["sampling"],
+            lambda name: meshes[(1, 2) if "model" in name else (2, 1)])
+        if rank:  # rank 0 keeps the whole tensors
+            out = {k: {"launches": v["launches"]} for k, v in out.items()}
+        torch.save(out, os.path.join(workdir, f"parallel-rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_payload(torch, state, workdir):
+    """Writes what the two gloo ranks read (``parallel.pt``: the store and
+    the notes of ``workdir``, a sampling request of the bottom prior, the
+    settings) and returns the sampling request."""
+    import numpy as np
+    from interactive_spectrogram_inpainting_tpu_torch.sampling.sample import (
+        scan_range)
+    from interactive_spectrogram_inpainting_tpu_torch.utils.checkpoint_io \
+        import save_model
+    cfg = state.bottom.config
+    rng = np.random.default_rng(8)
+    mask = np.zeros(cfg.shape, bool)
+    mask[:, cfg.shape[1] // 2:] = True
+    helper = cfg.target_codemaps_helper()
+    masked = np.nonzero(mask.reshape(-1)[helper.flatten_permutation])[0]
+    p0, steps = scan_range(state.bottom, int(masked.min()),
+                           int(masked.max()) + 1)
+    save_model(workdir, state.bottom, prefix="parallel-bottom")
+    sampling = {
+        "parameters": os.path.join(workdir,
+                                   "parallel-bottom-model_parameters.json"),
+        "weights": os.path.join(workdir, "parallel-bottom-weights.msgpack"),
+        "condition": rng.integers(0, cfg.n_class,
+                                  (16,) + tuple(cfg.condition_shape)),
+        "initial": rng.integers(0, cfg.n_class, (16,) + tuple(cfg.shape)),
+        "mask": mask,
+        "noise_shape": {False: (steps - p0, 8), True: (steps - p0,)}}
+    torch.save({"store": os.path.join(workdir, "codes"),
+                "data": os.path.join(workdir, "nsynth"), "sampling": sampling,
+                "settings": {k: globals()[k] for k in SETTINGS}},
+               os.path.join(workdir, "parallel.pt"))
+    return sampling
+
+
+def spawn_ranks(torch, workdir, target=None):
+    """Runs ``target`` (``parallel_rank`` by default) as two processes ->
+    (both ranks' results, the seconds they took)."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    context = mp.start_processes(target or parallel_rank, args=(workdir,),
+                                 nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+    try:
+        while not context.join(timeout=5):
+            if time.monotonic() > deadline:
+                fail(f"the two gloo ranks ran over {PARALLEL_TIMEOUT_S} s")
+    finally:
+        for process in context.processes:
+            if process.is_alive():
+                process.kill()
+    spawn_s = time.perf_counter() - t0
+    return [torch.load(os.path.join(workdir, f"parallel-rank{r}.pt"),
+                       weights_only=False) for r in range(2)], spawn_s
+
+
+def compare_ranks(torch, ranks, one, sampling):
+    """The two ranks' steps and tokens against one process's (``one``):
+    per run its readings and ``ok``."""
+    from interactive_spectrogram_inpainting_tpu_torch.train import (
+        train_prior as tp, train_vqvae as tv)
+    mask = sampling["mask"]
+    report = {}
+    for name, ref in one.items():
+        got = ranks[0][name]
+        launches = [ranks[r][name]["launches"] for r in range(2)]
+        entry = {"launches_rank0_rank1": launches}
+        if name.startswith("sampling"):
+            ok = torch.equal(got["codes"], ref["codes"])
+            keep = torch.as_tensor(~mask)
+            ok = ok and torch.equal(got["codes"][:, keep],
+                                    torch.as_tensor(sampling["initial"][
+                                        :got["codes"].shape[0]])[:, keep]
+                                    .to(got["codes"].dtype))
+            entry["tokens_equal"] = ok
+            kernel = ("fused_decode_scan" if "2 rows" in name
+                      else "fused_decode_step_batched")
+        else:
+            vq = name.startswith("vqvae")
+            lr = (tv if vq else tp).make_parser().get_default("lr")
+            entry["loss"] = (got["loss"], ref["loss"])
+            ok = abs(got["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"])
+            close, entry["grads"] = gradient_agreement(
+                torch, got["grads"], ref["grads"], PARALLEL_GRAD_RTOL[name])
+            ok = ok and close
+            close, entry["params"] = params_close(
+                torch, got["params"], ref["params"], ref["grads"],
+                1e-4 if vq else 5e-4, lr)
+            ok = ok and close
+            kernel = "scale_loss_forward" if vq else "train_attention_forward"
+            if name == "prior model 2":
+                entry["heads_a_rank"] = got["heads_a_rank"]
+                ok = ok and got["heads_a_rank"] == 4
+            if vq:
+                ok = ok and all(l.get("fused_vq_lookup") for l in launches)
+        entry["ok"] = ok and all(l.get(kernel) for l in launches)
+        report[name] = entry
+    return report
+
+
+def phase_parallel(torch, state, workdir):
+    """The parallel layer on the one card; see the module docstring. Runs
+    after the training phases, from the store and the notes they wrote in
+    ``workdir``."""
+    import torch.distributed as dist
+    from interactive_spectrogram_inpainting_tpu_torch.parallel.distributed \
+        import initialize_multihost
+    from interactive_spectrogram_inpainting_tpu_torch.parallel.mesh import (
+        make_mesh)
+    t_phase = time.perf_counter()
+    store = os.path.join(workdir, "codes")
+    data = os.path.join(workdir, "nsynth")
+    # a model rank's heads in the training attention: 4 of 8 (d_model 512,
+    # the priors' default) and 8 of 16 (the reference's geometry)
+    phase_train_attention(torch, state, None, heads=4, head_dim=64)
+    phase_train_attention(torch, state, None, heads=8, head_dim=32)
+
+    # NCCL at world size 1, in this process
+    plain = parallel_mains(torch, store, data, [])
+    if not initialize_multihost(init_method=f"file://{workdir}/nccl",
+                                world_size=1, rank=0, device=DEVICE):
+        fail("initialize_multihost set up no process group")
+    try:
+        backend = dist.get_backend()
+        grouped = parallel_mains(torch, store, data,
+                                 ["--num_devices_data", "1"])
+        mesh = make_mesh(1, 1)
+        timing = {}
+        for label, m in (("none", None), ("nccl", mesh), ("nccl", mesh),
+                         ("none", None)):
+            for k, ms in parallel_step_times(torch, store, data, m).items():
+                timing.setdefault(k, {}).setdefault(label, []).append(
+                    round(ms, 3))
+    finally:
+        dist.destroy_process_group()
+    if backend != "nccl":
+        fail(f"initialize_multihost chose {backend} for CUDA, not nccl")
+    for name, run in plain.items():
+        other = grouped[name]
+        same = torch.equal(run["losses"], other["losses"]) and all(
+            torch.equal(v, other["state"][k]) for k, v in run["state"].items())
+        log(f"parallel, NCCL world size 1, {name} main ({len(run['losses'])}"
+            f" steps): losses {run['losses'].tolist()}; bit for bit against "
+            f"no process group: {same}; kernels {other['launches']}; ops "
+            f"without a deterministic version: {other['nondeterministic']}")
+        if not same:
+            fail(f"{name}: the NCCL world-size-1 run differs from the run "
+                 "with no process group")
+        kernels = (("train_attention_forward", "train_attention_backward")
+                   if name.startswith("prior") else
+                   ("scale_loss_forward", "scale_loss_backward",
+                    "fused_vq_lookup"))
+        if not all(other["launches"].get(k) for k in kernels):
+            fail(f"{name}: the NCCL run launched {other['launches']}")
+    log("parallel, warm step ms with no process group and with the NCCL "
+        "world-size-1 data group (gradient and metric all-reduces), "
+        f"{PARALLEL_TIMED} steps, none/nccl/nccl/none: " + json.dumps(timing))
+
+    log("parallel, dropout masks of one bottom step (device ms, CUDA "
+        "events): drawn for a rank's 16 rows "
+        f"{dropout_draws_ms(torch, TRAIN_BATCH // 2):.4f}, for the global "
+        f"32 as each rank draws them at data 2 "
+        f"{dropout_draws_ms(torch, TRAIN_BATCH):.4f}")
+
+    # two ranks sharing the card over gloo, against one process
+    sampling = parallel_payload(torch, state, workdir)
+    ranks, spawn_s = spawn_ranks(torch, workdir)
+    one = parallel_runs(torch, store, data, sampling, lambda name: None)
+    report = compare_ranks(torch, ranks, one, sampling)
+    log(f"parallel, two gloo ranks on the card (spawned, {spawn_s:.1f} s) "
+        "against one process: " + json.dumps(report, default=float))
+    wrong = [name for name, entry in report.items() if not entry["ok"]]
+    if wrong:
+        fail(f"parallel: {wrong} at two ranks disagree with one process or "
+             "launched no kernel")
+    log(f"phase_parallel took {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_kernels(torch, card, captured, launches, errors, state):
     spectral_launches_main = captured["spectral_launches_main"]
     from interactive_spectrogram_inpainting_tpu_torch.ops import (
@@ -3620,6 +4175,7 @@ def main():
             "bf16_attention_launches"]
         launches["fused_multiscale_loss"] = phase_train_vqvae(
             torch, state, captured, workdir)
+        phase_parallel(torch, state, workdir)
     phase_kernels(torch, card, captured, launches, errors, state)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,9 @@ transform runs ON DEVICE per batch (exactly the
 reference's split of labor, which keeps the STFT on the accelerator).
 
 Deterministic epoch shuffling via a seeded permutation (the reference's
-``DistributedSampler.set_epoch`` pattern); sharding across hosts by
-striding over the permutation. The port's own copy of the JAX package's
-module.
+``DistributedSampler.set_epoch`` pattern); sharding across processes by
+``rows``: one data rank's block of every global batch, as a ``('data',)``
+mesh splits it. The port's own copy of the JAX package's module.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from __future__ import annotations
 import math
 import queue
 import threading
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -27,16 +27,14 @@ class BatchLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True,
-                 num_shards: int = 1, shard_index: int = 0,
-                 prefetch: int = 2):
+                 prefetch: int = 2, rows: Optional[slice] = None):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
-        self.num_shards = num_shards
-        self.shard_index = shard_index
         self.prefetch = prefetch
+        self.rows = rows
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -46,10 +44,8 @@ class BatchLoader:
         n = len(self.dataset)
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self.epoch)
-            idx = rng.permutation(n)
-        else:
-            idx = np.arange(n)
-        return idx[self.shard_index::self.num_shards]
+            return rng.permutation(n)
+        return np.arange(n)
 
     def __len__(self) -> int:
         n = len(self._indices())
@@ -58,6 +54,8 @@ class BatchLoader:
         return math.ceil(n / self.batch_size)
 
     def _make_batch(self, batch_idx: np.ndarray):
+        if self.rows is not None:
+            batch_idx = batch_idx[self.rows]
         items = [self.dataset[int(i)] for i in batch_idx]
         if isinstance(items[0], tuple):
             cols = list(zip(*items))

@@ -54,10 +54,13 @@ class NSynth:
         self.sample_rate = int(sample_rate)
         self.num_samples = int(round(sample_rate * duration_seconds))
 
-        # per-field label encoders over the *filtered* dataset, plus pitch
+        # per-field label encoders over the *filtered* dataset, plus pitch,
+        # in the fields' order (not a set's, which follows the process's
+        # string hashing): a store's label_encoders.json is then the same
+        # bytes whichever process writes it
         self.label_encoders: Dict[str, LabelEncoder] = {}
-        for field in set(self.categorical_field_list) | {"pitch",
-                                                         "instrument_family_str"}:
+        for field in dict.fromkeys([*self.categorical_field_list, "pitch",
+                                    "instrument_family_str"]):
             values = sorted({meta[field] for meta in self.json_data.values()
                              if field in meta})
             if values:
@@ -88,14 +91,19 @@ class NSynth:
             audio = np.pad(audio, pad)
         return audio[..., :n].astype(np.float32)
 
+    def labels(self, index: int) -> List[int]:
+        """The encoded ``categorical_field_list`` labels of one note, read
+        from its metadata alone."""
+        meta = self.json_data[self.names[index]]
+        return [int(self.label_encoders[field].transform([meta[field]])[0])
+                for field in self.categorical_field_list]
+
     def __getitem__(self, index: int):
         name = self.names[index]
-        meta = self.json_data[name]
         audio = self.load_audio(name)
-        labels = [int(self.label_encoders[field].transform([meta[field]])[0])
-                  for field in self.categorical_field_list]
+        labels = self.labels(index)
         if self.return_full_metadata:
-            return (audio, *labels, meta)
+            return (audio, *labels, self.json_data[name])
         return (audio, *labels)
 
     def metadata(self, index: int) -> Mapping:

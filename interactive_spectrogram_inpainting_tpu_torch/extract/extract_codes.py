@@ -7,9 +7,11 @@ transform and the VQ-VAE encode on one device and writes the codemaps into
 the fixed-stride store that the priors train from; with
 ``use_pallas_lookup`` in the model's JSON the two lookups of every batch go
 through the hand-written kernel. ``decode_back_sanity_check`` (stored codes
--> audio wav) is the pipeline's end-to-end integrity probe. The JAX
-package's ``('data',)`` mesh over several chips has no counterpart yet:
-``n_devices_data`` is accepted and must be 1 or ``None``.
+-> audio wav) is the pipeline's end-to-end integrity probe. Launched as
+several processes (``torchrun``), the data ranks of a ``('data',)`` mesh
+(``parallel/mesh.py``) each read, decode and encode their rows of every
+batch, and rank 0 writes the gathered codes (the notes' labels it reads
+from their metadata), the same bytes as one process writes.
 
 Run: ``python -m interactive_spectrogram_inpainting_tpu_torch.extract.extract_codes
 --vqvae_model_parameters_path ... --vqvae_weights_path ...
@@ -21,7 +23,9 @@ Run: ``python -m interactive_spectrogram_inpainting_tpu_torch.extract.extract_co
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import pathlib
 import time
 from typing import Optional, Sequence
@@ -34,6 +38,9 @@ from ..data.loader import BatchLoader
 from ..data.nsynth import NSynth
 from ..data.wav import write_wav
 from ..models.vqvae.vqvae import VQVAE
+from ..parallel.collectives import all_gather_rows
+from ..parallel.distributed import initialize_multihost
+from ..parallel.mesh import is_master_process, make_mesh, world
 from ..signal.spectrogram import (get_spectrograms_helper,
                                   make_masked_phase_transform)
 from ..utils.checkpoint_io import vqvae_from_parameters_and_weights
@@ -49,11 +56,17 @@ def extract_split(model: VQVAE, spectrograms_helper, dataset: NSynth,
     """Encode a dataset split into a CodemapStore; returns the record
     count. A short last batch is padded with silence to ``batch_size`` (as
     the JAX package pads to its compiled shape) and the surplus rows are
-    dropped."""
-    if n_devices_data not in (None, 1):
-        raise NotImplementedError(
-            "extraction over several devices is not ported: "
-            "n_devices_data must be 1 or None")
+    dropped.
+
+    ``n_devices_data``: the data ranks the batches split over (default: the
+    process group's world size, 1 without one); it must match the world and
+    divide ``batch_size``. Every rank must call this; only rank 0 writes."""
+    n_devices_data = world()[1] if n_devices_data is None else n_devices_data
+    if batch_size % n_devices_data:
+        raise ValueError(f"n_devices_data {n_devices_data} must divide "
+                         f"batch_size {batch_size}")
+    mesh = make_mesh(n_data=n_devices_data)
+    rows = mesh.rows(batch_size)
     device = resolve_device(device)
     set_float32_precision()
     model = model.to(device).eval()
@@ -65,45 +78,59 @@ def extract_split(model: VQVAE, spectrograms_helper, dataset: NSynth,
                        if min_magnitude is not None else None)
 
     @torch.no_grad()
-    def encode(audio: np.ndarray):
+    def encode(audio: np.ndarray, group=None):
         spec = spectrograms_helper.to_spectrogram(
             torch.as_tensor(audio, dtype=torch.float32, device=device))
         if input_transform is not None:
             spec = input_transform(spec)
         id_t, id_b = model.encode_codes_only(spec)
-        return id_t.cpu().numpy(), id_b.cpu().numpy()
+        return (all_gather_rows(id_t.contiguous(), group).cpu().numpy(),
+                all_gather_rows(id_b.contiguous(), group).cpu().numpy())
 
     # probe the codemap shapes with one silent note
     id_t, id_b = encode(np.zeros((1, dataset.num_samples), np.float32))
     top_shape, bottom_shape = id_t.shape[1:], id_b.shape[1:]
 
-    loader = BatchLoader(dataset, batch_size, shuffle=False,
-                         drop_last=False)
+    # each rank reads and decodes its rows of every batch, the last one
+    # padded with silence to a whole batch
+    n_batches = math.ceil(len(dataset) / batch_size)
+    loader = BatchLoader(_SilencePadded(dataset, n_batches * batch_size),
+                         batch_size, shuffle=False, rows=rows)
     cfg = model.config
-    written = 0
-    with CodemapStoreWriter(
-            store_directory, top_shape, bottom_shape,
-            attribute_fields=list(categorical_fields),
-            label_encoders=dataset.label_encoders,
-            n_class=(cfg.n_embed_t if cfg.n_embed_t == cfg.n_embed_b
-                     else None),
-            n_class_top=cfg.n_embed_t,
-            n_class_bottom=cfg.n_embed_b) as writer:
-        for batch in loader:
-            audio = np.asarray(batch[0])
-            labels = batch[1:]
-            n = audio.shape[0]
-            if n < batch_size:
-                audio = np.concatenate(
-                    [audio, np.zeros((batch_size - n,) + audio.shape[1:],
-                                     audio.dtype)])
-            id_t, id_b = encode(audio)
-            attributes = {field: np.asarray(labels[i])
-                          for i, field in enumerate(categorical_fields)}
-            writer.append_batch(id_t[:n], id_b[:n], attributes,
-                                dataset.names[written: written + n])
-            written += n
-    return written
+    writer = (CodemapStoreWriter(
+        store_directory, top_shape, bottom_shape,
+        attribute_fields=list(categorical_fields),
+        label_encoders=dataset.label_encoders,
+        n_class=(cfg.n_embed_t if cfg.n_embed_t == cfg.n_embed_b else None),
+        n_class_top=cfg.n_embed_t, n_class_bottom=cfg.n_embed_b)
+        if is_master_process() else contextlib.nullcontext())
+    with writer:
+        for b, audio in enumerate(loader):
+            id_t, id_b = encode(audio, mesh.data_group)
+            if not is_master_process():
+                continue
+            names = dataset.names[b * batch_size:(b + 1) * batch_size]
+            n = len(names)
+            labels = [dataset.labels(b * batch_size + i) for i in range(n)]
+            attributes = {field: np.asarray([row[k] for row in labels])
+                          for k, field in enumerate(categorical_fields)}
+            writer.append_batch(id_t[:n], id_b[:n], attributes, names)
+    return len(dataset)
+
+
+class _SilencePadded:
+    """A dataset's audio, then silent notes up to ``length``."""
+
+    def __init__(self, dataset, length: int):
+        self.dataset, self.length = dataset, length
+
+    def __len__(self) -> int:
+        return self.length
+
+    def __getitem__(self, index: int) -> np.ndarray:
+        if index < len(self.dataset):
+            return self.dataset[index][0]
+        return np.zeros(self.dataset.num_samples, np.float32)
 
 
 def decode_back_sanity_check(model: VQVAE, spectrograms_helper,
@@ -150,6 +177,7 @@ def main(argv=None):
                         "each store (<split>_lmdb)")
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
+    initialize_multihost(device=args.device)
 
     with open(args.vqvae_training_parameters_path) as f:
         training_parameters = json.load(f)
@@ -173,6 +201,8 @@ def main(argv=None):
                               categorical_fields=tuple(
                                   args.categorical_fields),
                               device=args.device)
+        if not is_master_process():
+            continue
         print(f"{name}: {count} codemaps in {time.time() - t0:.1f}s "
               f"-> {store_dir}")
         decode_back_sanity_check(

@@ -17,6 +17,14 @@ and on the self- and cross-attention outputs. A layer's forward takes a
 integer seeds a generator of the layer's own on the activations' device,
 so that a forward recomputed under ``torch.utils.checkpoint`` draws the
 same masks.
+
+On a mesh (``parallel/mesh.py::shard_prior_parameters``) the layers hold
+this rank's shard: ``MultiHeadAttention`` and ``RelativeAttentionBias`` its
+``H / n_model`` heads, ``FeedForward`` its ``d_ff / n_model`` columns, with
+the Megatron collectives of ``parallel/collectives.py`` around them. Each
+layer draws its dropout masks for the whole batch (and every d_ff column)
+and applies this rank's block, so a step computes what one process
+computes on the global batch.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from torch import nn
 
 from ...ops.decode_attention import flash_decode_attention
 from ...ops.train_attention import fused_train_attention
+from ...parallel.collectives import copy_to_model, reduce_from_model
 
 NEG_INF = -1e9
 LN_EPS = 1e-6
@@ -54,14 +63,29 @@ def dropout_generator(seed: Optional[int], device: torch.device
     return torch.Generator(device=device).manual_seed(seed)
 
 
+NO_SPLIT = (1, 0)
+
+
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            rows: Tuple[int, int] = NO_SPLIT,
+            cols: Tuple[int, int] = NO_SPLIT) -> torch.Tensor:
     """flax ``Dropout``: keep each element with probability ``1 - rate`` and
     scale it by ``1 / (1 - rate)``; the identity without a generator or at
-    rate 0."""
+    rate 0.
+
+    ``rows`` / ``cols`` = (blocks, this block): ``x`` is one block of a
+    tensor split into equal blocks along its first / last axis. The mask is
+    drawn for the whole tensor and this block of it applied, so the bits do
+    not depend on the split."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    (n_rows, row), (n_cols, col) = rows, cols
+    b, d = x.shape[0], x.shape[-1]
+    keep = torch.empty((b * n_rows,) + tuple(x.shape[1:-1]) + (d * n_cols,),
+                       dtype=x.dtype, device=x.device).bernoulli_(
+                           1.0 - rate, generator=generator)
+    keep = keep[row * b:(row + 1) * b, ..., col * d:(col + 1) * d]
     return x * keep / (1.0 - rate)
 
 
@@ -91,7 +115,7 @@ class RelativeAttentionBias(nn.Module):
                           + (self.num_events_k - 1), 0, max_rel - 1)
         flat_idx = ((c_q[:, None] * self.num_channels_k + c_k[None, :])
                     * max_rel + rel)
-        flat_table = self.rel_bias.reshape(self.num_heads, -1)
+        flat_table = self.rel_bias.reshape(self.rel_bias.shape[0], -1)
         flat_idx = torch.clamp(flat_idx, 0, flat_table.shape[1] - 1)
         return flat_table[:, flat_idx]
 
@@ -106,7 +130,7 @@ class RelativeAttentionBias(nn.Module):
         rel = torch.clamp(e_q - e_k + (self.num_events_k - 1),
                           0, max_rel - 1)
         t = self.rel_bias[:, c_q][:, c_k, :]  # [H, len_k, max_rel]
-        index = rel[None, :, None].expand(self.num_heads, -1, 1)
+        index = rel[None, :, None].expand(t.shape[0], -1, 1)
         return torch.gather(t, -1, index)[..., 0]
 
 
@@ -117,7 +141,14 @@ class MultiHeadAttention(nn.Module):
     ``ops/train_attention.py`` (the training kernels on the GPU): the bias
     and the mask are folded into one float32 ``ab [H, Lq, Lk]`` and the
     probabilities never reach device memory. Parameters and outputs are the
-    same either way (up to bf16 rounding)."""
+    same either way (up to bf16 rounding).
+
+    ``model_group`` (set by ``shard_prior_parameters``): the projections
+    hold this rank's heads; the replicated inputs enter through
+    ``copy_to_model``, ``o``'s partial products leave through
+    ``reduce_from_model`` and its bias is added once, after it."""
+
+    model_group = None
 
     def __init__(self, d_model: int, num_heads: int, use_fused: bool = False):
         super().__init__()
@@ -132,25 +163,36 @@ class MultiHeadAttention(nn.Module):
         self.o = nn.Linear(d_model, d_model)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
-        return x.reshape(x.shape[:-1] + (self.num_heads, self.head_dim))
+        return x.reshape(x.shape[:-1] + (-1, self.head_dim))
+
+    def _out(self, out: torch.Tensor) -> torch.Tensor:
+        """[..., H, Dh] heads -> the ``o`` projection [..., d]."""
+        out = out.reshape(out.shape[:-2] + (-1,))
+        if self.model_group is None:
+            return self.o(out)
+        return (reduce_from_model(F.linear(out, self.o.weight),
+                                  self.model_group) + self.o.bias)
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """q_in [B, Lq, d], kv_in [B, Lk, d]; bias [H, Lq, Lk];
         mask additive [Lq, Lk] (0 = keep, NEG_INF = drop)."""
+        if self.model_group is not None:
+            same = kv_in is q_in
+            q_in = copy_to_model(q_in, self.model_group)
+            kv_in = q_in if same else copy_to_model(kv_in, self.model_group)
         q = self._heads(self.q(q_in))
         k = self._heads(self.k(kv_in))
         v = self._heads(self.v(kv_in))
         if self.use_fused:
-            ab = torch.zeros(self.num_heads, q.shape[1], k.shape[1],
+            ab = torch.zeros(q.shape[2], q.shape[1], k.shape[1],
                              device=q.device, dtype=torch.float32)
             if bias is not None:
                 ab = ab + bias.float()
             if mask is not None:
                 ab = ab + mask[None].float()
-            out = fused_train_attention(q, k, v, ab)
-            return self.o(out.reshape(out.shape[:2] + (self.d_model,)))
+            return self._out(fused_train_attention(q, k, v, ab))
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
         logits = logits / math.sqrt(float(self.head_dim))
         if bias is not None:
@@ -159,7 +201,7 @@ class MultiHeadAttention(nn.Module):
             logits = logits + mask[None, None].to(logits.dtype)
         weights = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
-        return self.o(out.reshape(out.shape[:2] + (self.d_model,)))
+        return self._out(out)
 
     def project_kv(self, kv_in: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -186,6 +228,14 @@ class MultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
+    """``fc2(dropout(relu(fc1(x))))``. With ``model_group`` (set by
+    ``shard_prior_parameters``) ``fc1`` holds this rank's d_ff rows and
+    ``fc2`` its d_ff columns (block ``cols``); ``rows`` is this rank's block
+    of the batch, for the dropout mask."""
+
+    model_group = None
+    rows = cols = NO_SPLIT
+
     def __init__(self, d_model: int, d_ff: int, dropout: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(d_model, d_ff)
@@ -194,11 +244,18 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.fc2(dropout(F.relu(self.fc1(x)), self.dropout,
-                                generator))
+        if self.model_group is None:
+            return self.fc2(dropout(F.relu(self.fc1(x)), self.dropout,
+                                    generator, self.rows))
+        h = F.relu(self.fc1(copy_to_model(x, self.model_group)))
+        h = dropout(h, self.dropout, generator, self.rows, self.cols)
+        return (reduce_from_model(F.linear(h, self.fc2.weight),
+                                  self.model_group) + self.fc2.bias)
 
 
 class EncoderLayer(nn.Module):
+    rows = NO_SPLIT  # this rank's block of the batch (dropout masks)
+
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
                  num_channels: int, num_events: int, dropout: float = 0.0,
                  fused_attention: bool = False):
@@ -219,7 +276,7 @@ class EncoderLayer(nn.Module):
         bias = self.self_bias.full(length, length)
         h = self.ln1(x)
         x = x + dropout(self.self_attn(h, h, bias=bias, mask=mask),
-                        self.dropout, gen)
+                        self.dropout, gen, self.rows)
         return x + self.mlp(self.ln2(x), gen)
 
 
@@ -227,6 +284,8 @@ class DecoderLayer(nn.Module):
     """Pre-LN decoder layer with relative self bias and configurable cross
     bias; ``aligned=True`` restricts cross attention to the source token
     whose patch contains the query."""
+
+    rows = NO_SPLIT  # this rank's block of the batch (dropout masks)
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
                  num_channels_encoder: int, num_events_encoder: int,
@@ -276,7 +335,7 @@ class DecoderLayer(nn.Module):
         self_bias = self.self_bias.full(len_q, len_q)
         h = self.ln1(x)
         x = x + dropout(self.self_attn(h, h, bias=self_bias, mask=tgt_mask),
-                        self.dropout, gen)
+                        self.dropout, gen, self.rows)
         cross_bias = (self.cross_bias.full(len_q, len_k)
                       if self.cross_bias is not None else None)
         cross_mask = memory_mask
@@ -286,7 +345,7 @@ class DecoderLayer(nn.Module):
                 cross_mask + aligned)
         x = x + dropout(self.cross_attn(self.ln2(x), memory,
                                         bias=cross_bias, mask=cross_mask),
-                        self.dropout, gen)
+                        self.dropout, gen, self.rows)
         return x + self.mlp(self.ln3(x), gen)
 
     # -- KV-cached decode ---------------------------------------------------

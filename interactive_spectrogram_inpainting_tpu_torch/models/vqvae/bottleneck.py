@@ -24,6 +24,15 @@ expression ``nearest_code`` plus one-hot reductions.
 Random draws (the corruption ``shift`` in {-1, 0, 1} per row and the restart
 source rows ``restart_src``) come from an explicit ``torch.Generator`` or
 can be passed in, so a test can replay another framework's draws.
+
+On a data group (``mesh``, set by ``parallel/mesh.py::set_data_mesh``), a
+training call sees this rank's rows of the global batch. The EMA statistics
+(``counts``, ``embed_sum``) are summed over the group before the update,
+the usage perplexity is that of the global counts, the corruption shifts
+are drawn for the global rows and this rank's kept, and a dead-code
+restart takes the global rows its draw names from the ranks that hold
+them: every rank's codebook stays the one-process codebook of the global
+batch.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import torch
 from torch import nn
 
 from ...ops.vq_lookup import fused_vq_lookup
+from ...parallel.collectives import all_reduce_sum, owned_rows
 
 
 def nearest_code(flat: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
@@ -49,6 +59,8 @@ class QuantizedBottleneck(nn.Module):
 
     ``forward(x [B, dim, f, t], train) -> (quantized [B, dim, f, t], diff
     scalar, ids [B, f, t] int32, perplexity scalar)``."""
+
+    mesh = None  # the data group of a training call
 
     def __init__(self, dim: int, n_embed: int, decay: float = 0.99,
                  eps: float = 1e-5, embeddings_initial_variance: float = 1.0,
@@ -88,6 +100,10 @@ class QuantizedBottleneck(nn.Module):
         flat = x_last.reshape(-1, self.dim).float().contiguous()
         flat_const = flat.detach()
         n_rows = flat.shape[0]
+        group = None if self.mesh is None or not train \
+            else self.mesh.data_group
+        n_data, data_index = ((1, 0) if group is None else
+                              (self.mesh.n_data, self.mesh.data_index))
 
         use_fused = self.use_pallas_lookup and self.corruption_weights is None
         if use_fused:
@@ -102,9 +118,10 @@ class QuantizedBottleneck(nn.Module):
                 weights = torch.tensor(self.corruption_weights,
                                        dtype=torch.float32)
                 shift = _draw(generator, x.device, lambda dev: (
-                    torch.multinomial(weights.to(dev), n_rows,
+                    torch.multinomial(weights.to(dev), n_rows * n_data,
                                       replacement=True,
                                       generator=generator) - 1))
+                shift = shift[data_index * n_rows:(data_index + 1) * n_rows]
             ids = ((ids.long() + shift.to(ids.device).long())
                    % self.n_embed).to(torch.int32)
 
@@ -118,8 +135,13 @@ class QuantizedBottleneck(nn.Module):
                 embed_sum = flat_const.T @ onehot
 
         if train:
+            if group is not None:
+                stats = all_reduce_sum(
+                    torch.cat([counts[None], embed_sum]), group)
+                counts, embed_sum = stats[0], stats[1:]
+                probs = counts / (n_rows * n_data)
             self._ema_update(flat_const, counts, embed_sum, generator,
-                             restart_src)
+                             restart_src, group, n_data, data_index)
 
         quantize = quantize_flat.reshape(x_last.shape).permute(0, 3, 1, 2)
         sq = (quantize.detach() - x) ** 2
@@ -136,7 +158,8 @@ class QuantizedBottleneck(nn.Module):
         return quantize, diff, ids.reshape(x_last.shape[:-1]), perplexity
 
     @torch.no_grad()
-    def _ema_update(self, flat, counts, embed_sum, generator, restart_src):
+    def _ema_update(self, flat, counts, embed_sum, generator, restart_src,
+                    group=None, n_data: int = 1, data_index: int = 0):
         new_cluster = self.decay * self.cluster_size \
             + (1.0 - self.decay) * counts
         new_avg = self.decay * self.embed_avg + (1.0 - self.decay) * embed_sum
@@ -152,9 +175,11 @@ class QuantizedBottleneck(nn.Module):
             dead = usage_share < (self.restart_threshold / self.n_embed)
             if restart_src is None:
                 restart_src = _draw(generator, flat.device, lambda dev: (
-                    torch.randint(0, flat.shape[0], (self.n_embed,),
+                    torch.randint(0, flat.shape[0] * n_data, (self.n_embed,),
                                   device=dev, generator=generator)))
-            random_vectors = flat[restart_src.to(flat.device).long()].T
+            random_vectors = owned_rows(
+                flat, restart_src.to(flat.device).long(), data_index,
+                group).T
             new_embed = torch.where(dead[None], random_vectors, new_embed)
             new_avg = torch.where(
                 dead[None],

@@ -1,9 +1,9 @@
 """Multi-process start-up and failure detection of the trainers.
 
-Port of the part of ``interactive_spectrogram_inpainting_tpu/parallel/distributed.py``
-that the prior trainer calls: ``initialize_multihost`` (nothing to do for
-one process; the ``torch.distributed`` rendezvous of several processes
-belongs to the parallel slice, ``ROADMAP.md``) and the step watchdog, which
+Port of ``interactive_spectrogram_inpainting_tpu/parallel/distributed.py``:
+``initialize_multihost`` runs the ``torch.distributed`` rendezvous of a
+launch of several processes (one per device, as ``torchrun`` starts them;
+the JAX package's ``jax.distributed.initialize``), and the step watchdog
 aborts a run whose training steps stall so that a scheduler can restart it
 from its last checkpoint.
 """
@@ -16,15 +16,42 @@ import threading
 import time
 from typing import Callable, Optional
 
+import torch
+import torch.distributed as dist
 
-def initialize_multihost() -> None:
-    """One process: nothing to do. A launch of several processes (a
-    ``WORLD_SIZE`` above 1, as ``torchrun`` sets it) raises: their
-    rendezvous is not ported yet."""
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "multi-process training is part of the parallel slice of the "
-            "port (ROADMAP.md, 'Parallel'); run one process")
+
+def initialize_multihost(backend: Optional[str] = None,
+                         init_method: Optional[str] = None,
+                         world_size: Optional[int] = None,
+                         rank: Optional[int] = None,
+                         device: Optional[str] = None) -> bool:
+    """Join the process group of this launch; returns whether one is up.
+
+    The arguments default to ``torchrun``'s environment: ``WORLD_SIZE``,
+    ``RANK`` and the ``env://`` rendezvous at ``MASTER_ADDR`` /
+    ``MASTER_PORT``. One process with none of them given does nothing, and
+    a process group the caller has already initialized is left as it is.
+    The backend follows the device: ``nccl`` for CUDA (the default
+    device), ``gloo`` for ``device='cpu'``. With ``LOCAL_RANK`` set, the
+    current CUDA device becomes that one."""
+    if dist.is_initialized():
+        return True
+    env_world = int(os.environ.get("WORLD_SIZE", "1"))
+    if (world_size is None and init_method is None and env_world <= 1
+            and "MASTER_ADDR" not in os.environ):
+        return False
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    if backend is None:
+        backend = "gloo" if on_cpu else "nccl"
+    local_rank = os.environ.get("LOCAL_RANK")
+    if local_rank is not None and not on_cpu and torch.cuda.is_available():
+        torch.cuda.set_device(int(local_rank))
+    dist.init_process_group(
+        backend, init_method=init_method or "env://",
+        world_size=env_world if world_size is None else int(world_size),
+        rank=(int(os.environ.get("RANK", "0")) if rank is None
+              else int(rank)))
+    return True
 
 
 class StepWatchdog:

@@ -25,8 +25,9 @@ for one). Its shape is ``[steps - p0, n_class]`` for the fused batch-1 scan,
 (``jax.random.categorical(k, l)`` is ``argmax(l + gumbel(k, l.shape))``),
 and ``[B, L, n_class]`` for predictive sampling.
 
-``make_sharded_sampling_fn`` is not ported yet (it belongs to the parallel
-slice).
+``make_sharded_sampling_fn`` splits a batch over the data ranks of a mesh
+(``parallel/mesh.py``): each rank samples its rows with its own noise, and
+one all-gather at the end hands every rank the whole batch.
 """
 
 from __future__ import annotations
@@ -46,6 +47,8 @@ from ..ops.decode_step_kernel import (
     precompute_bias_rows, precompute_cross_bias_rows, precompute_mem_values,
     precompute_position_features, step_refusal)
 from ..ops.prefix_prime_kernel import fused_prefix_prime, prime_refusal
+from ..parallel.collectives import all_gather_rows
+from ..parallel.mesh import Mesh
 from ..utils.device import DeviceLike, resolve_device
 
 NEG_INF = -1e9
@@ -640,6 +643,58 @@ def make_sampling_fn(model: VQNSynthTransformer, batch_size: int,
             use_fused_step=use_fused_step, scan_from=scan_from,
             scan_until=scan_until, decode_state=decode_state, gumbel=gumbel,
             bounds_from_mask=False, device=device)
+
+    return fn
+
+
+def make_sharded_sampling_fn(model: VQNSynthTransformer, batch_size: int,
+                             mesh: Mesh, temperature: float = 1.0,
+                             top_k: int = 0, top_p: float = 0.0,
+                             compute_dtype: Optional[torch.dtype] = None,
+                             use_fused_step: bool = True,
+                             decode_state: Optional[dict] = None,
+                             device: DeviceLike = None):
+    """Data-parallel batched sampling over a mesh's data ranks (the JAX
+    package's ``make_sharded_sampling_fn``; the reference drove its batches
+    through ``nn.DataParallel``).
+
+    Returns ``fn(generators, condition, initial_code, mask,
+    class_conditioning, gumbels=None)``, which every rank calls with the
+    same arguments: ``condition``, ``initial_code`` and the class labels
+    are ``[batch_size, ...]`` and each rank samples its block of
+    ``batch_size / n_data`` rows with ``sample_model``, with no collective
+    on the way; ``mask`` is shared. ``generators`` (or ``gumbels``, the
+    noise of each shard in ``sample_model``'s layout) hold one entry per
+    data rank, as the JAX function takes one key per shard. The fused
+    kernels run at the per-shard batch: the scan and the prime at 1, the
+    step kernel at 2-4, the batched one above. One all-gather of the
+    codemaps at the end: every rank returns the ``[batch_size, F, T]``
+    result, each block exactly what one process sampling that block alone
+    with that rank's noise returns."""
+    if batch_size % mesh.n_data:
+        raise ValueError(f"batch {batch_size} does not split over "
+                         f"{mesh.n_data} data ranks")
+    per_shard = batch_size // mesh.n_data
+    rows = mesh.rows(batch_size)
+    shard = mesh.data_index
+
+    def mine(x):
+        return None if x is None else x[rows]
+
+    def fn(generators, condition, initial_code, mask, class_conditioning,
+           gumbels=None):
+        out = sample_model(
+            model, None if generators is None else generators[shard],
+            per_shard, temperature=temperature, condition=mine(condition),
+            initial_code=mine(initial_code), mask=mask,
+            class_conditioning={k: mine(v)
+                                for k, v in class_conditioning.items()},
+            top_k_sampling_k=top_k, top_p_sampling_p=top_p,
+            compute_dtype=compute_dtype, use_fused_step=use_fused_step,
+            decode_state=decode_state,
+            gumbel=None if gumbels is None else gumbels[shard],
+            device=device)
+        return all_gather_rows(out.contiguous(), mesh.data_group)
 
     return fn
 

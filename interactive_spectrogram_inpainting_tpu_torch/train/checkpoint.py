@@ -15,6 +15,13 @@ optimizer's) written with ``torch.save``; it holds only tensors and plain
 Python values, so ``restore`` loads it with ``weights_only=True``. The
 models themselves are exchanged with the JAX package through
 ``utils/checkpoint_io.py::save_model``.
+
+A prior trained over a model group (``parallel/mesh.py``) keeps the
+one-device format: ``gather_optimizer_state`` (with
+``mesh.gather_prior_parameters`` for the model) assembles the whole state
+on every rank before rank 0 writes it, and ``shard_optimizer_state`` cuts
+a restored optimizer state back to this rank's shard (the trainer loads
+the whole model before it shards it).
 """
 
 from __future__ import annotations
@@ -27,6 +34,10 @@ import shutil
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
+from torch import nn
+
+from ..parallel.collectives import all_gather_dim
+from ..parallel.mesh import shard_tensor
 
 STATE_FILE = "state.pt"
 KEEP = 3
@@ -129,3 +140,43 @@ class Checkpointer:
 
     def restore_best(self, map_location=None) -> Tuple[Dict[str, Any], int]:
         return self._restore(self.directory / "best", None, map_location)
+
+
+def _per_parameter(state: Dict[str, Any], model: nn.Module, fn
+                   ) -> Dict[str, Any]:
+    """``state`` (an ``Optimizer.state_dict()``) with ``fn(tensor, dim)``
+    applied to every per-parameter tensor of a parameter split along
+    ``dim`` (the model's ``param_dims``, by the order of its parameters)."""
+    dims = getattr(model, "param_dims", None)
+    if not dims or all(d is None for d in dims.values()):
+        return state
+    order = [dims[name] for name, _ in model.named_parameters()]
+    inner = dict(state["optimizer"])
+    per = {}
+    for index, entries in inner["state"].items():
+        dim = order[int(index)]
+        per[index] = {k: (fn(v, dim) if dim is not None
+                          and isinstance(v, torch.Tensor) and v.dim() > 0
+                          else v) for k, v in entries.items()}
+    inner["state"] = per
+    return {**state, "optimizer": inner}
+
+
+def gather_optimizer_state(state: Dict[str, Any], model: nn.Module
+                           ) -> Dict[str, Any]:
+    """The whole optimizer state of a model sharded by
+    ``shard_prior_parameters`` (every model rank must call it)."""
+    mesh = getattr(model, "mesh", None)
+    group = None if mesh is None else mesh.model_group
+    return _per_parameter(state, model,
+                          lambda t, dim: all_gather_dim(t, dim, group))
+
+
+def shard_optimizer_state(state: Dict[str, Any], model: nn.Module
+                          ) -> Dict[str, Any]:
+    """This rank's shard of a whole optimizer state."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return state
+    return _per_parameter(state, model, lambda t, dim: shard_tensor(
+        t, dim, mesh.n_model, mesh.model_index).clone())

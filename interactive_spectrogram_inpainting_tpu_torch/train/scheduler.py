@@ -14,7 +14,7 @@ that global norm as optax's ``clip_by_global_norm`` does.
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, Optional, Sequence
 
 import torch
 
@@ -106,14 +106,34 @@ def get_scheduler(name: Optional[str], lr: float, total_steps: int,
     raise ValueError(f"unknown scheduler {name}")
 
 
-def clip_by_global_norm(grads: Iterable[torch.Tensor],
-                        max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: Iterable[Optional[torch.Tensor]],
+                        max_norm: float,
+                        sharded: Optional[Sequence[bool]] = None,
+                        model_group=None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: every gradient times
     ``max_norm / norm`` when the global norm reaches ``max_norm``. Returns
-    the norm (a tensor: nothing waits for the device)."""
-    grads = [g for g in grads if g is not None]
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads]))
+    the norm (a tensor: nothing waits for the device).
+
+    ``sharded`` / ``model_group``: which gradients are one shard of a
+    parameter split over the model group; their squares are summed over
+    the group, the replicated ones counted once."""
+    if model_group is None:
+        grads = [g for g in grads if g is not None]
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads]))
+    else:
+        pairs = [(g, s) for g, s in zip(grads, sharded) if g is not None]
+        grads = [g for g, _ in pairs]
+        split = torch.zeros((), device=grads[0].device)
+        whole = torch.zeros((), device=grads[0].device)
+        for g, s in pairs:
+            square = torch.linalg.vector_norm(g.float()) ** 2
+            if s:
+                split = split + square
+            else:
+                whole = whole + square
+        torch.distributed.all_reduce(split, group=model_group)
+        norm = torch.sqrt(split + whole)
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
     for g in grads:
@@ -134,6 +154,9 @@ class Optimizer:
         self.b1_schedule = b1_schedule
         self.clip_grad_norm = clip_grad_norm
         self.count = 0
+        # tensor parallelism: which parameters are shards over this group
+        self.sharded: Optional[Sequence[bool]] = None
+        self.model_group = None
 
     @property
     def params(self):
@@ -146,7 +169,8 @@ class Optimizer:
     def step(self) -> None:
         if self.clip_grad_norm:
             clip_by_global_norm((p.grad for p in self.params),
-                                self.clip_grad_norm)
+                                self.clip_grad_norm, self.sharded,
+                                self.model_group)
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.count)
             if self.b1_schedule is not None:

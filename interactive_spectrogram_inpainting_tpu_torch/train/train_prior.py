@@ -4,13 +4,21 @@ Port of ``interactive_spectrogram_inpainting_tpu/train/train_prior.py``:
 trains the top (self-conditional, masked-source) or bottom
 (top-conditioned) prior on stored codemaps with label-smoothed
 cross-entropy, token accuracy and, for the top prior, the share of kept
-tokens predicted back (``satisfied_constraints``). One process, one
-device: the GPU unless ``--device cpu``. On the GPU ``--fused_attention
-auto`` (the default) runs every attention of the step through the training
-kernels of ``ops/train_attention.py``.
+tokens predicted back (``satisfied_constraints``). The GPU unless
+``--device cpu``. On the GPU ``--fused_attention auto`` (the default) runs
+every attention of the step through the training kernels of
+``ops/train_attention.py``.
 
     python -m interactive_spectrogram_inpainting_tpu_torch.train.train_prior \\
         --hier bottom --use_aligned_decoder --database_path CODES_DIR
+
+Several processes, one per device (``torchrun --nproc_per_node N -m
+...train.train_prior --num_devices_data D --num_devices_model M``, D x M =
+N), train over a ``('data', 'model')`` mesh (``parallel/mesh.py``): each
+data rank takes its rows of every global batch, the priors' heads and d_ff
+are split over the model ranks, the gradients and metrics are averaged over
+the data ranks and the eval sums added, so the update is the one-process
+update of the global batch. Rank 0 writes the logs and the files.
 
 Each epoch ends with a rolling checkpoint (``train/checkpoint.py``) and the
 trained prior written as ``<hier>-model_parameters.json`` +
@@ -41,12 +49,18 @@ from ..models.prior.transformer import (SelfAttentiveVQTransformer,
                                         TransformerConfig,
                                         UpsamplingVQTransformer,
                                         VQNSynthTransformer)
+from ..parallel.collectives import (mean_of_gradients, mean_of_metrics,
+                                    optional_group, sum_of_eval)
 from ..parallel.distributed import initialize_multihost, maybe_watchdog
+from ..parallel.mesh import (Mesh, gather_prior_parameters,
+                             is_master_process, shard_batch,
+                             shard_prior_parameters, trainer_mesh)
 from ..utils.checkpoint_io import load_variables, save_model
 from ..utils.device import resolve_device, set_float32_precision
 from ..utils.metrics import MetricsWriter
 from ..utils.weights import from_flax_params, init_like_flax
-from .checkpoint import Checkpointer
+from .checkpoint import Checkpointer, gather_optimizer_state, \
+    shard_optimizer_state
 from .losses import label_smoothing_loss
 from .scheduler import Optimizer, get_optimizer
 
@@ -143,11 +157,10 @@ def make_parser() -> argparse.ArgumentParser:
                         "value draws the dropout masks from the one "
                         "torch.Generator seeded from --seed")
     p.add_argument("--num_devices_data", type=int, default=None,
-                   help="must be 1 (or unset): data parallelism belongs to "
-                        "the parallel slice of the port")
+                   help="data-parallel mesh size (default: WORLD_SIZE // "
+                        "--num_devices_model); must divide --batch_size")
     p.add_argument("--num_devices_model", type=int, default=1,
-                   help="must be 1: tensor parallelism belongs to the "
-                        "parallel slice of the port")
+                   help="tensor-parallel mesh size (heads and d_ff split)")
     p.add_argument("--profile", action="store_true",
                    help="write a torch.profiler trace of the first epoch "
                         "into <run>/profile")
@@ -285,7 +298,8 @@ def make_steps(model: VQNSynthTransformer, optimizer: Optional[Optimizer],
                hier: str, mask_sampler: Optional[SequenceMask],
                label_smoothing: float, bf16: bool = False,
                drop_loss_half: bool = False,
-               loss_num_steps: Optional[int] = None):
+               loss_num_steps: Optional[int] = None,
+               mesh: Optional[Mesh] = None):
     """-> (train_step, eval_step).
 
     ``train_step(tops, bottoms, class_conditioning, generator)`` runs one
@@ -303,7 +317,12 @@ def make_steps(model: VQNSynthTransformer, optimizer: Optional[Optimizer],
     ``drop_loss_half`` / ``loss_num_steps`` restrict the LOSS to the first
     half of the codemap columns in time, or to the first
     ``loss_num_steps`` sequence positions; accuracy and constraints stay
-    whole-map."""
+    whole-map.
+
+    ``mesh`` (the model sharded by ``shard_prior_parameters``): the batch
+    tensors are this rank's rows; the masks are drawn for the global batch
+    and this rank's rows kept, the gradients and metrics are averaged over
+    the data group and the eval sums added over it."""
     cfg = model.config
     tgt_helper = cfg.target_codemaps_helper()
     src_helper = cfg.source_codemaps_helper()
@@ -318,6 +337,8 @@ def make_steps(model: VQNSynthTransformer, optimizer: Optional[Optimizer],
     if loss_step_weights is not None:
         loss_step_weights = torch.as_tensor(
             loss_step_weights.astype(np.float32), device=model.device)
+    data_group = optional_group(mesh, "data")
+    n_data = 1 if mesh is None else mesh.n_data
 
     def forward_loss(tops, bottoms, class_conditioning, generator,
                      deterministic):
@@ -325,7 +346,10 @@ def make_steps(model: VQNSynthTransformer, optimizer: Optional[Optimizer],
         if hier == "top":
             target_map = condition_map = tops
             mask_seq = mask_sampler.sample_mask(
-                generator, batch_size=tops.shape[0]).to(tops.device)
+                generator, batch_size=tops.shape[0] * n_data)
+            if mesh is not None:
+                mask_seq = shard_batch(mesh, mask_seq)
+            mask_seq = mask_seq.to(tops.device)
             mask = src_helper.to_time_frequency_map(mask_seq)
         else:
             target_map, condition_map = bottoms, tops
@@ -360,8 +384,10 @@ def make_steps(model: VQNSynthTransformer, optimizer: Optional[Optimizer],
             loss, metrics = forward_loss(tops, bottoms, class_conditioning,
                                          generator, False)
             loss.backward()
+        mean_of_gradients(model.parameters(), data_group)
         optimizer.step()
-        return {k: v.detach().mean() for k, v in metrics.items()}
+        return mean_of_metrics({k: v.detach().mean()
+                                for k, v in metrics.items()}, data_group)
 
     @torch.no_grad()
     def eval_step(tops, bottoms, class_conditioning, weights, generator):
@@ -369,17 +395,18 @@ def make_steps(model: VQNSynthTransformer, optimizer: Optional[Optimizer],
             _, metrics = forward_loss(tops, bottoms, class_conditioning,
                                       generator, True)
         sums = {k: (v * weights).sum() for k, v in metrics.items()}
-        return sums, weights.sum()
+        return sum_of_eval(sums, weights.sum(), data_group)
 
     return train_step, eval_step
 
 
 def iterate_batches(dataset, batch_size: int, shuffle: bool, epoch: int,
                     limit: Optional[int] = None, seed: int = 0,
-                    include_remainder: bool = False, device=None):
+                    include_remainder: bool = False, device=None,
+                    mesh: Optional[Mesh] = None):
     """Yield (tops, bottoms, class_conditioning, weights) batches as tensors
     on ``device``, in the JAX trainer's order (``default_rng([seed,
-    epoch])``).
+    epoch])``); with ``mesh``, this rank's rows of each.
 
     ``weights`` is a float32 [batch_size] validity vector: 1.0 for real
     samples, 0.0 for padding. Training drops the remainder; with
@@ -407,6 +434,10 @@ def iterate_batches(dataset, batch_size: int, shuffle: bool, epoch: int,
                 [v, np.zeros((pad,) + v.shape[1:], v.dtype)])
                 for k, v in attrs.items()}
 
+        if mesh is not None:
+            tops, bottoms, attrs, weights = shard_batch(
+                mesh, (tops, bottoms, attrs, weights))
+
         def put(x):
             return torch.as_tensor(x).to(device, non_blocking=True)
 
@@ -417,36 +448,34 @@ def iterate_batches(dataset, batch_size: int, shuffle: bool, epoch: int,
 
 @torch.no_grad()
 def prediction_figure(model: VQNSynthTransformer, dataset, hier: str,
-                      batch_size: int, device, path: pathlib.Path) -> None:
+                      batch_size: int, device, path: Optional[pathlib.Path],
+                      mesh: Optional[Mesh] = None) -> None:
     """The target-vs-predicted success map of the first codemap of the
     first batch, written to ``path`` (reference
     ``train_autoregressive_model.py:308-346``); one log line instead when
-    matplotlib is not installed."""
+    matplotlib is not installed. On a mesh every rank runs the forward of
+    its rows (the model ranks' collectives need them all) and the rank
+    holding the first row writes (``path`` None on the others)."""
     from ..utils.visualization import (have_matplotlib,
                                        plot_prediction_success_map,
                                        save_figure)
     if not have_matplotlib():
-        print("codemap prediction figure skipped: matplotlib is not "
-              "installed")
+        if path is not None:
+            print("codemap prediction figure skipped: matplotlib is not "
+                  "installed")
         return
     tops, bottoms, cc, _ = next(iterate_batches(dataset, batch_size, False,
-                                                0, device=device))
+                                                0, device=device, mesh=mesh))
     target_map = tops if hier == "top" else bottoms
     src_seq, tgt_seq = model.to_sequences(target_map, tops,
                                           class_conditioning=cc)
     logits, _ = model(tgt_seq, src_seq, deterministic=True)
     pred = model.config.target_codemaps_helper().to_time_frequency_map(
         torch.argmax(logits, dim=-1))
+    if path is None:
+        return
     save_figure(plot_prediction_success_map(
         target_map[0].cpu().numpy(), pred[0].cpu().numpy()), path)
-
-
-def _check_devices(args) -> None:
-    if args.num_devices_model != 1 or args.num_devices_data not in (None, 1):
-        raise SystemExit(
-            "--num_devices_data / --num_devices_model other than 1: data "
-            "and tensor parallelism belong to the parallel slice of the "
-            "port (ROADMAP.md, 'Parallel'); train on one device")
 
 
 def _synchronize(device: torch.device) -> None:
@@ -456,10 +485,12 @@ def _synchronize(device: torch.device) -> None:
 
 def main(argv=None):
     """Train (or ``--evaluate_only``: evaluate) a prior. Returns the trained
-    model, or the evaluation metrics."""
+    model (on a mesh: this rank's shard), or the evaluation metrics."""
     args = make_parser().parse_args(argv)
-    _check_devices(args)
-    initialize_multihost()
+    initialize_multihost(device=args.device)
+    mesh = trainer_mesh(args.num_devices_data, args.num_devices_model,
+                        args.batch_size)
+    master = is_master_process()
     device = resolve_device(args.device)
     set_float32_precision()
     run_id = (datetime.now().strftime("%Y%m%d-%H%M%S")
@@ -491,19 +522,36 @@ def main(argv=None):
     if args.initial_weights_path:
         model.load_state_dict(from_flax_params(
             load_variables(args.initial_weights_path)))
-    model.to(device)
     cfg = model.config
 
     if len(dataset) < args.batch_size:
         raise SystemExit(
             f"dataset has {len(dataset)} records, fewer than "
             f"--batch_size {args.batch_size}: no full batch to train on")
+    start_epoch = 0
+    resumed = None
+    if args.resume_training_from:
+        # checkpoints hold the whole model: load it, then shard it
+        resumed, start_epoch = Checkpointer(
+            args.resume_training_from).restore(map_location="cpu")
+        model.load_state_dict(resumed["model"])
+        start_epoch += 1
+    model.to(device)
+    shard_prior_parameters(model, mesh)
+
     steps_per_epoch = max(1, len(dataset) // args.batch_size)
     total_steps = steps_per_epoch * args.num_training_epochs
     optimizer = get_optimizer(
         model.parameters(), args.optimizer, args.scheduler, args.lr,
         total_steps, warmup_steps=args.num_warmup_steps or 0,
         eps=args.optimizer_eps, clip_grad_norm=args.clip_grad_norm)
+    if mesh.n_model > 1:
+        optimizer.sharded = [model.param_dims[name] is not None
+                             for name, _ in model.named_parameters()]
+        optimizer.model_group = mesh.model_group
+    if resumed is not None:
+        optimizer.load_state_dict(shard_optimizer_state(
+            resumed["optimizer"], model))
 
     mask_sampler = None
     if args.hier == "top":
@@ -515,22 +563,15 @@ def main(argv=None):
     train_step, eval_step = make_steps(
         model, optimizer, args.hier, mask_sampler, args.label_smoothing,
         bf16=args.bf16, drop_loss_half=args.drop_loss_half_DEBUG,
-        loss_num_steps=args.train_num_steps_sequences_DEBUG)
+        loss_num_steps=args.train_num_steps_sequences_DEBUG, mesh=mesh)
 
     writes = not (args.disable_writes_to_disk or args.dry_run)
-    writer = MetricsWriter(run_dir / "tb", enabled=writes)
+    writer = MetricsWriter(run_dir / "tb", enabled=writes and master)
     checkpointer = None
-    start_epoch = 0
-    if writes:
+    if writes and master:
         checkpointer = Checkpointer(run_dir, args.save_frequency)
         checkpointer.store_command_line_parameters(vars(args))
         checkpointer.store_model_parameters(cfg.to_json())
-    if args.resume_training_from:
-        state, start_epoch = Checkpointer(args.resume_training_from).restore(
-            map_location=device)
-        model.load_state_dict(state["model"])
-        optimizer.load_state_dict(state["optimizer"])
-        start_epoch += 1
 
     generator = torch.Generator().manual_seed(args.seed)
     global_step = start_epoch * steps_per_epoch
@@ -542,7 +583,7 @@ def main(argv=None):
         for tops, bottoms, cc, w in iterate_batches(
                 source, args.batch_size, False, 0,
                 limit=args.num_training_samples, include_remainder=True,
-                device=device):
+                device=device, mesh=mesh):
             m, c = eval_step(tops, bottoms, cc, w, generator)
             for k, v in m.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
@@ -553,7 +594,8 @@ def main(argv=None):
 
     if args.evaluate_only:
         metrics = run_eval()
-        print("evaluation:", json.dumps(metrics, indent=2))
+        if master:
+            print("evaluation:", json.dumps(metrics, indent=2))
         writer.close()
         return metrics
 
@@ -561,7 +603,9 @@ def main(argv=None):
     try:
         for epoch in range(start_epoch, args.num_training_epochs):
             profiler = nullcontext()
-            if args.profile and epoch == start_epoch and writes:
+            profiling = args.profile and epoch == start_epoch and writes \
+                and master
+            if profiling:
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -575,7 +619,7 @@ def main(argv=None):
                 for tops, bottoms, cc, _ in iterate_batches(
                         dataset, args.batch_size, True, epoch,
                         limit=args.num_training_samples, seed=args.seed,
-                        device=device):
+                        device=device, mesh=mesh):
                     metrics = train_step(tops, bottoms, cc, generator)
                     steps += 1
                     if steps == 1:
@@ -592,7 +636,7 @@ def main(argv=None):
                         break
                 _synchronize(device)
             t1 = time.perf_counter()
-            if args.profile and epoch == start_epoch and writes:
+            if profiling:
                 (run_dir / "profile").mkdir(parents=True, exist_ok=True)
                 profiler.export_chrome_trace(
                     str(run_dir / "profile" / "trace.json"))
@@ -612,7 +656,8 @@ def main(argv=None):
                         f"{float(metrics['satisfied_constraints']):.3f}")
             if "warm_step_ms" in timing:
                 msg += f" warm step {timing['warm_step_ms']:.2f} ms"
-            print(msg, flush=True)
+            if master:
+                print(msg, flush=True)
 
             validation_loss = None
             if epoch % args.validation_frequency == 0:
@@ -623,15 +668,23 @@ def main(argv=None):
                     prediction_figure(
                         model, dataset, args.hier, args.batch_size, device,
                         writer.directory / "media"
-                        / f"codemap_prediction-{epoch}.png")
+                        / f"codemap_prediction-{epoch}.png"
+                        if master else None, mesh)
 
-            if checkpointer is not None:
-                checkpointer.save(epoch, {"model": model.state_dict(),
-                                          "optimizer": optimizer.state_dict()},
-                                  validation_loss)
-                save_model(run_dir, model, prefix=args.hier)
+            if writes:
+                # the single-device format: gathered, written by rank 0
+                full = gather_prior_parameters(model)
+                opt_state = gather_optimizer_state(optimizer.state_dict(),
+                                                   model)
+                if checkpointer is not None:
+                    checkpointer.save(epoch, {"model": full,
+                                              "optimizer": opt_state},
+                                      validation_loss)
+                    save_model(run_dir, model, prefix=args.hier,
+                               state_dict=full)
             if args.dry_run:
-                print("dry run complete")
+                if master:
+                    print("dry run complete")
                 break
     finally:
         if watchdog is not None:

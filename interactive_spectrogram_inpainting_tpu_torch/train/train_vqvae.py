@@ -5,8 +5,8 @@ trains the two-level VQ-VAE-2 on NSynth-shaped wav data with the EMA
 codebooks, a reconstruction criterion (``mse``, or the DDSP / Jukebox
 multiscale spectral losses, whose scales run through the spectral-loss
 kernel on the GPU) plus ``latent_loss_weight`` times the commitment loss,
-and at every log step the MSE / DDSP / Jukebox metric trio. One process,
-one device: the GPU unless ``--device cpu``.
+and at every log step the MSE / DDSP / Jukebox metric trio. The GPU unless
+``--device cpu``.
 
     python -m interactive_spectrogram_inpainting_tpu_torch.train.train_vqvae \\
         --use_mel_scale --input_normalization \\
@@ -19,12 +19,18 @@ Each epoch ends with a rolling checkpoint (``train/checkpoint.py``) and the
 model written as ``vqvae-model_parameters.json`` + ``vqvae-weights.msgpack``,
 the files the server, the extractor and the JAX package load.
 
+Several processes, one per device (``torchrun --nproc_per_node N -m
+...train.train_vqvae --num_devices_data N``), split every global batch
+into row blocks over a ``('data',)`` mesh (``parallel/mesh.py``): each rank
+reads and encodes its rows, the gradients and metrics are averaged, the
+codebooks' EMA statistics, the normalizer's ranges and the eval sums are
+combined over the ranks, so the update is the one-process update of the
+global batch. Rank 0 writes the logs and the files.
+
 Not carried over from the JAX trainer: its host-side spectrogram branch
 (a workaround for a TPU backend without complex FFTs; ``torch.fft`` runs
-on the card) and ``--num_devices_data`` other than 1 (data parallelism
-belongs to the parallel slice of the port). The reconstruction figure of
-the media dump needs matplotlib (without it the run logs one line
-instead).
+on the card). The reconstruction figure of the media dump needs
+matplotlib (without it the run logs one line instead).
 """
 
 from __future__ import annotations
@@ -43,8 +49,12 @@ import torch
 from ..data.loader import BatchLoader
 from ..data.nsynth import NSynth
 from ..models.vqvae.vqvae import VQVAE, VQVAEConfig
+from ..parallel.collectives import (mean_of_gradients, mean_of_metrics,
+                                    optional_group, sum_of_eval)
 from ..parallel.distributed import initialize_multihost, maybe_watchdog
-from ..signal.normalizer import DataNormalizer
+from ..parallel.mesh import (Mesh, is_master_process, set_data_mesh,
+                             shard_batch, trainer_mesh)
+from ..signal.normalizer import DataNormalizer, DataNormalizerStatistics
 from ..signal.spectrogram import (get_spectrograms_helper,
                                   make_masked_phase_transform)
 from ..utils.checkpoint_io import save_model
@@ -154,8 +164,8 @@ def make_parser() -> argparse.ArgumentParser:
                         "loader thread prefetches the batches")
     p.add_argument("--runs_directory", type=str, default="runs")
     p.add_argument("--num_devices_data", type=int, default=None,
-                   help="must be 1 (or unset): data parallelism belongs to "
-                        "the parallel slice of the port")
+                   help="data-parallel mesh size (default: WORLD_SIZE); "
+                        "must divide --batch_size")
     p.add_argument("--bf16", action="store_true",
                    help="forward and backward on bfloat16 casts of the "
                         "float32 master parameters and input, promoted to "
@@ -239,9 +249,12 @@ def _spectrogram(spectrograms_helper, input_transform, audio: torch.Tensor
 def make_train_step(model: VQVAE, optimizer: Optimizer,
                     reconstruction_criterion, latent_loss_weight: float,
                     spectrograms_helper, bf16: bool = False,
-                    input_transform=None, reconstruction_metrics=None):
+                    input_transform=None, reconstruction_metrics=None,
+                    mesh: Optional[Mesh] = None):
     """-> ``step(audio [B, L], generator=None) -> metrics`` (0-dim tensors
-    on the device).
+    on the device). With ``mesh`` (the model's codebooks on it through
+    ``set_data_mesh``), ``audio`` is this rank's rows of the global batch
+    and the gradients and metrics are averaged over the data group.
 
     One update: the spectrogram (then ``input_transform``, the masked-phase
     view of the input when ``--output_spectrogram_threshold`` is set, which
@@ -261,6 +274,7 @@ def make_train_step(model: VQVAE, optimizer: Optimizer,
     casts = ((lambda: bfloat16_parameters(model, promote=True))
              if bf16 else nullcontext)
     cfg = model.config
+    data_group = optional_group(mesh, "data")
 
     def step(audio: torch.Tensor, generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
@@ -274,6 +288,7 @@ def make_train_step(model: VQVAE, optimizer: Optimizer,
             diff = diff.float()
             loss = recon + latent_loss_weight * diff
             loss.backward()
+        mean_of_gradients(model.parameters(), data_group)
         optimizer.step()
         metrics = {"vqvae_loss": loss, "reconstruction_loss": recon,
                    "latent_loss": diff, "perplexity_top": perp_t,
@@ -285,20 +300,23 @@ def make_train_step(model: VQVAE, optimizer: Optimizer,
             with torch.no_grad():
                 metrics.update(reconstruction_metrics(dec.detach().float(),
                                                       spec))
-        return metrics
+        return mean_of_metrics(metrics, data_group)
 
     return step
 
 
 def make_eval_step(model: VQVAE, reconstruction_criterion,
                    latent_loss_weight: float, spectrograms_helper,
-                   input_transform=None, reconstruction_metrics=None):
+                   input_transform=None, reconstruction_metrics=None,
+                   mesh: Optional[Mesh] = None):
     """-> ``step(audio [B, L], weights [B]) -> (weighted metric sums,
     weight sum)``. Every metric is computed per sample (the perplexities
     from each sample's own codes) and weighted by the validity vector, so
     zero-padded remainder rows (weight 0) count for nothing and the
     caller's sums over all batches divided by the summed weights are exact
-    per-sample means."""
+    per-sample means. With ``mesh`` the rows are this rank's and the sums
+    are added over the data group."""
+    data_group = optional_group(mesh, "data")
 
     @torch.no_grad()
     def step(audio: torch.Tensor, weights: torch.Tensor):
@@ -313,8 +331,9 @@ def make_eval_step(model: VQVAE, reconstruction_criterion,
         if reconstruction_metrics is not None:
             metrics.update(reconstruction_metrics(dec, spec,
                                                   reduction="none"))
-        return ({k: (v * weights).sum() for k, v in metrics.items()},
-                weights.sum())
+        return sum_of_eval({k: (v * weights).sum()
+                            for k, v in metrics.items()}, weights.sum(),
+                           data_group)
 
     return step
 
@@ -347,9 +366,12 @@ def dump_image_samples(directory, epoch: int, batch_index: int,
 
 def compute_normalization_statistics(spectrograms_helper, loader,
                                      max_batches: int = 50,
-                                     input_transform=None, device=None):
+                                     input_transform=None, device=None,
+                                     mesh: Optional[Mesh] = None):
     """Channel ranges of the (masked, with ``input_transform``)
-    spectrograms of the first ``max_batches`` batches of ``loader``."""
+    spectrograms of the first ``max_batches`` batches of ``loader``; with
+    ``mesh`` (``loader`` reading this rank's rows) the ranges of every
+    rank's rows, the same on every rank."""
 
     def batches():
         for i, batch in enumerate(loader):
@@ -359,7 +381,18 @@ def compute_normalization_statistics(spectrograms_helper, loader,
             yield _spectrogram(spectrograms_helper, input_transform,
                                torch.as_tensor(audio).to(device))
 
-    return DataNormalizer.compute_statistics(batches())
+    stats = DataNormalizer.compute_statistics(batches())
+    group = optional_group(mesh, "data")
+    if group is None:
+        return stats
+    # minima of (min, -max): one collective gives every range
+    signed = torch.tensor([stats.min_logmag, -stats.max_logmag,
+                           stats.min_IF, -stats.max_IF],
+                          dtype=torch.float64, device=device)
+    torch.distributed.all_reduce(signed, torch.distributed.ReduceOp.MIN,
+                                 group=group)
+    lo_mag, hi_mag, lo_if, hi_if = signed.tolist()
+    return DataNormalizerStatistics(lo_mag, -hi_mag, lo_if, -hi_if)
 
 
 def _synchronize(device: torch.device) -> None:
@@ -370,15 +403,12 @@ def _synchronize(device: torch.device) -> None:
 def main(argv=None) -> VQVAE:
     """Train a VQ-VAE; returns the trained model."""
     args = make_parser().parse_args(argv)
-    if args.num_devices_data not in (None, 1):
-        raise SystemExit(
-            "--num_devices_data other than 1: data parallelism belongs to "
-            "the parallel slice of the port (ROADMAP.md, 'Parallel'); train "
-            "on one device")
     if args.dataset != "nsynth" or args.dataset_type != "wav":
         raise NotImplementedError(
             "only the NSynth wav pipeline is implemented")
-    initialize_multihost()
+    initialize_multihost(device=args.device)
+    mesh = trainer_mesh(args.num_devices_data, 1, args.batch_size)
+    master = is_master_process()
     device = resolve_device(args.device)
     set_float32_precision()
     run_dir = pathlib.Path(args.runs_directory) / (
@@ -402,7 +432,9 @@ def main(argv=None) -> VQVAE:
                       duration_seconds=args.dataset_duration_seconds)
 
     dataset = nsynth(args.train_dataset_json_data_path)
-    train_loader = BatchLoader(dataset, args.batch_size, shuffle=True)
+    # each rank reads and decodes its rows of every global batch
+    train_loader = BatchLoader(dataset, args.batch_size, shuffle=True,
+                               rows=mesh.rows(args.batch_size))
     valid_loader = None
     if args.validation_dataset_json_data_path:
         valid_loader = BatchLoader(
@@ -419,13 +451,14 @@ def main(argv=None) -> VQVAE:
     elif args.input_normalization:
         stats = compute_normalization_statistics(
             helper, train_loader, input_transform=input_transform,
-            device=device)
+            device=device, mesh=mesh)
         config = dataclasses.replace(
             config, normalizer_statistics=dataclasses.asdict(stats))
 
     model = VQVAE(config)
     init_like_flax(model, torch.Generator().manual_seed(0))
     model.to(device)
+    set_data_mesh(model, mesh)
 
     if len(train_loader) == 0:
         raise SystemExit(
@@ -446,21 +479,21 @@ def main(argv=None) -> VQVAE:
                   reconstruction_criterion=criterion,
                   latent_loss_weight=args.latent_loss_weight,
                   spectrograms_helper=helper, bf16=args.bf16,
-                  input_transform=input_transform)
+                  input_transform=input_transform, mesh=mesh)
     train_step = make_train_step(model, **common)
     # the metric trio rides a second step, taken at log steps only
     train_step_logged = make_train_step(
         model, reconstruction_metrics=metrics_fn, **common)
     eval_step = make_eval_step(model, criterion, args.latent_loss_weight,
                                helper, input_transform=input_transform,
-                               reconstruction_metrics=metrics_fn)
+                               reconstruction_metrics=metrics_fn, mesh=mesh)
 
     writes = not (args.disable_writes_to_disk or args.dry_run)
-    writer = MetricsWriter(run_dir / "tb",
-                           enabled=writes and not args.disable_tensorboard)
+    writer = MetricsWriter(run_dir / "tb", enabled=writes and master
+                           and not args.disable_tensorboard)
     checkpointer = None
     start_epoch = 0
-    if writes:
+    if writes and master:
         checkpointer = Checkpointer(run_dir, args.save_frequency)
         checkpointer.store_command_line_parameters(vars(args))
         checkpointer.store_model_parameters(config.to_json())
@@ -470,7 +503,8 @@ def main(argv=None) -> VQVAE:
         model.load_state_dict(state["model"])
         optimizer.load_state_dict(state["optimizer"])
         start_epoch += 1
-        print(f"resumed from epoch {start_epoch - 1}")
+        if master:
+            print(f"resumed from epoch {start_epoch - 1}")
 
     # the corruption and restart draws
     generator = torch.Generator(device=device).manual_seed(20200117)
@@ -481,7 +515,9 @@ def main(argv=None) -> VQVAE:
         for epoch in range(start_epoch, args.num_training_epochs):
             train_loader.set_epoch(epoch)
             profiler = nullcontext()
-            if args.profile and epoch == start_epoch and writes:
+            profiling = args.profile and epoch == start_epoch and writes \
+                and master
+            if profiling:
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -507,7 +543,7 @@ def main(argv=None) -> VQVAE:
                         watchdog.pet()
                     if is_log_step:
                         writer.scalars("training", metrics, global_step)
-                    if args.enable_image_dumps and writes \
+                    if args.enable_image_dumps and writes and master \
                             and batch_index % 100 == 0:
                         with torch.no_grad():
                             spec = _spectrogram(helper, input_transform,
@@ -520,7 +556,7 @@ def main(argv=None) -> VQVAE:
                         break
                 _synchronize(device)
             t1 = time.perf_counter()
-            if args.profile and epoch == start_epoch and writes:
+            if profiling:
                 (run_dir / "profile").mkdir(parents=True, exist_ok=True)
                 profiler.export_chrome_trace(
                     str(run_dir / "profile" / "trace.json"))
@@ -535,9 +571,10 @@ def main(argv=None) -> VQVAE:
                    f"perp_b={float(metrics['perplexity_bottom']):.1f}")
             if "warm_step_ms" in timing:
                 msg += f" warm step {timing['warm_step_ms']:.2f} ms"
-            print(msg, flush=True)
+            if master:
+                print(msg, flush=True)
 
-            if (writes and valid_loader is not None
+            if (writes and master and valid_loader is not None
                     and args.num_tensorboard_audio_samples > 0):
                 # the first notes, read from the dataset: an iterator of
                 # the loader left unfinished would leave its prefetch
@@ -564,10 +601,11 @@ def main(argv=None) -> VQVAE:
             if valid_loader is not None and (
                     epoch % args.validation_frequency == 0):
                 val = run_eval(eval_step, valid_loader, args.batch_size,
-                               device, args.dry_run)
+                               device, args.dry_run, mesh)
                 validation_loss = val["vqvae_loss"]
                 writer.scalars("validation", val, global_step)
-                print(f"  validation: loss={validation_loss:.4f}")
+                if master:
+                    print(f"  validation: loss={validation_loss:.4f}")
 
             if checkpointer is not None:
                 checkpointer.save(epoch, {"model": model.state_dict(),
@@ -575,7 +613,8 @@ def main(argv=None) -> VQVAE:
                                   validation_loss)
                 save_model(run_dir, model, prefix="vqvae")
             if args.dry_run:
-                print("dry run complete")
+                if master:
+                    print("dry run complete")
                 break
     finally:
         if watchdog is not None:
@@ -585,9 +624,13 @@ def main(argv=None) -> VQVAE:
 
 
 def run_eval(eval_step, loader, batch_size: int, device,
-             first_batch_only: bool = False) -> Dict[str, float]:
+             first_batch_only: bool = False,
+             mesh: Optional[Mesh] = None) -> Dict[str, float]:
     """Exact per-sample means over ``loader``: the remainder batch is
-    zero-padded to ``batch_size`` with weight-0 rows."""
+    zero-padded to ``batch_size`` with weight-0 rows (``batch_size`` a
+    multiple of the data ranks, so the padded batch splits over them, as
+    ``mesh.pad_for_eval`` pads); with ``mesh`` each rank evaluates its
+    rows."""
     sums: Dict[str, float] = {}
     count = 0.0
     for batch in loader:
@@ -598,6 +641,8 @@ def run_eval(eval_step, loader, batch_size: int, device,
             audio = np.concatenate([audio, np.zeros(
                 (batch_size - audio.shape[0],) + audio.shape[1:],
                 audio.dtype)])
+        if mesh is not None:
+            audio, weights = shard_batch(mesh, (audio, weights))
         m, c = eval_step(torch.as_tensor(audio).to(device),
                          torch.as_tensor(weights).to(device))
         for k, v in m.items():

@@ -20,9 +20,10 @@ from __future__ import annotations
 import dataclasses
 import pathlib
 import struct
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
+import torch
 from torch import nn
 
 from ..models.prior.transformer import TransformerConfig, VQNSynthTransformer
@@ -230,16 +231,19 @@ def load_variables(weights_path: PathLike) -> Dict[str, Any]:
 
 # -- the two-file contract ----------------------------------------------------
 
-def save_model(directory: PathLike, model: nn.Module, prefix: str) -> None:
+def save_model(directory: PathLike, model: nn.Module, prefix: str,
+               state_dict: Optional[Mapping[str, torch.Tensor]] = None
+               ) -> None:
     """Write ``<prefix>-model_parameters.json`` and
     ``<prefix>-weights.msgpack`` for a port VQ-VAE (``prefix='vqvae'`` in the
-    trainers) or prior."""
+    trainers) or prior; ``state_dict`` instead of the model's own (the
+    whole of a prior sharded over a model group)."""
     directory = pathlib.Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     (directory / f"{prefix}-model_parameters.json").write_text(
         model.config.to_json())
     (directory / f"{prefix}-weights.msgpack").write_bytes(
-        msgpack_pack(to_flax_params(model)))
+        msgpack_pack(to_flax_params(model, state_dict)))
 
 
 def vqvae_from_parameters_and_weights(parameters_json_path: PathLike,

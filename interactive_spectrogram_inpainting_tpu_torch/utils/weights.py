@@ -408,10 +408,13 @@ def _vqvae_tree(sd: Mapping) -> Dict:
     return {"params": params, "codebook": codebook}
 
 
-def to_flax_params(module: nn.Module) -> Dict[str, Any]:
-    """A port VQ-VAE's or prior's weights as the JAX package's variables
-    tree with numpy leaves: the inverse of ``from_flax_params``."""
-    sd = module.state_dict()
+def to_flax_params(module: nn.Module,
+                   state_dict: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> Dict[str, Any]:
+    """A port VQ-VAE's or prior's weights (or ``state_dict`` for it) as the
+    JAX package's variables tree with numpy leaves: the inverse of
+    ``from_flax_params``."""
+    sd = module.state_dict() if state_dict is None else state_dict
     if "quantize_conv_t.weight" in sd:
         return _vqvae_tree(sd)
     if "decoder_norm.weight" not in sd:

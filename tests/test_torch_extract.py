@@ -115,6 +115,13 @@ def test_dataset_and_loader_copies_match_jax(nsynth_dir):
         for tb, jb in zip(tl, jl):
             for a, b in zip(tb, jb):
                 np.testing.assert_array_equal(a, b)
+    # one data rank's block of every batch of the one-process loader
+    whole = tloader.BatchLoader(tds, 4, seed=3)
+    block = tloader.BatchLoader(tds, 4, seed=3, rows=slice(2, 4))
+    assert len(block) == len(whole) == 2
+    for tb, wb in zip(block, whole):
+        for a, b in zip(tb, wb):
+            np.testing.assert_array_equal(a, b[2:4])
 
 
 def test_wav_resample_and_label_encoder_files_match_jax(tmp_path):
@@ -243,7 +250,8 @@ def test_extract_split_matches_jax(nsynth_dir, vqvae_pair, tmp_path):
     # 16-bit files of the same audio: one quantization step apart at most
     np.testing.assert_allclose(back_t, back_j, atol=2.0 / 32767)
 
-    with pytest.raises(NotImplementedError):
+    # one process: a mesh of four data ranks does not cover the world
+    with pytest.raises(ValueError, match="world size 1"):
         textract.extract_split(tmodel, th, tds, tmp_path / "x",
                                n_devices_data=4, device="cpu")
 

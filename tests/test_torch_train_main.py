@@ -168,13 +168,42 @@ def test_warm_start_from_jax_weights_and_evaluate_only(store, tmp_path):
 
 def test_parallel_flags_name_the_parallel_slice(store, tmp_path,
                                                 monkeypatch):
-    for flag in (["--num_devices_model", "2"], ["--num_devices_data", "4"]):
-        with pytest.raises(SystemExit, match="parallel slice"):
+    """The mesh flags (once refused as the parallel slice's): sizes that
+    match the world run, others raise ``SystemExit`` naming the flag; a
+    ``torchrun``-style environment rendezvous (world size 1, gloo for the
+    CPU) runs the step through the data group's collectives, and a second
+    call leaves the group as it is."""
+    import socket
+    import torch.distributed as dist
+    from interactive_spectrogram_inpainting_tpu_torch.parallel.distributed \
+        import initialize_multihost
+    for flag, name in ((["--num_devices_model", "2"], "--num_devices_model"),
+                       (["--num_devices_data", "4"], "--num_devices_data")):
+        with pytest.raises(SystemExit, match=name):
             train_prior.main(args(store, tmp_path, "top", "--dry_run",
                                   *flag))
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        train_prior.main(args(store, tmp_path, "top", "--dry_run"))
+    plain = train_prior.main(args(store, tmp_path, "top", "--dry_run",
+                                  "--num_devices_data", "1",
+                                  "--num_devices_model", "1"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for key, value in (("WORLD_SIZE", "1"), ("RANK", "0"),
+                       ("MASTER_ADDR", "127.0.0.1"),
+                       ("MASTER_PORT", str(port))):
+        monkeypatch.setenv(key, value)
+    assert not dist.is_initialized()
+    try:
+        assert initialize_multihost(device="cpu")
+        assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
+        assert initialize_multihost(device="cpu")  # left as it is
+        grouped = train_prior.main(args(store, tmp_path, "top", "--dry_run",
+                                        "--num_devices_data", "1"))
+    finally:
+        dist.destroy_process_group()
+    # a sum over one rank is the identity: the same step, bit for bit
+    for k, v in plain.state_dict().items():
+        assert torch.equal(v, grouped.state_dict()[k]), k
 
 
 def test_checkpointer_rolls_and_keeps_the_best(tmp_path):
