@@ -92,6 +92,25 @@ Phases, each failing the run with a nonzero exit:
    on it (lookup, batched step kernel) and at batch 8 from scratch (both
    step kernels): the five output files, codes in range, a finite wav,
    each run's kernels launched, its wall time;
+6d. reference checkpoint (``phase_reference_load``, after the server): the
+   serving VQ-VAE's tensors under the reference's ``.pt`` names
+   (``utils/torch_port.reference_names`` inverted) loaded by
+   ``port_vqvae_state_dict`` into a fresh ``VQVAE`` with ``strict=True``;
+   ``/analyze-audio`` of a 4 s note must give the serving model's codes
+   bit for bit, through the VQ lookup kernel;
+6e. load (``phase_load``): the same server over HTTP on localhost after a
+   warmup with long sounds, driven by the port's ``serve/loadtest.py`` (the
+   reference's locust mix: spectrogram image 3, audio 1, inpaint 1; 1-8 s
+   think time) at 4 users, and at 32 users started over 8 s with a quarter
+   of the inpaints 2x long: each for 60 s without the profiler, then 25 s
+   under ``torch.profiler``; any failed request fails the run; the decode
+   scan must launch once for each prior of every served inpaint and the
+   prefix prime once for each prior whose mask's first masked column is
+   past 0; logs each endpoint's requests, p50, p95 (where it served 20
+   requests) and rps, the handler thread's busy share and the device's
+   busy share (``nvidia-smi`` utilization samples in every window; in the
+   traced ones also the union of ``torch.profiler``'s device intervals,
+   used where the trace holds every scan launch the counter saw);
 7. train-attention: the forward and backward kernels against their plain
    versions at the three attention shapes of the priors' training step
    (decoder self 516 x 516 causal, cross 516 x 129 aligned, encoder self
@@ -120,6 +139,13 @@ Phases, each failing the run with a nonzero exit:
    three warm steps of each (device time by kernel family, the device's
    idle share); then the two trained priors, loaded from the files the
    trainer wrote, serve one ``/timerange-change``;
+9b. store reads (``phase_store_reads``): a codemap store of NSynth train's
+   289 205 records at the full geometry (seeded codes), one epoch of
+   ``read_batch`` at batch 32 over a seeded permutation through the C++
+   reader and through numpy's memmap (the batches of the two must be
+   equal) and of the prior trainer's ``iterate_batches``, in both modes,
+   and of ``BatchLoader`` with its prefetch thread (numpy's memmap record
+   by record in either mode), timed;
 10. VQ-VAE training: ``train_vqvae.main`` at the README's flagship flags
    (mel, input normalization, factors top 2 / bottom 16, batch 64, the
    trainer's width defaults, ``spectral_jukebox``, ``--pallas_vq``, the
@@ -135,6 +161,12 @@ Phases, each failing the run with a nonzero exit:
    VQ-VAE with the two priors of phase 9, loaded by
    ``load_state_from_checkpoints``, serves ``/analyze-audio``,
    ``/timerange-change`` and ``/get-audio``;
+10a. examples (``phase_examples``): ``examples.inference_analysis`` and
+   ``examples.process_audio`` on the trained VQ-VAE (its parameters file
+   with ``use_pallas_lookup`` set) and two seeded 4 s notes: every file
+   written, the metrics finite, the VQ lookup and (for the analysis's DDSP
+   and Jukebox metrics) the spectral-loss forward kernels launched, each
+   driver's wall time;
 10b. parallel (``phase_parallel``): NCCL at world size 1 in this process,
    through the port's ``initialize_multihost``: both trainers' ``main``
    for a few steps at the flagship width (the bottom prior, batch 32, in
@@ -1893,6 +1925,432 @@ def serve_extraction(torch, state, base, captured):
             state.label_encoders = served_encoders
 
 
+# -- the last ported modules: reference checkpoints, load, store, examples -----
+
+# (users, share of 2x-long inpaints, seconds over which the users start)
+LOAD_WINDOWS = ((4, 0.0, 0.0), (32, 0.25, 8.0))
+LOAD_TIMED_S = 60.0    # each window's latencies, without the profiler
+LOAD_TRACED_S = 25.0   # each window again under torch.profiler: device busy
+LOAD_MIN_P95 = 20      # an endpoint with fewer requests reports no p95
+STORE_RECORDS = 289205                 # NSynth train's notes
+STORE_CHUNK = 32768                    # records the store writer takes at once
+
+
+def phase_reference_load(torch, state):
+    """The server VQ-VAE's tensors under the reference's ``.pt`` names
+    (``torch_port.reference_names`` inverted), loaded by
+    ``port_vqvae_state_dict`` into a fresh ``VQVAE`` with ``strict=True``:
+    ``/analyze-audio`` of a 4 s note gives the server model's codes bit for
+    bit, through the VQ lookup kernel."""
+    import numpy as np
+    from interactive_spectrogram_inpainting_tpu_torch.data.wav import (
+        write_wav)
+    from interactive_spectrogram_inpainting_tpu_torch.models.vqvae.vqvae \
+        import VQVAE
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        vq_lookup as vql)
+    from interactive_spectrogram_inpainting_tpu_torch.serve import server
+    from interactive_spectrogram_inpainting_tpu_torch.serve.http_app import (
+        Request)
+    from interactive_spectrogram_inpainting_tpu_torch.utils.torch_port \
+        import port_vqvae_state_dict, reference_names
+    config = state.vqvae.config
+    ours = state.vqvae.state_dict()
+    names = reference_names(config)
+    if sorted(port for _, port in names) != sorted(ours):
+        fail("reference_names does not name every tensor of the VQ-VAE")
+    reference = {ref: ours[port].cpu() for ref, port in names}
+    t0 = time.perf_counter()
+    loaded = VQVAE(config)
+    loaded.load_state_dict(port_vqvae_state_dict(reference, config),
+                           strict=True)
+    loaded = loaded.to(DEVICE).eval()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    buf = io.BytesIO()
+    write_wav(buf, harmonic_note(21, NOTE_SECONDS, state.fs_hz), state.fs_hz)
+    cfg_t, cfg_b = state.top.config, state.bottom.config
+
+    def analyze(what):
+        request = Request.synthetic(
+            "/analyze-audio", "pitch=57&instrument_family_str=keyboard")
+        request.files = {"audio": buf.getvalue()}
+        response = server.app.dispatch(request)
+        if response.status != 200:
+            fail(f"/analyze-audio ({what}) returned {response.status}: "
+                 f"{response.body[:200]!r}")
+        return check_codes(np, json.loads(response.body), cfg_t.shape,
+                           cfg_b.shape, config.n_embed_t,
+                           f"/analyze-audio ({what})")
+
+    server.STATE = state
+    served = analyze("server VQ-VAE")
+    kept, state.vqvae = state.vqvae, loaded
+    vql.fused_vq_lookup.launches = 0
+    try:
+        got = analyze("reference-named VQ-VAE")
+        launches = vql.fused_vq_lookup.launches
+    finally:
+        state.vqvae = kept
+    differ = sum(int((a != b).sum()) for a, b in zip(got, served))
+    log(f"reference .pt load: {len(names)} reference tensors -> strict "
+        f"load in {load_ms:.1f} ms; /analyze-audio {NOTE_SECONDS:g} s: "
+        f"{differ} of "
+        f"{sum(a.size for a in got)} codes differ from the server VQ-VAE's, "
+        f"VQ lookup launches {launches}")
+    if differ or launches == 0:
+        fail("the reference-named VQ-VAE did not encode like the server's "
+             "through the VQ lookup kernel")
+
+
+def union_ms(intervals):
+    """Length of the union of (start, end) intervals, in their unit / 1e3."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def percentiles_ms(seconds):
+    import numpy as np
+    if not seconds:
+        return None
+    return {"n": len(seconds),
+            "p50": round(float(np.percentile(seconds, 50)) * 1e3, 1),
+            "p95": round(float(np.percentile(seconds, 95)) * 1e3, 1),
+            "max": round(max(seconds) * 1e3, 1)}
+
+
+def expected_primes(body, ratio_t):
+    """Prefix primes a ``/timerange-change`` of the load payload implies,
+    from its mask alone: each prior primes when its mask's first masked
+    column is past column 0 (the bottom prior's column is the top's times
+    the time ratio; both priors scan column by column)."""
+    import numpy as np
+    columns = np.flatnonzero(np.asarray(body["mask"], bool).any(0))
+    if not columns.size:
+        return 0
+    return int(columns[0] > 0) + int(ratio_t * columns[0] > 0)
+
+
+def load_window(torch, state, base, window, seconds, traced, served):
+    """One ``run_load`` window -> the log record: latencies per endpoint
+    (client side; the p95 only where an endpoint served ``LOAD_MIN_P95``
+    requests), the server-side queue wait and handler time, the handler
+    thread's busy share, the device's busy share from ``nvidia-smi``
+    utilization samples and, when ``traced``, from the union of
+    ``torch.profiler``'s device intervals. ``served`` collects, server side,
+    each request's arrival (the HTTP thread hands it to the handler
+    thread), handler start and end, status and the request itself. Fails on
+    any failed request and unless every inpaint launched the scan for both
+    priors and the prime for each prior that ``expected_primes`` names."""
+    import contextlib
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        decode_scan_kernel as dsk, prefix_prime_kernel as ppk)
+    from interactive_spectrogram_inpainting_tpu_torch.serve import loadtest
+    users, long_fraction, ramp_s = window
+    served.clear()
+    dsk.fused_decode_scan.launches = ppk.fused_prefix_prime.launches = 0
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", "200"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    tracer = (profile(activities=[ProfilerActivity.CUDA]) if traced
+              else contextlib.nullcontext())
+    try:
+        with tracer as prof:
+            t0 = time.perf_counter()
+            report = loadtest.run_load(
+                base, users, seconds, tuple(state.top.config.shape),
+                tuple(state.bottom.config.shape), state.top.config.n_class,
+                long_fraction=long_fraction, ramp_s=ramp_s)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        smi.terminate()
+        samples = [float(x) for x in smi.communicate()[0].split()
+                   if x.replace(".", "", 1).isdigit()]
+    scans = dsk.fused_decode_scan.launches
+    primes = ppk.fused_prefix_prime.launches
+    cfg_t, cfg_b = state.top.config, state.bottom.config
+    inpaints = [r for r in served if r["path"] == "/timerange-change"]
+    bodies = [r["request"].get_json() for r in inpaints]
+    want_primes = sum(expected_primes(b, cfg_b.shape[1] // cfg_t.shape[1])
+                      for b in bodies)
+    for stats in report.values():
+        if stats.get("requests", 0) < LOAD_MIN_P95:
+            stats["p95_ms"] = None
+    handler_ms = sum(r["end"] - r["start"] for r in served) * 1e3
+    record = {
+        "users": users, "long_fraction": long_fraction, "ramp_s": ramp_s,
+        "traced": traced, "window_ms": round(wall_ms, 1),
+        "endpoints": report,
+        "requests_served": len(served),
+        "arrived_in_first_s": sum(r["arrived"] - t0 < 1.0 for r in served),
+        "server_ms_queue": percentiles_ms(
+            [r["start"] - r["arrived"] for r in served]),
+        "server_ms_queue_plus_handler": percentiles_ms(
+            [r["end"] - r["arrived"] for r in served]),
+        "handler_busy_share": round(handler_ms / wall_ms, 4),
+        "device_busy_share_nvidia_smi": (
+            round(float(np.mean(samples)) / 100.0, 4) if samples else None),
+        "nvidia_smi_samples": len(samples),
+        "scan_launches": scans, "prime_launches": primes,
+        "inpaints": len(inpaints),
+        "inpaints_long": sum(len(b["top_code"][0]) > cfg_t.shape[1]
+                             for b in bodies)}
+    if traced:
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        traced_scans = sum("decode_scan" in e.name for e in device)
+        record.update({
+            "device_busy_share_profiler": round(union_ms(
+                (e.time_range.start, e.time_range.end) for e in device)
+                / wall_ms, 4),
+            "device_kernels_traced": len(device),
+            "scan_launches_traced": traced_scans,
+            "device_busy_share_method": (
+                "torch.profiler (union of device intervals)"
+                if traced_scans >= scans else "nvidia-smi utilization.gpu")})
+    errors = sum(v.get("errors", 0) for v in report.values())
+    bad = [(r["path"], r["status"]) for r in served if r["status"] != 200]
+    log(f"load window: {json.dumps(record)}")
+    if errors or bad:
+        fail(f"load window of {users} users: {errors} client errors, "
+             f"server responses {bad}")
+    if scans != 2 * len(inpaints) or primes != want_primes:
+        fail(f"load window of {users} users: {len(inpaints)} inpaints "
+             f"launched {scans} scans (expected {2 * len(inpaints)}) and "
+             f"{primes} primes (expected {want_primes}: one for each prior "
+             "whose mask's first masked column is past 0)")
+    return record
+
+
+def phase_load(torch, state):
+    """The full-width server over HTTP on localhost under the load driver
+    (``serve/loadtest.py``: the reference's locust mix, 1-8 s think time)
+    after a warmup with long sounds. Each of ``LOAD_WINDOWS`` runs twice:
+    ``LOAD_TIMED_S`` without the profiler (the latencies, the handler
+    thread's busy share, ``nvidia-smi``'s device busy share), then
+    ``LOAD_TRACED_S`` under ``torch.profiler`` (the device's busy share
+    from its device intervals, where the trace holds every scan launch).
+    ``load_window`` checks each window."""
+    from interactive_spectrogram_inpainting_tpu_torch.serve import server
+    for modality, value in (("pitch", 60),
+                            ("instrument_family_str", "keyboard")):
+        try:
+            state.label_encoders[modality].transform([value])
+        except (KeyError, ValueError) as exc:
+            fail(f"the load payload's {modality} {value!r} is not a label "
+                 f"of the serving state: {exc!r}")
+    server.STATE = state
+    t0 = time.perf_counter()
+    n_warm = server.warmup(state, long_sounds=True)
+    log(f"load: warmup with long sounds, {n_warm} requests in "
+        f"{time.perf_counter() - t0:.1f} s")
+    served = []
+    app = server.app
+
+    def arriving(request):
+        request.arrived = time.perf_counter()
+        return type(app).dispatch(app, request)
+
+    def recorded(request):
+        start = time.perf_counter()
+        response = type(app).handle(app, request)
+        served.append({"path": request.path, "arrived": request.arrived,
+                       "start": start, "end": time.perf_counter(),
+                       "status": response.status, "request": request})
+        return response
+
+    app.dispatch, app.handle = arriving, recorded
+    http = app.run(host="127.0.0.1", port=0, background=True)
+    base = f"http://127.0.0.1:{http.server_address[1]}"
+    try:
+        records = [load_window(torch, state, base, window, seconds, traced,
+                               served)
+                   for window in LOAD_WINDOWS
+                   for seconds, traced in ((LOAD_TIMED_S, False),
+                                           (LOAD_TRACED_S, True))]
+    finally:
+        http.shutdown()
+        http.server_close()
+        del app.dispatch, app.handle
+    if not sum(r["inpaints"] for r in records):
+        fail("the load windows served no /timerange-change")
+
+
+def write_code_store(torch, path, top_shape, bottom_shape, n_class):
+    """STORE_RECORDS seeded random codemaps in a codemap store, written in
+    blocks of STORE_CHUNK records."""
+    import numpy as np
+    from interactive_spectrogram_inpainting_tpu_torch.data.codemap_store \
+        import CodemapStoreWriter
+    rng = np.random.default_rng(13)
+    with CodemapStoreWriter(path, top_shape, bottom_shape,
+                            ["pitch", "instrument_family_str"],
+                            n_class=n_class) as writer:
+        for start in range(0, STORE_RECORDS, STORE_CHUNK):
+            n = min(STORE_CHUNK, STORE_RECORDS - start)
+            writer.append_batch(
+                rng.integers(0, n_class, (n,) + tuple(top_shape)),
+                rng.integers(0, n_class, (n,) + tuple(bottom_shape)),
+                {"pitch": rng.integers(0, 61, n),
+                 "instrument_family_str": rng.integers(0, 11, n)},
+                [f"note_{i:06d}" for i in range(start, start + n)])
+
+
+def phase_store_reads(torch, state, workdir):
+    """One epoch of reads from a store of NSynth train's size (289 205
+    records at the full geometry), at the prior trainer's batch, through
+    the C++ reader (``use_native=True``) and numpy's memmap: ``read_batch``
+    over a seeded permutation (both modes must return the same batches),
+    the prior trainer's ``iterate_batches`` (reads, int64 tensors on the
+    card), and, once, ``BatchLoader`` with its prefetch thread (which reads
+    record by record through ``__getitem__``, numpy's memmap in either
+    mode)."""
+    from interactive_spectrogram_inpainting_tpu_torch.data.codemap_store \
+        import CodemapDataset
+    from interactive_spectrogram_inpainting_tpu_torch.data.loader import (
+        BatchLoader)
+    import numpy as np
+    from interactive_spectrogram_inpainting_tpu_torch.train.train_prior \
+        import iterate_batches
+    cfg_t, cfg_b = state.top.config, state.bottom.config
+    path = os.path.join(workdir, "store-nsynth-size")
+    t0 = time.perf_counter()
+    write_code_store(torch, path, cfg_t.shape, cfg_b.shape, cfg_t.n_class)
+    size = os.path.getsize(os.path.join(path, "codes.bin"))
+    log(f"store reads: {STORE_RECORDS} records, {size} bytes written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    modes = {"native": CodemapDataset(path, use_native=True),
+             "numpy": CodemapDataset(path)}
+    order = np.random.default_rng(14).permutation(STORE_RECORDS)
+    batches = [order[i:i + TRAIN_BATCH]
+               for i in range(0, STORE_RECORDS - TRAIN_BATCH + 1, TRAIN_BATCH)]
+    differ = 0
+    for idx in batches:
+        a, b = modes["native"].read_batch(idx), modes["numpy"].read_batch(idx)
+        differ += not (np.array_equal(a[0], b[0])
+                       and np.array_equal(a[1], b[1])
+                       and all(np.array_equal(a[2][k], b[2][k]) for k in b[2]))
+    if differ:
+        fail(f"store reads: {differ} of {len(batches)} batches differ "
+             "between the C++ reader and numpy's memmap")
+
+    def read_batches(ds):
+        for idx in batches:
+            ds.read_batch(idx)
+
+    def trainer_epoch(ds):
+        for _ in iterate_batches(ds, TRAIN_BATCH, True, 0, device=DEVICE):
+            pass
+        synchronize(torch)
+
+    def loader_epoch(ds):
+        for _ in BatchLoader(ds, TRAIN_BATCH, shuffle=True, seed=0):
+            pass
+
+    timings = {}
+    for name, fn, order_ in (("read_batch", read_batches,
+                              ("native", "numpy", "numpy", "native")),
+                             ("train_prior.iterate_batches", trainer_epoch,
+                              ("native", "numpy")),
+                             ("BatchLoader(prefetch=2), memmap __getitem__",
+                              loader_epoch, ("numpy",))):
+        for mode in order_:
+            t0 = time.perf_counter()
+            fn(modes[mode])
+            seconds = time.perf_counter() - t0
+            timings.setdefault(name, {}).setdefault(mode, []).append(
+                {"epoch_s": round(seconds, 3),
+                 "ms_per_batch": round(seconds * 1e3 / len(batches), 4)})
+    log(f"store reads, one epoch of {len(batches)} batches of {TRAIN_BATCH} "
+        f"(the batches of both modes equal): {json.dumps(timings)}")
+
+
+def phase_examples(torch, state, captured, workdir):
+    """Both example drivers on the VQ-VAE the trainer wrote (the lookup flag
+    set in its parameters file) and two seeded 4 s notes, on the card:
+    every file written, every metric finite, the VQ lookup and spectral
+    loss kernels launched; each driver's wall time."""
+    import pathlib
+    import numpy as np
+    from interactive_spectrogram_inpainting_tpu_torch.data.wav import (
+        read_wav, write_wav)
+    from interactive_spectrogram_inpainting_tpu_torch.examples import (
+        inference_analysis, process_audio)
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        spectral_loss_kernel as sk, vq_lookup as vql)
+    from interactive_spectrogram_inpainting_tpu_torch.utils.visualization \
+        import have_matplotlib
+    run = captured["vqvae_run"]
+    out = pathlib.Path(workdir) / "examples"
+    out.mkdir()
+    params = json.loads((run / "vqvae-model_parameters.json").read_text())
+    params["use_pallas_lookup"] = True
+    (out / "vqvae-model_parameters.json").write_text(json.dumps(params))
+    notes = []
+    for i, pitch in enumerate((52, 64)):
+        notes.append(str(out / f"note{i}.wav"))
+        write_wav(notes[-1], harmonic_note(31 + i, NOTE_SECONDS, state.fs_hz,
+                                           pitch), state.fs_hz)
+    ckpt = ["--vqvae_model_parameters_path",
+            str(out / "vqvae-model_parameters.json"),
+            "--vqvae_weights_path", str(run / "vqvae-weights.msgpack"),
+            "--vqvae_training_parameters_path",
+            str(run / "command_line_parameters.json"), "--device", DEVICE]
+    record = {}
+
+    def drive(name, fn, argv, files):
+        vql.fused_vq_lookup.launches = sk.scale_loss_forward.launches = 0
+        t0 = time.perf_counter()
+        result = fn(ckpt + argv)
+        synchronize(torch)
+        record[name] = {"wall_s": round(time.perf_counter() - t0, 3),
+                        "vq_lookup_launches": vql.fused_vq_lookup.launches,
+                        "spectral_loss_forward_launches":
+                            sk.scale_loss_forward.launches}
+        for f in files:
+            if not (out / name / f).exists():
+                fail(f"{name} wrote no {f}")
+            if f.endswith(".wav"):
+                audio, sr = read_wav(str(out / name / f))
+                if sr != state.fs_hz or not audio.size \
+                        or not np.isfinite(audio).all():
+                    fail(f"{name}: {f} is empty or not finite")
+        return result
+
+    figures = (["reconstructions.png", "code_usage_top.png",
+                "code_usage_bottom.png"] if have_matplotlib() else [])
+    metrics = drive(
+        "inference_analysis", inference_analysis.main,
+        ["--audio_paths", *notes, "--output_directory",
+         str(out / "inference_analysis")],
+        ["reconstruction_metrics.json", "interpolation.wav",
+         "corrupted_codes.wav"] + figures
+        + [f"note{i}-{kind}.wav" for i in range(2)
+           for kind in ("original", "reconstruction")])
+    drive("process_audio", process_audio.main,
+          ["--input_wavs", *notes, "--output_directory",
+           str(out / "process_audio")],
+          [f"note{i}-vqvae.wav" for i in range(2)])
+    log(f"examples: metrics {json.dumps(metrics)}; "
+        f"{json.dumps(record)}; figures "
+        f"{'drawn' if figures else 'skipped (no matplotlib)'}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"inference_analysis gave non-finite metrics {metrics}")
+    if record["inference_analysis"]["spectral_loss_forward_launches"] == 0 \
+            or any(r["vq_lookup_launches"] == 0 for r in record.values()):
+        fail(f"an example skipped a kernel: {record}")
+
+
 def attention_shapes(state):
     """(name, Lq, Lk, additive mask) of the three attentions of a training
     step at the full priors' geometry (with start symbols)."""
@@ -2896,6 +3354,7 @@ def phase_train_vqvae(torch, state, captured, workdir):
         fail(f"the VQ-VAE epoch launched {launches} spectral-loss kernels "
              f"(expected {want}) and {vq_launches} VQ lookups")
     captured["spectral_launches_main"] = launches
+    captured["vqvae_run"] = main_run
     for name in ("vqvae-model_parameters.json", "vqvae-weights.msgpack",
                  "checkpoints/0/state.pt", f"tb/media/original_0-{steps}.wav"):
         if not (main_run / name).exists():
@@ -4166,6 +4625,8 @@ def main():
     phase_wide(torch, ref, today)
     captured = {}
     launches = phase_server(torch, state, captured, ref)
+    phase_reference_load(torch, state)
+    phase_load(torch, state)
     with tempfile.TemporaryDirectory() as workdir:
         phase_cli(torch, state, ref, workdir)
         del ref
@@ -4173,8 +4634,10 @@ def main():
             torch, state, captured, workdir))
         launches["fused_train_attention_bf16"] = captured[
             "bf16_attention_launches"]
+        phase_store_reads(torch, state, workdir)
         launches["fused_multiscale_loss"] = phase_train_vqvae(
             torch, state, captured, workdir)
+        phase_examples(torch, state, captured, workdir)
         phase_parallel(torch, state, workdir)
     phase_kernels(torch, card, captured, launches, errors, state)
     log(json.dumps({"ok": True, "device": {

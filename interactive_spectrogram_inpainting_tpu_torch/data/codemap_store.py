@@ -15,8 +15,13 @@ Layout per store directory:
 - ``filenames.json``— record index -> source filename/key
 - ``label_encoders.json`` — per-modality class lists (reference schema)
 
-The port's own copy of the JAX package's module (numpy only); the C++ mmap
-reader of ``data/native.py`` is not part of it.
+The port's own copy of the JAX package's module. ``read_batch`` reads
+through numpy's memmap; ``use_native=True`` reads through the C++ mmap
+reader of ``data/native.py`` instead (built with g++ at first use; a
+failed build raises). The memmap is the default: on the H100's host a batch
+of 32 from a store of NSynth train's size reads in ~0.03 ms through it and
+~0.05 ms through the C++ reader (``chip_smoke.py``'s store-read phase),
+either well under 0.1 % of a prior training step.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import (List, Mapping, NamedTuple, Optional, Sequence, Tuple,
 import numpy as np
 
 from .label_encoders import LabelEncoder, dump_label_encoders, load_label_encoders
+from .native import NativeStoreReader
 
 
 class CodeRow(NamedTuple):
@@ -88,10 +94,18 @@ class CodemapStoreWriter:
     def append_batch(self, tops: np.ndarray, bottoms: np.ndarray,
                      attributes: Mapping[str, np.ndarray],
                      filenames: Sequence[str]) -> None:
-        for i, name in enumerate(filenames):
-            self.append(tops[i], bottoms[i],
-                        {f: attributes[f][i] for f in self.attribute_fields},
-                        name)
+        """``append`` of every row, written as one block."""
+        n = len(filenames)
+        records = [
+            np.asarray(tops, np.int16).reshape(n, self._top_size),
+            np.asarray(bottoms, np.int16).reshape(n, self._bottom_size),
+            np.stack([np.asarray(attributes[f], np.int32).reshape(n)
+                      for f in self.attribute_fields], axis=1)
+            if self.attribute_fields else np.zeros((n, 0), np.int32)]
+        self._file.write(np.concatenate(
+            [r.view(np.uint8).reshape(n, -1) for r in records],
+            axis=1).tobytes())
+        self._filenames.extend(filenames)
 
     def close(self) -> None:
         self._file.close()
@@ -129,7 +143,8 @@ class CodemapDataset:
     (``lmdb_dataset.py:79-89``)."""
 
     def __init__(self, directory: Union[str, pathlib.Path],
-                 classes_for_conditioning: Optional[Sequence[str]] = None):
+                 classes_for_conditioning: Optional[Sequence[str]] = None,
+                 use_native: bool = False):
         self.directory = pathlib.Path(directory)
         header = json.loads((self.directory / "store.json").read_text())
         self.top_shape = tuple(header["top_shape"])
@@ -158,6 +173,10 @@ class CodemapDataset:
         enc_path = self.directory / "label_encoders.json"
         self.label_encoders = (load_label_encoders(enc_path)
                                if enc_path.exists() else {})
+        self._native = (NativeStoreReader(
+            self.directory / "codes.bin", self.num_records, self.top_shape,
+            self.bottom_shape, len(self.attribute_fields))
+            if use_native else None)
 
     def __len__(self) -> int:
         return self.num_records
@@ -178,7 +197,14 @@ class CodemapDataset:
 
     def read_batch(self, indices: Sequence[int]):
         """Vectorized batch read -> (tops [B,f,t] i32, bottoms [B,f,t] i32,
-        {field: [B] i32})."""
+        {field: [B] i32}), through the C++ reader if ``use_native`` was
+        True."""
+        if self._native is not None:
+            tops, bottoms, attrs_mat = self._native.read_batch(indices)
+            attrs = {f: attrs_mat[:, i].copy()
+                     for i, f in enumerate(self.attribute_fields)
+                     if f in self.classes_for_conditioning}
+            return tops, bottoms, attrs
         rows = self._mmap[np.asarray(indices)]
         tops = rows[:, : self._top_bytes].view(np.int16).reshape(
             (-1,) + self.top_shape).astype(np.int32)

@@ -6,7 +6,9 @@ includes PyTorch's headers, so a build takes seconds. Libraries are built at
 first use into ``build/torch_kernels/`` beside the package (override with
 ``ISI_TORCH_KERNEL_DIR``), named by a hash of their sources, so an edited
 source is rebuilt and an unchanged one is reused. ``build()`` starts one
-``nvcc`` per source, all at once.
+``nvcc`` per source, all at once. ``hashed_library``, ``start_compile`` and
+``finish_compile`` also build the codemap store's C++ reader
+(``data/native.py``).
 
 Set ``ISI_PTXAS_VERBOSE=1`` to print each kernel's registers, shared memory
 and spills (``-Xptxas -v``); ``build(ptxas=names)`` asks it for the named
@@ -22,7 +24,7 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("decode_scan", "prefix_prime", "decode_step",
@@ -55,12 +57,47 @@ def nvcc_path() -> str:
     return found
 
 
-def _library_path(name: str) -> pathlib.Path:
+def hashed_library(directory: pathlib.Path, name: str,
+                   inputs: Sequence[pathlib.Path],
+                   flags: Sequence[str]) -> pathlib.Path:
+    """``directory/lib<name>-<hash>.so``, the hash taken over the inputs'
+    bytes and the compiler flags: an edited source names a new library."""
     digest = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for src in inputs:
         digest.update(src.read_bytes())
-    digest.update(" ".join(ARCH_FLAGS).encode())
-    return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    digest.update(" ".join(flags).encode())
+    return directory / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def start_compile(cmd: Sequence[str], target: pathlib.Path
+                  ) -> Tuple[subprocess.Popen, pathlib.Path]:
+    """Start ``cmd -o <temporary file beside target>``; ``finish_compile``
+    moves the file into place. Processes that build the same library at
+    once each write their own temporary file, and ``os.replace`` is
+    atomic, so none loads a half-written library."""
+    target.parent.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen([*cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+    return proc, tmp
+
+
+def finish_compile(proc: subprocess.Popen, tmp: pathlib.Path,
+                   target: pathlib.Path) -> Tuple[bool, str]:
+    """Wait for a ``start_compile``; on success move its output to
+    ``target``. -> (succeeded, the compiler's output)."""
+    log = proc.communicate()[0].decode(errors="replace")
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return False, log
+    os.replace(tmp, target)
+    return True, log
+
+
+def _library_path(name: str) -> pathlib.Path:
+    return hashed_library(
+        build_dir(), name, sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"],
+        ARCH_FLAGS)
 
 
 def build(names: Optional[Iterable[str]] = None,
@@ -72,8 +109,6 @@ def build(names: Optional[Iterable[str]] = None,
     failure."""
     names = list(names or SOURCES)
     ptxas = set(ptxas)
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
     verbose = os.environ.get("ISI_PTXAS_VERBOSE") == "1"
     procs = {}
     seconds = {}
@@ -82,27 +117,24 @@ def build(names: Optional[Iterable[str]] = None,
         if target.exists():
             seconds[name] = 0.0
             continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-lineinfo", "-I", str(CSRC),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+               str(CSRC / f"{name}.cu")]
         if verbose or name in ptxas:
             cmd[1:1] = ["-Xptxas", "-v"]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT),
-                       tmp, target, time.perf_counter())
+        procs[name] = (*start_compile(cmd, target), target,
+                       time.perf_counter())
     errors = []
     for name, (proc, tmp, target, t0) in procs.items():
-        log = proc.communicate()[0].decode(errors="replace")
+        ok, log = finish_compile(proc, tmp, target)
         seconds[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
+        if not ok:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
         if verbose and log:
             print(log)
         if name in ptxas:
             PTXAS_LOGS[name] = log
-        os.replace(tmp, target)
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds
