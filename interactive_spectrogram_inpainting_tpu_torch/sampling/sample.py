@@ -28,6 +28,13 @@ and ``[B, L, n_class]`` for predictive sampling.
 ``make_sharded_sampling_fn`` splits a batch over the data ranks of a mesh
 (``parallel/mesh.py``): each rank samples its rows with its own noise, and
 one all-gather at the end hands every rank the whole batch.
+
+Under a profiler each ``sample_model`` call marks its set-up as a
+``sampler.encode`` span (``utils/tracing.py``) and the sampled sequence's
+way back to a codemap as ``sampler.codemap``, and the fused samplers mark
+``sampler.tables`` (the per-call decode set-up), ``sampler.prime`` and
+``sampler.scan``: one span each a call, so their counts are the sampled
+priors, the primes and the scans.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from ..ops.prefix_prime_kernel import fused_prefix_prime, prime_refusal
 from ..parallel.collectives import all_gather_rows
 from ..parallel.mesh import Mesh
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.tracing import span
 
 NEG_INF = -1e9
 
@@ -269,66 +277,67 @@ def _fused_scan_sample(model: VQNSynthTransformer, memory: torch.Tensor,
     dev = memory.device
     dtype = compute_dtype or torch.float32
     p0, steps = scan_range(model, scan_from, scan_until)
-    if decode_state is None:
-        decode_state = precompute_decode_state(model, compute_dtype=dtype)
-    params = decode_state["params"]
-    if params["wqkv"].dtype != dtype:
-        raise ValueError("decode_state was built with a different "
-                         "compute_dtype")
-    bias_hm = decode_state["bias_hm"]
-    cross_hm = decode_state["cross_hm"]
-    l_pad = bias_hm.shape[3]
-    # posfull [B, steps_pad, d]: each batch row's own start rows (its class
-    # labels), as the dense sampler embeds them
-    posfull = precompute_position_features(model, start_block, pos_features,
-                                           dtype=dtype)
-    mem_k, mem_v = precompute_mem_values(model, memory.to(dtype))
-    e_src_real = mem_v.shape[2]
-    e_pad = _round_up(e_src_real, 128)
-    mem_k = F.pad(mem_k, (0, 0, 0, e_pad - e_src_real))
-    mem_v = F.pad(mem_v, (0, 0, 0, e_pad - e_src_real))
-    # the batched step kernel above this batch size; aligned models only
-    use_batched = (batch > MAX_SMALL_BATCH and cfg.use_aligned_decoder
-                   and cross_hm is None)
+    with span("sampler.tables"):
+        if decode_state is None:
+            decode_state = precompute_decode_state(model, compute_dtype=dtype)
+        params = decode_state["params"]
+        if params["wqkv"].dtype != dtype:
+            raise ValueError("decode_state was built with a different "
+                             "compute_dtype")
+        bias_hm = decode_state["bias_hm"]
+        cross_hm = decode_state["cross_hm"]
+        l_pad = bias_hm.shape[3]
+        # posfull [B, steps_pad, d]: each batch row's own start rows (its
+        # class labels), as the dense sampler embeds them
+        posfull = precompute_position_features(model, start_block,
+                                               pos_features, dtype=dtype)
+        mem_k, mem_v = precompute_mem_values(model, memory.to(dtype))
+        e_src_real = mem_v.shape[2]
+        e_pad = _round_up(e_src_real, 128)
+        mem_k = F.pad(mem_k, (0, 0, 0, e_pad - e_src_real))
+        mem_v = F.pad(mem_v, (0, 0, 0, e_pad - e_src_real))
+        # the batched step kernel above this batch size; aligned models only
+        use_batched = (batch > MAX_SMALL_BATCH and cfg.use_aligned_decoder
+                       and cross_hm is None)
 
-    tokens32 = initial_tokens.to(torch.int32)
-    kv = None
-    if p0 or batch > 1:
-        kv = torch.zeros(n_layers, 2, batch, l_pad, cfg.d_model, dtype=dtype,
-                         device=dev)
+        tokens32 = initial_tokens.to(torch.int32)
+        kv = None
+        if p0 or batch > 1:
+            kv = torch.zeros(n_layers, 2, batch, l_pad, cfg.d_model,
+                             dtype=dtype, device=dev)
+        if p0:
+            with_start = torch.cat([
+                torch.full((batch, c), n_class, dtype=torch.long, device=dev),
+                tokens32.long()], dim=1)
+            x_prefix = (params["emb_padded"][with_start[:, :p0]].float()
+                        + posfull[:, :p0].float()).to(dtype)
     if p0:
-        with_start = torch.cat([
-            torch.full((batch, c), n_class, dtype=torch.long, device=dev),
-            tokens32.long()], dim=1)
-        x_prefix = (params["emb_padded"][with_start[:, :p0]].float()
-                    + posfull[:, :p0].float()).to(dtype)
-        if not use_batched:
-            fused_prefix_prime(params, bias_hm, x_prefix, (mem_k, mem_v), kv,
-                               p0=p0, channels=c, cross_hm=cross_hm,
-                               e_src_real=e_src_real)
-        else:
-            # large batches prime through the model's own parallel forward,
-            # as the JAX package does
-            kvs = _cast_model(model, dtype).prefix_kv(x_prefix,
-                                                      memory.to(dtype))
-            for li, (k_p, v_p) in enumerate(kvs):
-                kv[li, 0, :, :p0] = k_p.reshape(batch, p0, -1).to(dtype)
-                kv[li, 1, :, :p0] = v_p.reshape(batch, p0, -1).to(dtype)
+        with span("sampler.prime"):
+            if not use_batched:
+                fused_prefix_prime(params, bias_hm, x_prefix, (mem_k, mem_v),
+                                   kv, p0=p0, channels=c, cross_hm=cross_hm,
+                                   e_src_real=e_src_real)
+            else:
+                # large batches prime through the model's own parallel
+                # forward, as the JAX package does
+                kvs = _cast_model(model, dtype).prefix_kv(x_prefix,
+                                                          memory.to(dtype))
+                for li, (k_p, v_p) in enumerate(kvs):
+                    kv[li, 0, :, :p0] = k_p.reshape(batch, p0, -1).to(dtype)
+                    kv[li, 1, :, :p0] = v_p.reshape(batch, p0, -1).to(dtype)
 
     if batch == 1:
-        gumbel = _noise(gumbel, (max(steps - p0, 0), n_class), dev,
-                        generator)
-        tokens, _ = fused_decode_scan(
-            params, bias_hm, posfull[0], (mem_k[:, 0], mem_v[:, 0]),
-            None if kv is None else kv[:, :, 0], tokens32[0].contiguous(),
-            mask_seq.to(torch.bool).contiguous(), gumbel, temperature,
-            p0=p0, steps=steps, n_class=n_class, channels=c,
-            cross_hm=cross_hm, e_src_real=e_src_real)
-        return tokens.to(initial_tokens.dtype)[None]
+        with span("sampler.scan"):
+            gumbel = _noise(gumbel, (max(steps - p0, 0), n_class), dev,
+                            generator)
+            tokens, _ = fused_decode_scan(
+                params, bias_hm, posfull[0], (mem_k[:, 0], mem_v[:, 0]),
+                None if kv is None else kv[:, :, 0],
+                tokens32[0].contiguous(), mask_seq.to(torch.bool).contiguous(),
+                gumbel, temperature, p0=p0, steps=steps, n_class=n_class,
+                channels=c, cross_hm=cross_hm, e_src_real=e_src_real)
+            return tokens.to(initial_tokens.dtype)[None]
 
-    gumbel = _noise(gumbel, (max(steps - p0, 0), batch, n_class), dev,
-                    generator)
-    tokens_t = tokens32.t().contiguous()  # [L, B], position-major
     if use_batched:
         def step(token_in, cur, p, i, is_masked, noise):
             fused_decode_step_batched(
@@ -342,9 +351,13 @@ def _fused_scan_sample(model: VQNSynthTransformer, memory: torch.Tensor,
                 p, i, is_masked, noise, temperature, n_class=n_class,
                 channels=c, cross_hm=cross_hm, e_src_real=e_src_real,
                 out=cur)
-    step_loop(step, tokens_t, mask_seq.to(torch.bool).cpu().tolist(), gumbel,
-              p0, steps, c, n_class)
-    return tokens_t.t().to(initial_tokens.dtype)
+    with span("sampler.scan"):
+        gumbel = _noise(gumbel, (max(steps - p0, 0), batch, n_class), dev,
+                        generator)
+        tokens_t = tokens32.t().contiguous()  # [L, B], position-major
+        step_loop(step, tokens_t, mask_seq.to(torch.bool).cpu().tolist(),
+                  gumbel, p0, steps, c, n_class)
+        return tokens_t.t().to(initial_tokens.dtype)
 
 
 def step_loop(step, tokens_t: torch.Tensor, mask_host, gumbel: torch.Tensor,
@@ -523,59 +536,64 @@ def sample_model(model: VQNSynthTransformer,
         return torch.as_tensor(np.asarray(x) if not isinstance(
             x, torch.Tensor) else x, device=dev).to(dtype)
 
-    if initial_code is None:
-        fill = cfg.mask_token_index if cfg.self_conditional_model else 0
-        codemap = torch.full((batch_size,) + shape, fill, dtype=torch.int32,
-                             device=dev)
-    else:
-        codemap = tensor(initial_code, torch.int32).expand(
-            (batch_size,) + shape)
-
-    cc = {}
-    for k, v in class_conditioning.items():
-        v = tensor(v, torch.long).reshape(-1)
-        cc[k] = v[:1].expand(batch_size) if v.numel() == 1 else v
-
-    if cfg.self_conditional_model:
-        condition = codemap
-    if condition is None:
-        raise ValueError("conditional model requires a condition")
-    condition = tensor(condition, torch.long)
-    if condition.dim() == 2:
-        condition = condition[None].expand((batch_size,) + condition.shape)
-
-    length = cfg.target_sequence_length
-    if mask is not None:
-        mask_map = tensor(mask, torch.bool)
-        if mask_map.dim() == 3:
-            mask_map = mask_map[0]
-        mask_seq = helper.to_sequence(mask_map[None])[0]  # [L]
-        if scan_until is None and bounds_from_mask:
-            derived_from, scan_until = derive_scan_bounds(
-                mask_seq.cpu().numpy(), initial_code is not None)
-            if scan_from is None:
-                scan_from = derived_from
+    # the inputs on the device, the source sequence and the encoder memory
+    with span("sampler.encode"):
         if initial_code is None:
-            scan_from = None  # nothing known to prime from
-        source_mask = (mask_map[None].expand((batch_size,) + shape)
-                       if cfg.use_inpainting_mask_on_source else None)
-    else:
-        mask_seq = torch.ones(length, dtype=torch.bool, device=dev)
-        source_mask = (torch.full((batch_size,) + shape,
-                                  initial_code is None, device=dev)
-                       if cfg.use_inpainting_mask_on_source else None)
+            fill = cfg.mask_token_index if cfg.self_conditional_model else 0
+            codemap = torch.full((batch_size,) + shape, fill,
+                                 dtype=torch.int32, device=dev)
+        else:
+            codemap = tensor(initial_code, torch.int32).expand(
+                (batch_size,) + shape)
 
-    ti_src = (None if time_indexes_source is None
-              else tensor(time_indexes_source, torch.long))
-    ti_tgt = (None if time_indexes_target is None
-              else tensor(time_indexes_target, torch.long))
-    src_mask_seq = (src_helper.to_sequence(source_mask)
-                    if source_mask is not None else None)
-    source_sequence = model.prepare_sequence(
-        src_helper.to_sequence(condition), "source",
-        class_conditioning=cc, mask=src_mask_seq, time_indexes=ti_src)
-    memory = model.encode_source(source_sequence)
-    initial_tokens = helper.to_sequence(codemap)  # [B, L]
+        cc = {}
+        for k, v in class_conditioning.items():
+            v = tensor(v, torch.long).reshape(-1)
+            cc[k] = v[:1].expand(batch_size) if v.numel() == 1 else v
+
+        if cfg.self_conditional_model:
+            condition = codemap
+        if condition is None:
+            raise ValueError("conditional model requires a condition")
+        condition = tensor(condition, torch.long)
+        if condition.dim() == 2:
+            condition = condition[None].expand((batch_size,) + condition.shape)
+
+        length = cfg.target_sequence_length
+        if mask is not None:
+            mask_map = tensor(mask, torch.bool)
+            if mask_map.dim() == 3:
+                mask_map = mask_map[0]
+            mask_seq = helper.to_sequence(mask_map[None])[0]  # [L]
+            if scan_until is None and bounds_from_mask:
+                derived_from, scan_until = derive_scan_bounds(
+                    mask_seq.cpu().numpy(), initial_code is not None)
+                if scan_from is None:
+                    scan_from = derived_from
+            if initial_code is None:
+                scan_from = None  # nothing known to prime from
+            source_mask = (mask_map[None].expand((batch_size,) + shape)
+                           if cfg.use_inpainting_mask_on_source else None)
+        else:
+            mask_seq = torch.ones(length, dtype=torch.bool, device=dev)
+            source_mask = (torch.full((batch_size,) + shape,
+                                      initial_code is None, device=dev)
+                           if cfg.use_inpainting_mask_on_source else None)
+
+        ti_src = (None if time_indexes_source is None
+                  else tensor(time_indexes_source, torch.long))
+        ti_tgt = (None if time_indexes_target is None
+                  else tensor(time_indexes_target, torch.long))
+        src_mask_seq = (src_helper.to_sequence(source_mask)
+                        if source_mask is not None else None)
+        source_sequence = model.prepare_sequence(
+            src_helper.to_sequence(condition), "source",
+            class_conditioning=cc, mask=src_mask_seq, time_indexes=ti_src)
+        memory = model.encode_source(source_sequence)
+        initial_tokens = helper.to_sequence(codemap)  # [B, L]
+        if not use_predictive_sampling:
+            pos_features = model._positional_sequence("target", ti_tgt)
+            start_block = model._start_block("target", cc, batch_size)
 
     num_forwards = None
     if use_predictive_sampling:
@@ -584,8 +602,6 @@ def sample_model(model: VQNSynthTransformer,
             ti_tgt, temperature, top_k_sampling_k, top_p_sampling_p,
             compute_dtype=compute_dtype, gumbel=gumbel, generator=generator)
     else:
-        pos_features = model._positional_sequence("target", ti_tgt)
-        start_block = model._start_block("target", cc, batch_size)
         if use_fused_step:
             tokens = _fused_scan_sample(
                 model, memory, initial_tokens, mask_seq, pos_features,
@@ -603,7 +619,10 @@ def sample_model(model: VQNSynthTransformer,
                 use_flash=use_flash, scan_until=scan_until,
                 scan_from=scan_from, gumbel=gumbel, generator=generator)
 
-    codemap_out = helper.to_time_frequency_map(tokens)
+    # the sampled sequence back to a codemap (its index goes to the card from
+    # host memory, which waits for the sampler's work on the stream)
+    with span("sampler.codemap"):
+        codemap_out = helper.to_time_frequency_map(tokens)
     if return_diagnostics:
         if num_forwards is None:
             # the scan paths run exactly their bound of steps

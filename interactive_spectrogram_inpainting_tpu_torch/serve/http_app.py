@@ -12,6 +12,11 @@ server state's lock anyway, and the CUDA libraries keep per-thread state
 (handles, convolution plans) that a fresh thread per request would build
 anew each time; a warmup must go through ``dispatch`` too, to warm the
 thread that serves.
+
+Under a profiler each request is marked with spans (``utils/tracing.py``):
+``http.request`` on its connection thread, ``http.dispatch`` around the
+hand-off to the handler thread and back, ``http.handle`` around the
+handler's work there.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import urllib.parse
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Mapping, Optional, Tuple
+
+from ..utils.tracing import span
 
 
 class Request:
@@ -111,24 +118,27 @@ class App:
         return decorator
 
     def handle(self, request: Request) -> Response:
-        entry = self.routes.get(request.path)
-        if entry is None:
-            return Response(json.dumps({"error": "not found",
-                                        "path": request.path}).encode(),
-                            404)
-        fn, methods = entry
-        if request.method not in methods and request.method != "OPTIONS":
-            return Response(json.dumps({"error": "method not allowed"}
-                                       ).encode(), 405)
-        try:
-            result = fn(request)
-        except Exception as e:  # noqa: BLE001 — surface errors as 500 JSON
-            import traceback
-            traceback.print_exc()
-            return Response(json.dumps({"error": repr(e)}).encode(), 500)
-        if isinstance(result, Response):
-            return result
-        return jsonify(result)
+        with span("http.handle"):
+            entry = self.routes.get(request.path)
+            if entry is None:
+                return Response(json.dumps({"error": "not found",
+                                            "path": request.path}).encode(),
+                                404)
+            fn, methods = entry
+            if (request.method not in methods
+                    and request.method != "OPTIONS"):
+                return Response(json.dumps({"error": "method not allowed"}
+                                           ).encode(), 405)
+            try:
+                result = fn(request)
+            except Exception as e:  # noqa: BLE001 — errors as 500 JSON
+                import traceback
+                traceback.print_exc()
+                return Response(json.dumps({"error": repr(e)}).encode(), 500)
+            if isinstance(result, Response):
+                return result
+            with span("serve.respond"):
+                return jsonify(result)
 
     def dispatch(self, request: Request) -> Response:
         """``handle`` on the app's one handler thread (started at first
@@ -137,34 +147,37 @@ class App:
             if self._worker is None:
                 self._worker = ThreadPoolExecutor(
                     max_workers=1, thread_name_prefix=f"{self.name}-handler")
-        return self._worker.submit(self.handle, request).result()
+        with span("http.dispatch"):
+            return self._worker.submit(self.handle, request).result()
 
     def make_server(self, host: str, port: int) -> ThreadingHTTPServer:
         app = self
 
         class Handler(BaseHTTPRequestHandler):
             def _respond(self):
-                length = int(self.headers.get("Content-Length") or 0)
-                body = self.rfile.read(length) if length else b""
-                if self.command == "OPTIONS":
-                    response = Response(b"", 204, "text/plain")
-                else:
-                    response = app.dispatch(Request(self, body))
-                self.send_response(response.status)
-                self.send_header("Content-Type", response.content_type)
-                self.send_header("Content-Length",
-                                 str(len(response.body)))
-                # CORS (flask_cors parity)
-                self.send_header("Access-Control-Allow-Origin", "*")
-                self.send_header("Access-Control-Allow-Methods",
-                                 "GET, POST, OPTIONS")
-                self.send_header("Access-Control-Allow-Headers",
-                                 "Content-Type")
-                for k, v in response.headers.items():
-                    self.send_header(k, v)
-                self.end_headers()
-                if response.body:
-                    self.wfile.write(response.body)
+                with span("http.request"):
+                    length = int(self.headers.get("Content-Length") or 0)
+                    body = self.rfile.read(length) if length else b""
+                    if self.command == "OPTIONS":
+                        response = Response(b"", 204, "text/plain")
+                    else:
+                        response = app.dispatch(Request(self, body))
+                    self.send_response(response.status)
+                    self.send_header("Content-Type",
+                                     response.content_type)
+                    self.send_header("Content-Length",
+                                     str(len(response.body)))
+                    # CORS (flask_cors parity)
+                    self.send_header("Access-Control-Allow-Origin", "*")
+                    self.send_header("Access-Control-Allow-Methods",
+                                     "GET, POST, OPTIONS")
+                    self.send_header("Access-Control-Allow-Headers",
+                                     "Content-Type")
+                    for k, v in response.headers.items():
+                        self.send_header(k, v)
+                    self.end_headers()
+                    if response.body:
+                        self.wfile.write(response.body)
 
             do_GET = do_POST = do_OPTIONS = _respond
 

@@ -35,6 +35,13 @@ from. Scan bounds are run-time arguments of
 the kernels, so no request shape depends on the mask and the JAX server's
 lattice of masks (``warmup_masks``) has no counterpart here.
 
+Under a profiler the handlers mark their work with spans
+(``utils/tracing.py``): ``serve.parse`` (the request's JSON to arrays, the
+conditioning, the mask's scan bounds), ``serve.respond`` (the reply),
+``sampler.readback`` (the sampled frames to the host), and
+``playback.decode``, ``playback.audio`` and ``playback.wav`` for
+``/get-audio``; the sampler marks its own (``sampling/sample.py``).
+
 Run: ``python -m interactive_spectrogram_inpainting_tpu_torch.serve.server
 --test_models full --warmup`` (GPU by default; ``--device cpu`` for the
 plain path), or with the seven checkpoint paths of a trained model.
@@ -66,6 +73,7 @@ from ..sampling.sample import (fused_refusal, fused_unsupported,
 from ..signal.spectrogram import (get_spectrograms_helper,
                                   make_masked_phase_transform)
 from ..utils.device import DeviceLike, resolve_device, set_float32_precision
+from ..utils.tracing import span
 from ..utils.visualization import encode_png as _encode_png
 from ..utils.visualization import viridis_lut as _viridis_lut
 from ..utils.weights import init_like_flax
@@ -307,9 +315,12 @@ class ServerState:
         """codemaps -> audio: VQ-VAE decode then the inverse transform."""
         def fn(top_code, bottom_code):
             with self._lock, torch.no_grad():
-                spec = self.vqvae.decode_code(self._on_device(top_code),
-                                              self._on_device(bottom_code))
-                return self.helper.to_audio(spec)
+                with span("playback.decode"):
+                    spec = self.vqvae.decode_code(
+                        self._on_device(top_code),
+                        self._on_device(bottom_code))
+                with span("playback.audio"):
+                    return self.helper.to_audio(spec)
         return fn
 
     def decode_image_fn(self):
@@ -457,12 +468,13 @@ def conditioning_maps(state: ServerState, pitch, family):
 
 def make_response(top_code, bottom_code, top_conditioning,
                   bottom_conditioning):
-    return jsonify({
-        "top_code": _host(top_code)[0].astype(int).tolist(),
-        "bottom_code": _host(bottom_code)[0].astype(int).tolist(),
-        "top_conditioning": top_conditioning,
-        "bottom_conditioning": bottom_conditioning,
-    })
+    with span("serve.respond"):
+        return jsonify({
+            "top_code": _host(top_code)[0].astype(int).tolist(),
+            "bottom_code": _host(bottom_code)[0].astype(int).tolist(),
+            "top_conditioning": top_conditioning,
+            "bottom_conditioning": bottom_conditioning,
+        })
 
 
 def _host(x) -> np.ndarray:
@@ -606,71 +618,77 @@ def analyze_audio(request: Request):
 @app.route("/timerange-change", methods=["POST"])
 def timerange_change(request: Request):
     state = STATE
-    layer = str(request.args["layer"])
-    temperature = float(request.args.get("temperature", 1.0))
-    start_index_top = int(request.args.get("start_index_top", 0))
-    uniform_sampling = request.args.get(
-        "uniform_sampling", "false").lower() in ("true", "1", "yes")
-    pitch = request.args.get("pitch")
-    family = request.args.get("instrument_family_str")
-    cc = state.encode_conditioning(pitch, family)
+    with span("serve.parse"):
+        layer = str(request.args["layer"])
+        temperature = float(request.args.get("temperature", 1.0))
+        start_index_top = int(request.args.get("start_index_top", 0))
+        uniform_sampling = request.args.get(
+            "uniform_sampling", "false").lower() in ("true", "1", "yes")
+        pitch = request.args.get("pitch")
+        family = request.args.get("instrument_family_str")
+        cc = state.encode_conditioning(pitch, family)
 
-    top_code, bottom_code = parse_codes(request)
-    mask = parse_mask(request)
-    input_top_cond, input_bottom_cond = parse_conditioning(request)
+        top_code, bottom_code = parse_codes(request)
+        mask = parse_mask(request)
+        input_top_cond, input_bottom_cond = parse_conditioning(request)
 
-    top_shape = state.top.config.shape
-    bottom_shape = state.bottom.config.shape
-    ratio_t = bottom_shape[1] // top_shape[1]
-    ratio_f = bottom_shape[0] // top_shape[0]
-    end_top = start_index_top + top_shape[1]
-    start_bottom = ratio_t * start_index_top
-    end_bottom = start_bottom + bottom_shape[1]
-    top_frame = top_code[..., start_index_top:end_top]
-    bottom_frame = bottom_code[..., start_bottom:end_bottom]
+        top_shape = state.top.config.shape
+        bottom_shape = state.bottom.config.shape
+        ratio_t = bottom_shape[1] // top_shape[1]
+        ratio_f = bottom_shape[0] // top_shape[0]
+        end_top = start_index_top + top_shape[1]
+        start_bottom = ratio_t * start_index_top
+        end_bottom = start_bottom + bottom_shape[1]
+        top_frame = top_code[..., start_index_top:end_top]
+        bottom_frame = bottom_code[..., start_bottom:end_bottom]
 
-    long_sound = top_code.shape[-1] > top_shape[1]
-    ti_top = (make_time_indexes(start_index_top, top_code.shape[-1],
-                                top_shape[1]) if long_sound else None)
-    ti_bottom = (make_time_indexes(start_bottom, bottom_code.shape[-1],
-                                   bottom_shape[1]) if long_sound else None)
-    top_code = top_code.copy()
-    bottom_code = bottom_code.copy()
+        long_sound = top_code.shape[-1] > top_shape[1]
+        ti_top = (make_time_indexes(start_index_top, top_code.shape[-1],
+                                    top_shape[1]) if long_sound else None)
+        ti_bottom = (make_time_indexes(start_bottom, bottom_code.shape[-1],
+                                       bottom_shape[1])
+                     if long_sound else None)
+        top_code = top_code.copy()
+        bottom_code = bottom_code.copy()
+        if layer == "bottom":
+            sf, su = state.mask_scan_bounds("bottom", mask)
+        else:
+            mask_np = mask[0]
+            mask_bottom = np.repeat(np.repeat(mask_np, ratio_f, axis=0),
+                                    ratio_t, axis=1)
+            sf, su = state.mask_scan_bounds("top", mask)
+            sf_b, su_b = state.mask_scan_bounds("bottom", mask_bottom)
 
     if layer == "bottom":
         if uniform_sampling:
             rnd = np.random.default_rng().integers(
                 0, state.bottom.config.n_class_target, bottom_frame.shape)
             new_bottom_frame = np.where(mask, rnd, bottom_frame)
+        elif su == 0:  # nothing masked: the frame is already known
+            new_bottom_frame = bottom_frame
         else:
-            sf, su = state.mask_scan_bounds("bottom", mask)
-            if su == 0:  # nothing masked: the frame is already known
-                new_bottom_frame = bottom_frame
-            else:
-                new_bottom_frame = _host(state.sample_fn("bottom", 1, sf, su)(
-                    state.next_rng(), temperature, top_frame, bottom_frame,
-                    mask[0], cc, ti_top, ti_bottom))
+            sampled = state.sample_fn("bottom", 1, sf, su)(
+                state.next_rng(), temperature, top_frame, bottom_frame,
+                mask[0], cc, ti_top, ti_bottom)
+            with span("sampler.readback"):
+                new_bottom_frame = _host(sampled)
         bottom_code[..., start_bottom:end_bottom] = new_bottom_frame
         return make_response(top_code, bottom_code,
                              input_top_cond, input_bottom_cond)
 
     assert layer == "top", f"unknown layer {layer}"
-    mask_np = mask[0]
-    mask_bottom = np.repeat(np.repeat(mask_np, ratio_f, axis=0),
-                            ratio_t, axis=1)
-    sf, su = state.mask_scan_bounds("top", mask)
-    sf_b, su_b = state.mask_scan_bounds("bottom", mask_bottom)
     if uniform_sampling:
         rnd = np.random.default_rng().integers(
             0, state.top.config.n_class_target, top_frame.shape)
         new_top_frame = np.where(mask, rnd, top_frame)
         top_code[..., start_index_top:end_top] = new_top_frame
         # su_b is None for an UNBOUNDED scan; only 0 means nothing masked
-        new_bottom_frame = (bottom_frame if su_b == 0 else _host(
-            state.sample_fn("bottom", 1, sf_b, su_b)(
+        if su_b != 0:
+            sampled = state.sample_fn("bottom", 1, sf_b, su_b)(
                 state.next_rng(), temperature, new_top_frame, bottom_frame,
-                mask_bottom, cc, ti_top, ti_bottom)))
-        bottom_code[..., start_bottom:end_bottom] = new_bottom_frame
+                mask_bottom, cc, ti_top, ti_bottom)
+            with span("sampler.readback"):
+                bottom_code[..., start_bottom:end_bottom] = _host(sampled)
     elif su == 0:
         pass  # nothing masked
     else:
@@ -678,22 +696,25 @@ def timerange_change(request: Request):
             sf, su, sf_b, su_b, long_sound=long_sound)(
                 state.next_rng(), temperature, top_frame, bottom_frame,
                 mask_np, mask_bottom, cc, ti_top, ti_bottom)
-        top_code[..., start_index_top:end_top] = _host(new_top_frame)
-        bottom_code[..., start_bottom:end_bottom] = _host(new_bottom_frame)
+        with span("sampler.readback"):
+            top_code[..., start_index_top:end_top] = _host(new_top_frame)
+            bottom_code[..., start_bottom:end_bottom] = _host(
+                new_bottom_frame)
 
     # update the bottom conditioning map under the regenerated cells
-    new_bottom_cond = input_bottom_cond
-    if input_bottom_cond is not None and pitch is not None:
-        values = {"pitch": int(pitch), "instrument_family_str": family}
-        new_bottom_cond = {}
-        for modality, rows in input_bottom_cond.items():
-            new_rows = [list(r) for r in rows]
-            for f in range(mask_bottom.shape[0]):
-                for t in range(mask_bottom.shape[1]):
-                    if mask_bottom[f, t]:
-                        new_rows[f][start_bottom + t] = values.get(
-                            modality, new_rows[f][start_bottom + t])
-            new_bottom_cond[modality] = new_rows
+    with span("serve.respond"):
+        new_bottom_cond = input_bottom_cond
+        if input_bottom_cond is not None and pitch is not None:
+            values = {"pitch": int(pitch), "instrument_family_str": family}
+            new_bottom_cond = {}
+            for modality, rows in input_bottom_cond.items():
+                new_rows = [list(r) for r in rows]
+                for f in range(mask_bottom.shape[0]):
+                    for t in range(mask_bottom.shape[1]):
+                        if mask_bottom[f, t]:
+                            new_rows[f][start_bottom + t] = values.get(
+                                modality, new_rows[f][start_bottom + t])
+                new_bottom_cond[modality] = new_rows
     return make_response(top_code, bottom_code,
                          input_top_cond, new_bottom_cond)
 
@@ -703,8 +724,10 @@ def erase(request: Request):
     state = STATE
     amplitude = float(request.args["eraser_amplitude"])
     start_index_top = int(request.args.get("start_index_top", 0))
-    top_code, bottom_code = parse_codes(request)
-    mask = parse_mask(request)[0]
+    with span("serve.parse"):
+        top_code, bottom_code = parse_codes(request)
+        mask = parse_mask(request)[0]
+        input_top_cond, input_bottom_cond = parse_conditioning(request)
 
     # the spectrogram's geometry follows from the codemap's shape: build
     # the amplitude mask on the host
@@ -721,7 +744,6 @@ def erase(request: Request):
                                axis=1)[:, :spec_t]
 
     new_top, new_bottom = state.erase_fn()(top_code, bottom_code, full_mask)
-    input_top_cond, input_bottom_cond = parse_conditioning(request)
     return make_response(new_top, new_bottom,
                          input_top_cond, input_bottom_cond)
 
@@ -729,26 +751,32 @@ def erase(request: Request):
 @app.route("/get-audio", methods=["POST"])
 def get_audio(request: Request):
     state = STATE
-    top_code, bottom_code = parse_codes(request)
-    audio = _host(state.decode_audio_fn()(top_code, bottom_code))[0]
-    buf = io.BytesIO()
-    write_wav(buf, audio, state.fs_hz)
-    return send_bytes(buf.getvalue(), "audio/wav", "sample.wav")
+    with span("serve.parse"):
+        top_code, bottom_code = parse_codes(request)
+    audio = state.decode_audio_fn()(top_code, bottom_code)
+    with span("playback.wav"):
+        buf = io.BytesIO()
+        write_wav(buf, _host(audio)[0], state.fs_hz)
+    with span("serve.respond"):
+        return send_bytes(buf.getvalue(), "audio/wav", "sample.wav")
 
 
 @app.route("/get-spectrogram-image", methods=["POST"])
 def get_spectrogram_image(request: Request):
     state = STATE
-    top_code, bottom_code = parse_codes(request)
+    with span("serve.parse"):
+        top_code, bottom_code = parse_codes(request)
     idx = _host(state.decode_image_fn()(top_code, bottom_code))
     png = _encode_png(_viridis_lut()[idx])
-    return send_bytes(png, "image/png", "spectrogram.png")
+    with span("serve.respond"):
+        return send_bytes(png, "image/png", "spectrogram.png")
 
 
 @app.route("/top-conditioned-sample", methods=["POST"])
 def top_conditioned_sample(request: Request):
     state = STATE
-    top_code, _ = parse_codes(request)
+    with span("serve.parse"):
+        top_code, _ = parse_codes(request)
     family = str(request.args["instrument_family_str"])
     min_pitch = int(request.args["min_pitch"])
     max_pitch = int(request.args["max_pitch"])
@@ -788,7 +816,8 @@ def top_conditioned_sample(request: Request):
             wav_buf = io.BytesIO()
             write_wav(wav_buf, wave, state.fs_hz)
             zf.writestr(f"{family}-{pitch}.wav", wav_buf.getvalue())
-    return send_bytes(buf.getvalue(), "application/zip", "samples.zip")
+    with span("serve.respond"):
+        return send_bytes(buf.getvalue(), "application/zip", "samples.zip")
 
 
 def spectrogram_image_indices(logmag: torch.Tensor,

@@ -32,7 +32,7 @@ import dataclasses
 import json
 import pathlib
 import time
-from contextlib import contextmanager, nullcontext
+from contextlib import ExitStack, contextmanager, nullcontext
 from datetime import datetime
 from typing import Dict, Optional
 
@@ -58,6 +58,7 @@ from ..parallel.mesh import (Mesh, gather_prior_parameters,
 from ..utils.checkpoint_io import load_variables, save_model
 from ..utils.device import resolve_device, set_float32_precision
 from ..utils.metrics import MetricsWriter
+from ..utils.tracing import span
 from ..utils.weights import from_flax_params, init_like_flax
 from .checkpoint import Checkpointer, gather_optimizer_state, \
     shard_optimizer_state
@@ -163,7 +164,9 @@ def make_parser() -> argparse.ArgumentParser:
                    help="tensor-parallel mesh size (heads and d_ff split)")
     p.add_argument("--profile", action="store_true",
                    help="write a torch.profiler trace of the first epoch "
-                        "into <run>/profile")
+                        "into <run>/profile; it holds the step's spans "
+                        "train.batch, train.forward, train.backward and "
+                        "train.optimizer")
     p.add_argument("--watchdog_timeout_s", type=float, default=0.0,
                    help="abort (exit 42, for a restart from the checkpoint) "
                         "if no training step completes within this many "
@@ -379,19 +382,25 @@ def make_steps(model: VQNSynthTransformer, optimizer: Optional[Optimizer],
         return loss, metrics
 
     def train_step(tops, bottoms, class_conditioning, generator):
-        optimizer.zero_grad()
-        with casts():
-            loss, metrics = forward_loss(tops, bottoms, class_conditioning,
-                                         generator, False)
-            loss.backward()
-        mean_of_gradients(model.parameters(), data_group)
-        optimizer.step()
-        return mean_of_metrics({k: v.detach().mean()
-                                for k, v in metrics.items()}, data_group)
+        # the casts hold from the forward through the backward
+        with ExitStack() as cast:
+            with span("train.forward"):
+                optimizer.zero_grad()
+                cast.enter_context(casts())
+                loss, metrics = forward_loss(tops, bottoms,
+                                             class_conditioning, generator,
+                                             False)
+            with span("train.backward"):
+                loss.backward()
+        with span("train.optimizer"):
+            mean_of_gradients(model.parameters(), data_group)
+            optimizer.step()
+            return mean_of_metrics({k: v.detach().mean()
+                                    for k, v in metrics.items()}, data_group)
 
     @torch.no_grad()
     def eval_step(tops, bottoms, class_conditioning, weights, generator):
-        with casts():
+        with span("train.forward"), casts():
             _, metrics = forward_loss(tops, bottoms, class_conditioning,
                                       generator, True)
         sums = {k: (v * weights).sum() for k, v in metrics.items()}
@@ -411,7 +420,12 @@ def iterate_batches(dataset, batch_size: int, shuffle: bool, epoch: int,
     ``weights`` is a float32 [batch_size] validity vector: 1.0 for real
     samples, 0.0 for padding. Training drops the remainder; with
     ``include_remainder=True`` the final partial batch is zero-padded to
-    ``batch_size`` and its padding rows carry weight 0."""
+    ``batch_size`` and its padding rows carry weight 0. Each batch's
+    gathering, padding and copy is one ``train.batch`` span, closed before
+    the batch is handed over."""
+    def put(x):
+        return torch.as_tensor(x).to(device, non_blocking=True)
+
     n = len(dataset) if limit is None else min(limit, len(dataset))
     order = (np.random.default_rng([seed, epoch]).permutation(n) if shuffle
              else np.arange(n))
@@ -420,30 +434,29 @@ def iterate_batches(dataset, batch_size: int, shuffle: bool, epoch: int,
         idx = order[start:start + batch_size]
         if len(idx) == 0:
             break
-        tops, bottoms, attrs = dataset.read_batch(idx)
-        weights = np.ones(batch_size, np.float32)
-        if len(idx) < batch_size:
-            pad = batch_size - len(idx)
-            weights[len(idx):] = 0.0
-            tops = np.concatenate(
-                [tops, np.zeros((pad,) + tops.shape[1:], tops.dtype)])
-            bottoms = np.concatenate(
-                [bottoms,
-                 np.zeros((pad,) + bottoms.shape[1:], bottoms.dtype)])
-            attrs = {k: np.concatenate(
-                [v, np.zeros((pad,) + v.shape[1:], v.dtype)])
-                for k, v in attrs.items()}
+        with span("train.batch"):
+            tops, bottoms, attrs = dataset.read_batch(idx)
+            weights = np.ones(batch_size, np.float32)
+            if len(idx) < batch_size:
+                pad = batch_size - len(idx)
+                weights[len(idx):] = 0.0
+                tops = np.concatenate(
+                    [tops, np.zeros((pad,) + tops.shape[1:], tops.dtype)])
+                bottoms = np.concatenate(
+                    [bottoms,
+                     np.zeros((pad,) + bottoms.shape[1:], bottoms.dtype)])
+                attrs = {k: np.concatenate(
+                    [v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+                    for k, v in attrs.items()}
 
-        if mesh is not None:
-            tops, bottoms, attrs, weights = shard_batch(
-                mesh, (tops, bottoms, attrs, weights))
-
-        def put(x):
-            return torch.as_tensor(x).to(device, non_blocking=True)
-
-        yield (put(tops.astype(np.int64)), put(bottoms.astype(np.int64)),
-               {k: put(v.astype(np.int64)) for k, v in attrs.items()},
-               put(weights))
+            if mesh is not None:
+                tops, bottoms, attrs, weights = shard_batch(
+                    mesh, (tops, bottoms, attrs, weights))
+            batch = (put(tops.astype(np.int64)),
+                     put(bottoms.astype(np.int64)),
+                     {k: put(v.astype(np.int64)) for k, v in attrs.items()},
+                     put(weights))
+        yield batch
 
 
 @torch.no_grad()

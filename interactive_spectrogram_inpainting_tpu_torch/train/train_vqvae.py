@@ -173,7 +173,9 @@ def make_parser() -> argparse.ArgumentParser:
                         "the JAX trainer (the codebooks stay float32)")
     p.add_argument("--profile", action="store_true",
                    help="write a torch.profiler trace of the first epoch "
-                        "into <run>/profile")
+                        "into <run>/profile: operators and kernels; this "
+                        "trainer marks none of the prior trainer's train.* "
+                        "spans")
     p.add_argument("--pallas_vq", action="store_true",
                    help="nearest-code lookup and its EMA statistics through "
                         "the VQ-lookup kernel (the JAX package's flag name)")
