@@ -21,8 +21,9 @@ Phases, each failing the run with a nonzero exit:
    (the token streams are equal; the same from an unprimed cache from
    position 0, its cache rows from p0 on within 3e-4), and bfloat16 with
    Gumbel noise (tokens in range, unmasked unchanged, a second run
-   bit-identical in tokens and cache); its launch shape (grid, cluster,
-   grid barriers a step, shared memory, registers);
+   bit-identical in tokens and cache, counted as grouped exactly where the
+   launch takes heads side by side); its launch shape (grid, cluster,
+   grid barriers a step, shared memory, registers, heads side by side);
 4. vq-lookup: ``fused_vq_lookup`` against ``reference_vq_lookup`` at dim 64,
    K 512 and N in {128, 512, 700, 8192, 32768, 65536} (the upload's, an odd
    one, the VQ-VAE step's at batch 64 and the extraction batch's): ids
@@ -701,13 +702,15 @@ def phase_scan(torch, state, results=None, tag="", check=True):
                     f"{err:.3e} (atol 5e-2, rtol 5e-2), bf16 ulps at most "
                     f"{ulps:g}, {beyond:.2e} of the values more than one "
                     f"apart, tokens unchanged {same}")
+                info = scan_info(inp, kv0, noise)
                 log(f"decode_scan {tag}{name} {str(dtype)[6:]} launch: "
-                    + json.dumps(scan_info(inp, kv0, noise)))
+                    + json.dumps(info))
                 if not (ok and same):
                     fail(f"decode_scan {tag}{name} teacher-forced disagrees")
                 if results is not None:
                     results.setdefault("fused_decode_scan", []).append(err)
                 # bf16 with noise: in range, unmasked cells unchanged
+                grouped = fused_decode_scan.grouped_launches
                 tk, kv1 = run_scan(torch, fused_decode_scan, inp, kv0,
                                    inp["mask"], noise)
                 tk2, kv2 = run_scan(torch, fused_decode_scan, inp, kv0,
@@ -716,6 +719,10 @@ def phase_scan(torch, state, results=None, tag="", check=True):
                 if not (torch.equal(tk, tk2) and torch.equal(kv1, kv2)):
                     fail(f"decode_scan {tag}{name} bf16: a second run "
                          "differs")
+                side = info["heads_side_by_side"] > 1
+                if fused_decode_scan.grouped_launches - grouped != 2 * side:
+                    fail(f"decode_scan {tag}{name} bf16: the grouped "
+                         "launches do not follow heads_side_by_side")
                 keep = ~inp["mask"]
                 in_range = bool(((tk >= 0) & (tk < inp["n_class"])).all())
                 kept = bool((tk[keep] == inp["tokens"][keep]).all())

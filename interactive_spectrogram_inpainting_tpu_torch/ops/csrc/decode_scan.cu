@@ -16,11 +16,19 @@
 // Layout: kBlocks = 120 blocks of 512 threads, one per SM, in kClusters =
 // 15 thread-block clusters of kCluster = 8 (the most clusters of 8 that
 // co-reside on the H100 at one block per SM), all alive for the whole
-// scan: a cooperative launch with a cluster dimension. Cluster c takes the
-// heads c, c + 15, c + 30, ... (one head a cluster up to 15 heads; above,
-// the first H - 15 clusters take a second head, and so on), one after the
-// other inside the phase: the grid barriers a step stay as many as with
-// one head a cluster. Per layer and step:
+// scan: a cooperative launch with a cluster dimension. Up to 15 heads,
+// cluster c takes head c. Above 15 heads, cluster c takes the G = ceil(H /
+// 15) adjacent heads c G, ..., c G + G - 1 side by side (the grouped
+// kernel, decode_scan_kernel<T, false, true>): the block computes its G dh
+// / 8 of their q, k, v rows in one product, attends its eighth of the keys
+// of every head of the group, and stages all G heads' slices before the
+// grid barrier, so a phase keeps one gather and one combine a cluster
+// whatever G is. It runs where the group is at most kDhMax wide and every
+// region of it fits shared memory (side_by_side()); the reference's 16
+// heads of 32 take 8 clusters of 2 heads. Else the general kernel runs
+// the heads c, c + 15, ... of cluster c one after the other inside the
+// phase. Either way the grid barriers a step stay as many as with one head
+// a cluster. Per layer and step:
 //
 //   ATT   (head clusters) rebuild the residual x from the last phase's
 //         partials (each block its own copy), LN1, the head's q, k, v rows
@@ -58,8 +66,11 @@
 // head_dim 128) reads regions straight from device memory, in this order
 // until the rest fits: R2, R3, R1's weights, R1's keys (geometry()). The
 // products are the same either way, in the same order: only where an
-// operand is read from changes. The second and later heads of a cluster
-// stage their slices after the first head's products, without overlap.
+// operand is read from changes. In the general kernel the second and later
+// heads of a cluster stage their slices after the first head's products,
+// without overlap; the grouped kernel stages every region, all its heads'
+// slices at once. Each head's products are the same in all three kernels,
+// added in the same order.
 //
 // Measured on the H100 (PERF.md, Findings): a step takes about as long as
 // the 41-phase design it replaces. Each segment between two barriers still
@@ -148,13 +159,22 @@ struct Geometry {
   size_t r1, r1_bytes, r2, r2_bytes, r3, r3_bytes, total;
 };
 
-// kGeneral false: every region staged (the caller knows it fits)
-template <typename T, bool kGeneral = true>
+// heads a cluster takes side by side in the grouped kernel
+__host__ __device__ inline int group_heads(const ScanParams& P) {
+  return cdiv(P.n_heads, kClusters);
+}
+
+// kGeneral false: every region staged (the caller knows it fits); kGrouped:
+// room for group_heads() heads side by side (scores and partials a head
+// apart), every region staged
+template <typename T, bool kGeneral = true, bool kGrouped = false>
 __host__ __device__ inline Geometry geometry(const ScanParams& P) {
   Geometry g;
   const int d = P.d;
   g.dh = d / P.n_heads;
   g.dq = g.dh / kCluster;
+  const int heads = kGrouped ? group_heads(P) : 1;
+  const int gh = heads * g.dh, gq = heads * g.dq;  // the group's widths
   g.rows_o = d / kCluster;
   g.kmax = cdiv(P.l_pad, kCluster);
   g.emax = P.aligned ? 0 : cdiv(P.e_src, kCluster);
@@ -163,32 +183,32 @@ __host__ __device__ inline Geometry geometry(const ScanParams& P) {
   // a staged fc2 row of umax units, an odd number of 16-byte pieces apart
   // (thread r reads row r: no bank conflicts)
   g.w2_ld = g.umax * kUnit + ((g.umax % 2) ? 0 : kUnit);
-  const int rows_b = 3 * g.dq > g.umax * kUnit ? 3 * g.dq : g.umax * kUnit;
+  const int rows_b = 3 * gq > g.umax * kUnit ? 3 * gq : g.umax * kUnit;
   int o = 0;
   const int keys = g.kmax > g.emax ? g.kmax : g.emax;
   g.xs = take_floats(o, d);
   g.vin = take_floats(o, d);
   g.lnw = take_floats(o, 2 * d);
   g.rowb = take_floats(o, rows_b > g.lmax ? rows_b : g.lmax);
-  g.exch = take_floats(o, 3 * g.dq);
-  g.qf = take_floats(o, g.dh);
-  g.kf = take_floats(o, g.dh);
-  g.vf = take_floats(o, g.dh);
-  g.keyb = take_floats(o, keys);
-  g.sc = take_floats(o, keys);
-  g.pv = take_floats(o, kThreads);
-  g.part = take_floats(o, 2 + g.dh);
-  g.av = take_floats(o, g.dh);
-  g.mvs = take_floats(o, g.dh);
+  g.exch = take_floats(o, 3 * gq);
+  g.qf = take_floats(o, gh);
+  g.kf = take_floats(o, gh);
+  g.vf = take_floats(o, gh);
+  g.keyb = take_floats(o, heads * keys);
+  g.sc = take_floats(o, heads * keys);
+  g.pv = take_floats(o, heads * kThreads);
+  g.part = take_floats(o, heads * (2 + g.dh));
+  g.av = take_floats(o, gh);
+  g.mvs = take_floats(o, gh);
   g.mid = take_floats(o, g.umax * kUnit);
   g.fc2p = take_floats(o, d);
   g.red = take_floats(o, 64);
   const size_t es = sizeof(T);
-  const size_t w1 = es * ((size_t)3 * g.dq * d + 2 * (size_t)g.rows_o * g.dh);
-  const size_t k1 = es * 2 * (size_t)g.kmax * g.dh;
+  const size_t w1 = es * ((size_t)3 * gq * d + 2 * (size_t)g.rows_o * gh);
+  const size_t k1 = es * 2 * (size_t)g.kmax * gh;
   const size_t r3 = P.aligned ? 0
-                              : es * ((size_t)g.dq * d + (size_t)g.rows_o * g.dh
-                                      + 2 * (size_t)g.emax * g.dh);
+                              : es * ((size_t)gq * d + (size_t)g.rows_o * gh
+                                      + 2 * (size_t)g.emax * gh);
   size_t mlp = es * (size_t)g.umax * kUnit * d;
   if (sizeof(T) == 2) mlp += es * (size_t)d * g.w2_ld;
   const size_t logit = es * (size_t)g.lmax * d;
@@ -445,6 +465,105 @@ __device__ void combine(cg::cluster_group& cluster, float* part, int dh,
   __syncthreads();
 }
 
+// attend_own for ``heads`` heads side by side (staged keys and values):
+// head i's dims at column i dh of the rows (kld apart) and of q, its key
+// biases and scores at kb and sc + i kst, its partial at part + i (2 + dh),
+// pv [heads][kThreads]. Each head's sums are attend_own's, in its order.
+template <typename T>
+__device__ void attend_heads(const T* ks, const T* vs, int kld, int n,
+                             int heads, const float* q, const float* kb,
+                             int kst, int dh, float scale, float* sc,
+                             float* pv, float* part) {
+  constexpr int V = Vec<T>::N;
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int pieces = dh / V, items = heads * n;
+  for (int e0 = 0; e0 < items; e0 += kThreads / 4) {
+    const int e = e0 + tid / 4, s = tid % 4;
+    const int i = e / n, j = e - i * n;
+    float a = 0.f;
+    if (e < items) {
+      for (int pc = s; pc < pieces; pc += 4) {
+        float kk[V];
+        load_vec_rw(ks + (size_t)j * kld + i * dh + pc * V, kk);
+        a = dot_vec(kk, q + i * dh + pc * V, V, a);
+      }
+    }
+    a += __shfl_xor_sync(0xffffffffu, a, 2);
+    a += __shfl_xor_sync(0xffffffffu, a, 1);
+    if (e < items && s == 0) sc[i * kst + j] = a * scale + kb[i * kst + j];
+  }
+  __syncthreads();
+  if (warp < heads) {  // warp i: head i's softmax
+    float* si = sc + warp * kst;
+    float m = -INFINITY;
+    for (int t = lane; t < n; t += kWarp) m = fmaxf(m, si[t]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int t = lane; t < n; t += kWarp) {
+      const float e = expf(si[t] - m);
+      si[t] = e;
+      l += e;
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      part[warp * (2 + dh)] = m;
+      part[warp * (2 + dh) + 1] = l;
+    }
+  }
+  __syncthreads();
+  const int groups = kThreads / dh, per = groups * dh;
+  for (int e = tid; e < heads * per; e += kThreads) {
+    const int i = e / per, t = e % per % dh, g = e % per / dh;
+    const float* si = sc + i * kst;
+    float a = 0.f;
+    for (int j = g; j < n; j += groups)
+      a = fmaf(si[j], to_f(vs[(size_t)j * kld + i * dh + t]), a);
+    pv[e] = a;
+  }
+  __syncthreads();
+  for (int e = tid; e < heads * dh; e += kThreads) {
+    const int i = e / dh, t = e % dh;
+    float a = 0.f;
+    for (int g = 0; g < groups; ++g) a += pv[i * per + g * dh + t];
+    part[i * (2 + dh) + 2 + t] = a;
+  }
+}
+
+// combine for ``heads`` heads side by side: thread t takes dim t % dh of
+// head t / dh (its partials at part + i (2 + dh), its fresh logit lps[i])
+template <typename T>
+__device__ void combine_heads(cg::cluster_group& cluster, float* part,
+                              int dh, int heads, bool fresh, const float* lps,
+                              const float* vf, float* av) {
+  const int t = threadIdx.x;
+  if (t < heads * dh) {
+    const int i = t / dh, ti = t % dh;
+    float* pi = part + i * (2 + dh);
+    float m[kCluster], l[kCluster], a[kCluster];
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) {
+      const float* pp = cluster.map_shared_rank(pi, r);
+      m[r] = pp[0];
+      l[r] = pp[1];
+      a[r] = pp[2 + ti];
+    }
+    const float lp = fresh ? lps[i] : 0.f;
+    float mm = fresh ? lp : -INFINITY;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) mm = fmaxf(mm, m[r]);
+    const float wf = fresh ? expf(lp - mm) : 0.f;
+    float den = 0.f, acc = fresh ? wf * vf[t] : 0.f;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r) {
+      const float w = m[r] == -INFINITY ? 0.f : expf(m[r] - mm);
+      den = fmaf(l[r], w, den);
+      acc = fmaf(a[r], w, acc);
+    }
+    av[t] = round_to<T>(acc / fmaxf(den + wf, 1e-20f));
+  }
+  __syncthreads();
+}
+
 // keys [j0, j0 + n) of this block's eighth of n_keys
 __device__ __forceinline__ void key_range(int n_keys, int rank, int& j0,
                                           int& n) {
@@ -455,14 +574,17 @@ __device__ __forceinline__ void key_range(int n_keys, int rank, int& j0,
 
 // kGeneral: one head a cluster and every region staged (false: the full
 // test models' shapes, the code the general path adds compiled out), or
-// any head count and regions read from device memory where they do not fit
-template <typename T, bool kGeneral>
+// any head count and regions read from device memory where they do not fit.
+// kGrouped (with kGeneral false): the heads of a group side by side in each
+// cluster, every region staged; the code it adds is compiled out of the
+// other two.
+template <typename T, bool kGeneral, bool kGrouped = false>
 __global__ void __launch_bounds__(kThreads, 1)
     decode_scan_kernel(const ScanParams P) {
   cg::grid_group grid = cg::this_grid();
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
-  const Geometry g = geometry<T, kGeneral>(P);
+  const Geometry g = geometry<T, kGeneral, kGrouped>(P);
   const bool stage_w1 = !kGeneral || g.stage_w1;
   const bool stage_k1 = !kGeneral || g.stage_k1;
   const bool stage_r2 = !kGeneral || g.stage_r2;
@@ -493,7 +615,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int d = P.d, H = P.n_heads, dh = g.dh, dq = g.dq, c = P.channels;
   const int rows_o = g.rows_o, tid = threadIdx.x;
   const int rank = static_cast<int>(cluster.block_rank());
-  const int cid = blockIdx.x / kCluster;  // heads cid, cid + kClusters, ...
+  const int cid = blockIdx.x / kCluster;
+  // the cluster's first head (general: then cid + kClusters, ...) and, in
+  // kGrouped, its hg heads side by side: hw dims, gq of them this block's
+  const int heads = kGrouped ? group_heads(P) : 1;
+  const int head0 = cid * heads;
+  const int hg = kGrouped ? max(0, min(heads, H - head0)) : 1;
+  const int hw = hg * dh, gq = hg * dq;
+  // kGrouped: a head's key scores lie kst apart; the fresh keys' logits in
+  // red's free upper half (block_total and argmax take its first 2 kWarps)
+  const int kst = max(g.kmax, g.emax);
+  float* lpf = red + 2 * kWarps;
   const int U = P.d_ff / kUnit;
   const int f0 = blockIdx.x * U / kBlocks * kUnit;
   const int nf = (blockIdx.x + 1) * U / kBlocks * kUnit - f0;
@@ -520,18 +652,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   const T* mem_v = static_cast<const T*>(P.mem_v);
   T* kv = static_cast<T*>(P.kv);
 
-  // R1 (ATT): wqkv rows [3 dq][d], wo and wo_c slices [rows_o][dh], the
-  // block's cached keys and values [kmax][dh]
+  // R1 (ATT): wqkv rows [3 gq][d], wo and wo_c slices [rows_o][hw], the
+  // block's cached keys and values [kmax][hw]
   T* wqkv_s = r1;
-  T* wo_s = wqkv_s + (size_t)3 * dq * d;
-  T* woc_s = wo_s + (size_t)rows_o * dh;
-  T* ks = stage_w1 ? woc_s + (size_t)rows_o * dh : r1;
-  T* vs = ks + (size_t)g.kmax * dh;
-  // R3 (CROSS): wq_c rows [dq][d], wo_c slice, source keys and values
+  T* wo_s = wqkv_s + (size_t)3 * gq * d;
+  T* woc_s = wo_s + (size_t)rows_o * hw;
+  T* ks = stage_w1 ? woc_s + (size_t)rows_o * hw : r1;
+  T* vs = ks + (size_t)g.kmax * hw;
+  // R3 (CROSS): wq_c rows [gq][d], wo_c slice, source keys and values
   T* wqc_s = r3;
-  T* woc2_s = wqc_s + (size_t)dq * d;
-  T* mk_s = woc2_s + (size_t)rows_o * dh;
-  T* mv_s = mk_s + (size_t)g.emax * dh;
+  T* woc2_s = wqc_s + (size_t)gq * d;
+  T* mk_s = woc2_s + (size_t)rows_o * hw;
+  T* mv_s = mk_s + (size_t)g.emax * hw;
   // R2 (MLP): fc1 rows [nf][d], fc2 columns [d][w2_ld] (bf16); (LOGITS)
   // logit rows [nl][d]
   T* w1_s = r2;
@@ -544,37 +676,38 @@ __global__ void __launch_bounds__(kThreads, 1)
     return wqkv + (size_t)l * 3 * dd
            + ((size_t)(r / dq) * d + head * dh + rank * dq + r % dq) * d;
   };
-  auto o_slice = [&](const T* w, int l, int head) {  // [rows_o][dh], ld d
+  auto o_slice = [&](const T* w, int l, int head) {  // [rows_o][hw], ld d
     return w + (size_t)l * dd + (size_t)rank * rows_o * d + head * dh;
   };
+  // the slices of head ``head`` (kGrouped: of the hg heads from it)
   auto prefetch_att = [&](int l, int p, int head) {
     if (head >= H) return;
     if (stage_w1) {
       const T* wl = wqkv + (size_t)l * 3 * dd;
       for (int s = 0; s < 3; ++s)
-        stage(wqkv_s + (size_t)s * dq * d, d,
-              wl + ((size_t)s * d + head * dh + rank * dq) * d, d, dq, d);
-      stage(wo_s, dh, o_slice(wo, l, head), d, rows_o, dh);
-      if (P.aligned) stage(woc_s, dh, o_slice(wo_c, l, head), d, rows_o, dh);
+        stage(wqkv_s + (size_t)s * gq * d, d,
+              wl + ((size_t)s * d + head * dh + rank * gq) * d, d, gq, d);
+      stage(wo_s, hw, o_slice(wo, l, head), d, rows_o, hw);
+      if (P.aligned) stage(woc_s, hw, o_slice(wo_c, l, head), d, rows_o, hw);
     }
     if (stage_k1) {
       int j0, n;
       key_range(p, rank, j0, n);
       const T* kc = kv + (size_t)(2 * l) * P.l_pad * d + head * dh;
-      stage(ks, dh, kc + (size_t)j0 * d, d, n, dh);
-      stage(vs, dh, kc + (size_t)(P.l_pad + j0) * d, d, n, dh);
+      stage(ks, hw, kc + (size_t)j0 * d, d, n, hw);
+      stage(vs, hw, kc + (size_t)(P.l_pad + j0) * d, d, n, hw);
     }
   };
   auto prefetch_cross = [&](int l, int head) {
     if (head >= H || !stage_r3) return;
-    stage(wqc_s, d, wq_c + (size_t)l * dd + (size_t)(head * dh + rank * dq) * d,
-          d, dq, d);
-    stage(woc2_s, dh, o_slice(wo_c, l, head), d, rows_o, dh);
+    stage(wqc_s, d, wq_c + (size_t)l * dd + (size_t)(head * dh + rank * gq) * d,
+          d, gq, d);
+    stage(woc2_s, hw, o_slice(wo_c, l, head), d, rows_o, hw);
     int e0, n;
     key_range(P.e_src, rank, e0, n);
     const size_t at = ((size_t)l * P.e_pad + e0) * d + head * dh;
-    stage(mk_s, dh, mem_k + at, d, n, dh);
-    stage(mv_s, dh, mem_v + at, d, n, dh);
+    stage(mk_s, hw, mem_k + at, d, n, hw);
+    stage(mv_s, hw, mem_v + at, d, n, hw);
   };
   auto prefetch_mlp = [&](int l) {
     if (!stage_r2) return;
@@ -609,7 +742,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int k = 1; k < kMaxParts; ++k)
         if (k < n_parts) s += v[k];
-      for (int k0 = kMaxParts; kGeneral && k0 < n_parts; k0 += kMaxParts) {
+      for (int k0 = kMaxParts; (kGeneral || kGrouped) && k0 < n_parts;
+           k0 += kMaxParts) {
 #pragma unroll
         for (int k = 0; k < kMaxParts; ++k)
           v[k] = k0 + k < n_parts ? __ldcg(parts + (size_t)(k0 + k) * d + r)
@@ -653,6 +787,31 @@ __global__ void __launch_bounds__(kThreads, 1)
                            part);
     cluster.sync();
     combine<T>(cluster, part, dh, fresh, lp, vf, av);
+  };
+  // the same for the cluster's hg heads side by side (kGrouped), keys
+  // staged [n][hw]; with ``fresh`` head i's fresh-key bias at brow[i bld]
+  auto attention_heads = [&](const T* k_s, const T* v_s, int n, bool fresh,
+                             const float* brow, int bld) {
+    const int parts_n = fresh ? 3 : 1;
+    if (tid < parts_n * hw) {
+      const int which = tid / hw, t = tid % hw;
+      const float* peer = cluster.map_shared_rank(exch, t / gq);
+      const float v = peer[which * gq + t % gq];
+      (which == 0 ? qf : which == 1 ? kf : vf)[t] = v;
+    }
+    __syncthreads();
+    const int warp = tid / kWarp;
+    if (fresh && warp < hg) {  // warp i: head i's fresh logit
+      float s = 0.f;
+      for (int t = tid % kWarp; t < dh; t += kWarp)
+        s = fmaf(qf[warp * dh + t], kf[warp * dh + t], s);
+      s = warp_sum(s) * P.scale + brow[(size_t)warp * bld];
+      if (tid % kWarp == 0) lpf[warp] = s;
+    }
+    attend_heads<T>(k_s, v_s, hw, n, hg, qf, keyb, kst, dh, P.scale, sc,
+                    pv, part);
+    cluster.sync();
+    combine_heads<T>(cluster, part, dh, hg, fresh, lpf, vf, av);
   };
 
   // Gumbel argmax of the logits of step p (every thread gets it); ties go
@@ -698,13 +857,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
 
   int ph = 0;  // phases so far: the residual's double buffer
-  prefetch_att(0, P.p0, cid);
+  prefetch_att(0, P.p0, head0);
   for (int p = P.p0; p < P.steps; ++p) {
     for (int l = 0; l < P.n_layers; ++l) {
       const float* ln = P.ln + (size_t)l * 6 * d;
       const size_t bias_row = ((size_t)l * P.steps_pad + p) * H;
       // ---- ATT
-      if (cid < H) {
+      if (head0 < H) {
         if (l == 0) {
           int tok;
           if (p < c) tok = P.n_class;  // start rows: the all-zeros row
@@ -725,22 +884,30 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         int j0, n;
         key_range(p, rank, j0, n);
-        // one head of the cluster; ``first``: its slices were staged before
-        // the grid barrier and the LayerNorm is still to take
+        // one head of the cluster (kGrouped: its hg heads); ``first``: its
+        // slices were staged before the grid barrier and the LayerNorm is
+        // still to take
         auto att_head = [&](int head, bool first) {
           if (!first) {
             __syncthreads();  // the last head's slices are consumed
             prefetch_att(l, p, head);
           }
           const float* brow = P.bias_hm + (bias_row + head) * P.l_pad;
-          for (int j = tid; j < n; j += kThreads) keyb[j] = brow[j0 + j];
-          const float bias_fresh = brow[p];
-          if (tid < 3 * dq) {
-            const int s = tid / dq;
-            rowb[tid] = to_f(bqkv[(size_t)l * 3 * d + s * d + head * dh
-                                  + rank * dq + tid % dq]);
+          if constexpr (kGrouped) {
+            for (int e = tid; e < hg * n; e += kThreads) {
+              const int i = e / n, j = e - i * n;
+              keyb[i * kst + j] = brow[(size_t)i * P.l_pad + j0 + j];
+            }
+          } else {
+            for (int j = tid; j < n; j += kThreads) keyb[j] = brow[j0 + j];
           }
-          if (P.aligned && tid < dh) {
+          const float bias_fresh = brow[p];
+          if (tid < 3 * gq) {
+            const int s = tid / gq;
+            rowb[tid] = to_f(bqkv[(size_t)l * 3 * d + s * d + head * dh
+                                  + rank * gq + tid % gq]);
+          }
+          if (P.aligned && tid < hw) {
             const int e_q = p / c;
             mvs[tid] = e_q < P.e_pad
                            ? to_f(mem_v[((size_t)l * P.e_pad + e_q) * d
@@ -754,19 +921,36 @@ __global__ void __launch_bounds__(kThreads, 1)
             exch[r] = acc + rowb[r];
           };
           if (stage_w1)
-            gemv<kWarp>(wqkv_s, d, 3 * dq, d, vin, to_exch);
+            gemv<kWarp>(wqkv_s, d, 3 * gq, d, vin, to_exch);
           else
             gemv_rows<kWarp, T>([&](int r) { return wqkv_row(l, head, r); },
                                 3 * dq, d, vin, to_exch);
           __syncthreads();
           // this block's dims of the fresh K/V row p (read from the next
           // step on)
-          if (tid >= dq && tid < 3 * dq) {
-            const int s = tid / dq - 1;
+          if (tid >= gq && tid < 3 * gq) {
+            const int s = tid / gq - 1;
             kv[((size_t)(2 * l + s) * P.l_pad + p) * d + head * dh
-               + rank * dq + tid % dq] = from_f<T>(exch[tid]);
+               + rank * gq + tid % gq] = from_f<T>(exch[tid]);
           }
           cluster.sync();
+          if constexpr (kGrouped) {
+            attention_heads(ks, vs, n, true, brow + p, P.l_pad);
+            // head i's partial from its columns of the staged slices; the
+            // same lane owns row r in wo's and wo_c's product
+            for (int i = 0; i < hg; ++i) {
+              float* out = P.part_att + (size_t)(head + i) * d + rank * rows_o;
+              gemv<8>(wo_s + i * dh, hw, rows_o, dh, av + i * dh,
+                      [&](int r, float acc) {
+                        if (P.aligned) fc2p[r] = acc;
+                        else out[r] = acc;
+                      });
+              if (P.aligned)
+                gemv<8>(woc_s + i * dh, hw, rows_o, dh, mvs + i * dh,
+                        [&](int r, float acc) { out[r] = fc2p[r] + acc; });
+            }
+            return;
+          }
           const T* kc = kv + (size_t)(2 * l) * P.l_pad * d + head * dh;
           if (stage_k1)
             attention(ks, vs, dh, false, n, true, bias_fresh);
@@ -794,16 +978,16 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int head = cid; head < H; head += kClusters)
             att_head(head, head == cid);
         else
-          att_head(cid, true);
+          att_head(head0, true);
       }
-      if (P.aligned || cid >= H) prefetch_mlp(l);
-      else prefetch_cross(l, cid);
+      if (P.aligned || head0 >= H) prefetch_mlp(l);
+      else prefetch_cross(l, head0);
       grid.sync();
       ++ph;
 
       if (!P.aligned) {
         // ---- CROSS
-        if (cid < H) {
+        if (head0 < H) {
           rebuild(ph, P.part_att, H, bo + (size_t)l * d, nullptr, ln + 2 * d,
                   ln + 3 * d);
           int e0, n;
@@ -814,19 +998,36 @@ __global__ void __launch_bounds__(kThreads, 1)
               prefetch_cross(l, head);
             }
             const float* crow = P.cross_hm + (bias_row + head) * P.e_pad;
-            for (int j = tid; j < n; j += kThreads) keyb[j] = crow[e0 + j];
-            if (tid < dq)
+            if constexpr (kGrouped) {
+              for (int e = tid; e < hg * n; e += kThreads) {
+                const int i = e / n, j = e - i * n;
+                keyb[i * kst + j] = crow[(size_t)i * P.e_pad + e0 + j];
+              }
+            } else {
+              for (int j = tid; j < n; j += kThreads) keyb[j] = crow[e0 + j];
+            }
+            if (tid < gq)
               rowb[tid] =
-                  to_f(bq_c[(size_t)l * d + head * dh + rank * dq + tid]);
+                  to_f(bq_c[(size_t)l * d + head * dh + rank * gq + tid]);
             cp_async_wait_all();
             __syncthreads();
             if (first) layer_norm<T>(xs, lnw, lnw + d, d, vin, red);
             gemv<kWarp>(stage_r3 ? wqc_s
                                  : wq_c + (size_t)l * dd
                                        + (size_t)(head * dh + rank * dq) * d,
-                        d, dq, d, vin,
+                        d, gq, d, vin,
                         [&](int r, float acc) { exch[r] = acc + rowb[r]; });
             cluster.sync();
+            if constexpr (kGrouped) {
+              attention_heads(mk_s, mv_s, n, false, nullptr, 0);
+              for (int i = 0; i < hg; ++i) {
+                float* out =
+                    P.part_cross + (size_t)(head + i) * d + rank * rows_o;
+                gemv<8>(woc2_s + i * dh, hw, rows_o, dh, av + i * dh,
+                        [&](int r, float acc) { out[r] = acc; });
+              }
+              return;
+            }
             const size_t at = ((size_t)l * P.e_pad + e0) * d + head * dh;
             if (stage_r3)
               attention(mk_s, mv_s, dh, false, n, false, 0.f);
@@ -841,7 +1042,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             for (int head = cid; head < H; head += kClusters)
               cross_head(head, head == cid);
           else
-            cross_head(cid, true);
+            cross_head(head0, true);
           prefetch_mlp(l);
         }
         grid.sync();
@@ -887,7 +1088,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           s += cluster.map_shared_rank(fc2p, i)[row];
         P.part_mlp[(size_t)cid * d + row] = s;
       }
-      if (l + 1 < P.n_layers) prefetch_att(l + 1, p, cid);
+      if (l + 1 < P.n_layers) prefetch_att(l + 1, p, head0);
       else prefetch_logits();
       grid.sync();
       ++ph;
@@ -904,7 +1105,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                 [&](int r, float acc) {
                   P.logits[lr0 + r] = (acc + rowb[r]) / P.temperature;
                 });
-    if (p + 1 < P.steps) prefetch_att(0, p + 1, cid);
+    if (p + 1 < P.steps) prefetch_att(0, p + 1, head0);
     grid.sync();
     ++ph;
   }
@@ -928,13 +1129,32 @@ cudaError_t shape_ok(const ScanParams& P) {
   return cudaSuccess;
 }
 
-// the kernel of a shape: the general one for more heads than clusters or
-// a region that does not fit
+// heads a cluster takes side by side: G = ceil(H / kClusters) above
+// kClusters heads, where the group is at most kDhMax wide and every region
+// of the grouped layout fits shared memory; else 1
+template <typename T>
+int side_by_side(const ScanParams& P) {
+  const int H = P.n_heads, G = group_heads(P);
+  if (H <= kClusters || G * (P.d / H) > kDhMax) return 1;
+  return geometry<T, false, true>(P).total <= kSmemBudget ? G : 1;
+}
+
+// the kernel of a shape: the grouped one where heads go side by side, the
+// general one for more heads than clusters otherwise or a region that does
+// not fit
 template <typename T>
 void (*kernel_for(const ScanParams& P))(const ScanParams) {
+  if (side_by_side<T>(P) > 1) return decode_scan_kernel<T, false, true>;
   return P.n_heads > kClusters || !geometry<T>(P).stage_r2
              ? decode_scan_kernel<T, true>
              : decode_scan_kernel<T, false>;
+}
+
+// the shared-memory plan of that kernel
+template <typename T>
+Geometry launch_geometry(const ScanParams& P) {
+  return side_by_side<T>(P) > 1 ? geometry<T, false, true>(P)
+                                : geometry<T>(P);
 }
 
 template <typename T>
@@ -949,7 +1169,7 @@ cudaError_t configure(const ScanParams& P, cudaLaunchConfig_t* cfg,
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   if (!coop) return cudaErrorNotSupported;
-  const size_t smem = geometry<T>(P).total;
+  const size_t smem = launch_geometry<T>(P).total;
   if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
   e = cudaFuncSetAttribute(kernel_for<T>(P),
                            cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
@@ -986,11 +1206,12 @@ cudaError_t launch(const ScanParams& P, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// info[0..10] = grid blocks, cluster size, threads a block, dynamic
+// info[0..11] = grid blocks, cluster size, threads a block, dynamic
 // shared-memory bytes, registers a thread, local (spilled) bytes a thread,
 // grid barriers a step, clusters of 8 that can co-reside, heads a cluster
 // at most, the regions staged in shared memory (bits: 1 R1's weights, 2
-// R1's keys, 4 R2, 8 R3), 1 when the general kernel runs
+// R1's keys, 4 R2, 8 R3), 1 when the general kernel runs, the heads a
+// cluster takes side by side
 template <typename T>
 cudaError_t info(const ScanParams& P, int* out) {
   cudaLaunchConfig_t cfg;
@@ -1010,10 +1231,11 @@ cudaError_t info(const ScanParams& P, int* out) {
   out[6] = (P.aligned ? 2 : 3) * P.n_layers + 1;
   out[7] = clusters;
   out[8] = cdiv(P.n_heads, kClusters);
-  const Geometry g = geometry<T>(P);
+  const Geometry g = launch_geometry<T>(P);
   out[9] = g.stage_w1 | g.stage_k1 << 1 | g.stage_r2 << 2
            | (!P.aligned && g.stage_r3) << 3;
   out[10] = kernel_for<T>(P) == decode_scan_kernel<T, true>;
+  out[11] = side_by_side<T>(P);
   return cudaSuccess;
 }
 
@@ -1030,6 +1252,15 @@ extern "C" int isi_decode_scan_info(const ScanParams* P, int dtype,
                                     int* out) {
   return static_cast<int>(dtype == 1 ? info<__nv_bfloat16>(*P, out)
                                      : info<float>(*P, out));
+}
+
+// the heads a cluster of the launch takes side by side (1 for a shape the
+// kernel refuses)
+extern "C" int isi_decode_scan_heads(const ScanParams* P, int dtype) {
+  if (dtype == 1)
+    return shape_ok<__nv_bfloat16>(*P) == cudaSuccess
+               ? side_by_side<__nv_bfloat16>(*P) : 1;
+  return shape_ok<float>(*P) == cudaSuccess ? side_by_side<float>(*P) : 1;
 }
 
 extern "C" const char* isi_error_string(int code) {

@@ -18,9 +18,17 @@ and the token streams compared one for one.
 ``fused_decode_scan`` launches ``csrc/decode_scan.cu`` (one cooperative
 launch per call, in thread-block clusters) for CUDA tensors and runs
 ``decode_scan_plain`` for CPU tensors, never falling back from one to the
-other. ``fused_decode_scan.launches`` counts its kernel launches;
+other. ``fused_decode_scan.launches`` counts its kernel launches,
+``fused_decode_scan.grouped_launches`` those that ran heads side by side;
 ``decode_scan_info`` reads the launch's shape (grid, clusters, shared
-memory, registers, grid barriers a step).
+memory, registers, grid barriers a step, heads side by side).
+
+Up to ``CLUSTERS`` heads, each cluster takes one head. Above, where the
+group of ``heads_side_by_side`` adjacent heads is at most ``SCAN_DH_MAX``
+wide and its regions fit shared memory (the reference's 16 heads of 32:
+8 clusters of 2), a cluster takes the group's heads side by side in one
+segment; otherwise (16 heads of 128, say) the general kernel runs a
+cluster's heads one after the other.
 
 The kernel adds its products' partial sums in a fixed order: the attention
 output projections a partial per head (heads in order), fc2 a partial per
@@ -42,14 +50,29 @@ from .common import (DTYPE_CODES, check_cuda, check_shape, layer_norm, ptr,
 
 # the launch of csrc/decode_scan.cu: CLUSTERS clusters of CLUSTER blocks;
 # fc1 / fc2 split over the blocks in units of UNIT rows of d_ff; cluster c
-# takes the heads c, c + CLUSTERS, ...
+# takes head c; above CLUSTERS heads, the G = heads_side_by_side(...) heads
+# c G, ..., c G + G - 1 side by side, or (the general kernel, where the
+# group does not fit) the heads c, c + CLUSTERS, ... one after the other
 CLUSTER = 8
 CLUSTERS = 15
 UNIT = 8
 SCAN_DH_MAX = 128
 INFO_KEYS = ("grid", "cluster", "threads", "smem_bytes", "registers",
              "local_bytes", "grid_barriers_per_step", "clusters_resident",
-             "heads_per_cluster", "staged_regions", "general_kernel")
+             "heads_per_cluster", "staged_regions", "general_kernel",
+             "heads_side_by_side")
+
+
+def heads_side_by_side(n_heads: int, head_dim: int) -> int:
+    """The heads a cluster takes side by side in one segment: ceil(n_heads
+    / CLUSTERS) above CLUSTERS heads where the group is at most
+    SCAN_DH_MAX wide, else 1 (csrc/decode_scan.cu::side_by_side, which
+    also needs the grouped layout's regions to fit shared memory, and
+    otherwise runs the heads in series)."""
+    group = -(-n_heads // CLUSTERS)
+    if n_heads <= CLUSTERS or group * head_dim > SCAN_DH_MAX:
+        return 1
+    return group
 
 
 def scan_refusal(d_model: int, n_heads: int, d_ff: int) -> Optional[str]:
@@ -261,6 +284,9 @@ def fused_decode_scan(params: Dict[str, torch.Tensor],
                                ctypes.c_void_p(stream))
     raise_on_error(lib, code, "fused_decode_scan")
     fused_decode_scan.launches += 1
+    if lib.isi_decode_scan_heads(ctypes.byref(args[0]),
+                                 ctypes.c_int(DTYPE_CODES[dtype])) > 1:
+        fused_decode_scan.grouped_launches += 1
     return tokens, kv
 
 
@@ -357,3 +383,4 @@ def decode_scan_info(params: Dict[str, torch.Tensor], bias_hm: torch.Tensor,
 
 
 fused_decode_scan.launches = 0
+fused_decode_scan.grouped_launches = 0

@@ -210,6 +210,142 @@ def test_decode_scan_launch_shape(prior):
     assert fused_decode_scan.launches == before + 1
 
 
+def test_decode_scan_one_head_a_cluster_is_not_grouped(prior):
+    """Up to 15 heads a cluster takes one head: the 4-head priors report
+    one head side by side and leave the grouped counter as it was."""
+    from interactive_spectrogram_inpainting_tpu_torch.ops.decode_scan_kernel \
+        import decode_scan_info
+    import chip_smoke
+    inp = inputs(*prior, torch.bfloat16)
+    kv0 = chip_smoke.run_prime(torch, fused_prefix_prime, inp,
+                               torch.bfloat16)
+    noise = torch.zeros(inp["steps"] - inp["p0"], inp["n_class"],
+                        device=kv0.device)
+    info = chip_smoke.scan_info(inp, kv0, noise)
+    assert info["heads_side_by_side"] == 1 and info["general_kernel"] == 0
+    grouped = fused_decode_scan.grouped_launches
+    scan_call(inp, kv0, inp["mask"], noise)
+    assert fused_decode_scan.grouped_launches == grouped
+
+
+# the reference's 16 heads at the small priors' other widths (head_dim 8):
+# 8 clusters of 2 heads side by side
+@pytest.fixture(scope="module", params=["aligned", "cross"])
+def prior16(request, device):
+    return prior_case(tiny_prior(request.param, d_model=128,
+                                 conditional_model_nhead=16).to(device))
+
+
+def test_decode_scan_side_by_side_matches_plain(prior16):
+    """float32, with noise and greedy: the grouped kernel's tokens equal
+    the plain version's, its cache within 3e-4 / 1e-3."""
+    import chip_smoke
+    inp = inputs(*prior16, torch.float32)
+    kv0 = chip_smoke.run_prime(torch, fused_prefix_prime, inp, torch.float32)
+    n = inp["steps"] - inp["p0"]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    noise = gumbel_noise((n, inp["n_class"]), kv0.device, gen)
+    grouped = fused_decode_scan.grouped_launches
+    for gumbel in (noise, torch.zeros_like(noise)):
+        tk, kvk = chip_smoke.run_scan(torch, fused_decode_scan, inp, kv0,
+                                      inp["mask"], gumbel, 0.8)
+        tp, kvp = chip_smoke.run_scan(torch, decode_scan_plain, inp, kv0,
+                                      inp["mask"], gumbel, 0.8)
+        torch.cuda.synchronize()
+        assert torch.equal(tk, tp)
+        torch.testing.assert_close(kvk, kvp, atol=3e-4, rtol=1e-3)
+    assert fused_decode_scan.grouped_launches == grouped + 2
+
+
+def test_decode_scan_side_by_side_bf16_repeats_and_holds_to_plain(prior16):
+    """bfloat16, grouped: two runs give the same tokens and cache bit for
+    bit; the teacher-forced cache is within 5e-2 of the plain version."""
+    import chip_smoke
+    inp = inputs(*prior16, torch.bfloat16)
+    kv0 = chip_smoke.run_prime(torch, fused_prefix_prime, inp,
+                               torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    noise = gumbel_noise((inp["steps"] - inp["p0"], inp["n_class"]),
+                         kv0.device, gen)
+    t1, k1 = scan_call(inp, kv0, inp["mask"], noise)
+    t2, k2 = scan_call(inp, kv0, inp["mask"], noise)
+    none = torch.zeros_like(inp["mask"])
+    tk, kvk = scan_call(inp, kv0, none, noise)
+    tp, kvp = chip_smoke.run_scan(torch, decode_scan_plain, inp, kv0, none,
+                                  noise)
+    torch.cuda.synchronize()
+    assert torch.equal(t1, t2) and torch.equal(k1, k2)
+    assert torch.equal(tk, tp) and torch.equal(tk, inp["tokens"])
+    torch.testing.assert_close(kvk.float(), kvp.float(), atol=5e-2,
+                               rtol=5e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_scan_side_by_side_launch_shape(prior16, dtype):
+    """16 heads: 2 heads side by side in a cluster, not the general kernel,
+    the launch shape and grid barriers of one head a cluster; each call
+    one launch, counted as grouped."""
+    import chip_smoke
+    inp = inputs(*prior16, dtype)
+    kv0 = chip_smoke.run_prime(torch, fused_prefix_prime, inp, dtype)
+    noise = torch.zeros(inp["steps"] - inp["p0"], inp["n_class"],
+                        device=kv0.device)
+    info = chip_smoke.scan_info(inp, kv0, noise)
+    layers = inp["params"]["wo"].shape[0]
+    per_layer = 2 if inp["cross_hm"] is None else 3
+    assert info["heads_side_by_side"] == 2 and info["general_kernel"] == 0
+    assert info["grid_barriers_per_step"] == per_layer * layers + 1
+    assert info["cluster"] == 8 and info["grid"] == 120
+    assert info["clusters_resident"] >= 15
+    assert info["staged_regions"] == (3 if per_layer == 2 else 15) | 4
+    launches = fused_decode_scan.launches
+    grouped = fused_decode_scan.grouped_launches
+    for k in range(1, 3):
+        scan_call(inp, kv0, inp["mask"], noise)
+        assert fused_decode_scan.launches == launches + k
+        assert fused_decode_scan.grouped_launches == grouped + k
+
+
+def test_scan_heads_side_by_side_is_the_kernels_rule(device):
+    """Over a sweep of head counts and widths, the kernel's choice
+    (``isi_decode_scan_heads``) is ``heads_side_by_side``'s where the
+    grouped layout fits shared memory and one head otherwise; at the
+    reference's geometry (d_model 512, 16 heads, d_ff 2048) it is 2 in
+    both dtypes, aligned at the bottom prior's cache and cross at the
+    top prior's."""
+    import ctypes
+    import itertools
+    from interactive_spectrogram_inpainting_tpu_torch.ops import (
+        build, decode_scan_kernel as dsk)
+    from interactive_spectrogram_inpainting_tpu_torch.ops.common import (
+        DTYPE_CODES)
+    lib = build.load("decode_scan")
+    grouped = in_series = 0
+    for d, heads, d_ff, l_pad, cross, dtype in itertools.product(
+            (128, 256, 512, 768, 1024, 2048), (4, 8, 15, 16, 24, 32, 64),
+            (64, 2048, 8192), (128, 640), (False, True),
+            (torch.float32, torch.bfloat16)):
+        if d % heads or (d // heads) % dsk.CLUSTER or \
+                d // heads > dsk.SCAN_DH_MAX:
+            continue
+        params = dsk._ScanParams(
+            n_layers=2, d=d, d_ff=d_ff, n_heads=heads, n_class=512,
+            l_pad=l_pad, e_pad=256, steps_pad=l_pad, length=l_pad - 1,
+            channels=2, p0=0, steps=l_pad, e_src=129 if cross else 256,
+            aligned=int(not cross), scale=1.0, temperature=1.0)
+        got = lib.isi_decode_scan_heads(ctypes.byref(params),
+                                        ctypes.c_int(DTYPE_CODES[dtype]))
+        rule = dsk.heads_side_by_side(heads, d // heads)
+        shape = (d, heads, d_ff, l_pad, cross, dtype)
+        assert got in (1, rule), (shape, got, rule)
+        if rule > 1:
+            grouped += got > 1
+            in_series += got == 1
+        if (d, heads, d_ff) == (512, 16, 2048) and cross == (l_pad == 128):
+            assert got == 2, shape  # the bottom prior's cache, the top's
+    assert grouped and in_series
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_prefix_prime_is_one_launch_and_repeats(prior, dtype):
     """One persistent launch a prefix (2 grid barriers, then 8 per aligned
@@ -458,7 +594,7 @@ def wide_case(device, variant, geometry):
 
 
 @pytest.mark.parametrize("geometry", ["16_heads", "24_heads", "head_dim_128",
-                                      "d_model_1024"])
+                                      "d_model_1024", "d_model_2048"])
 @pytest.mark.parametrize("variant", ["aligned", "cross"])
 def test_decode_scan_wide_geometry_matches_plain(device, variant, geometry):
     """float32: the token streams equal (greedy and with noise), the cache

@@ -31,7 +31,7 @@ from interactive_spectrogram_inpainting_tpu_torch.models.vqvae.vqvae import (
 from interactive_spectrogram_inpainting_tpu_torch.ops.decode_attention import (
     flash_refusal)
 from interactive_spectrogram_inpainting_tpu_torch.ops.decode_scan_kernel \
-    import scan_refusal
+    import heads_side_by_side, scan_refusal
 from interactive_spectrogram_inpainting_tpu_torch.ops.decode_step_kernel \
     import step_refusal
 from interactive_spectrogram_inpainting_tpu_torch.ops.prefix_prime_kernel \
@@ -132,6 +132,20 @@ def test_kernel_predicates_name_what_they_refuse(refusal, widened, refused,
             assert name in reason, (name, reason)
         assert str(shape[0]) in reason or str(shape[0] // max(shape[1], 1)) \
             in reason, reason
+
+
+@pytest.mark.parametrize("n_heads,head_dim,expected", [
+    (4, 8, 1), (8, 64, 1), (15, 32, 1), (16, 32, 2), (16, 8, 2), (24, 32, 2),
+    (16, 128, 1),
+], ids=["4_heads", "8_heads", "15_heads", "16_heads_of_32", "16_heads_of_8",
+        "24_heads", "16_heads_of_128"])
+def test_scan_heads_side_by_side(n_heads, head_dim, expected):
+    """The scan's clusters take one head each up to 15 heads; above, the
+    ceil(H / 15) heads of a group side by side where the group is at most
+    128 wide (the reference's 16 heads of 32, the wide test prior's 16 of
+    8, 24 of 32), else one (the general kernel's heads in series: 16 of
+    128)."""
+    assert heads_side_by_side(n_heads, head_dim) == expected
 
 
 def tiny_vqvae(embed_dim=8, pallas=True):
