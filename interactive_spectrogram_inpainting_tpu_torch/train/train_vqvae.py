@@ -39,9 +39,9 @@ import argparse
 import dataclasses
 import pathlib
 import time
-from contextlib import nullcontext
+from contextlib import ExitStack, nullcontext
 from datetime import datetime
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +60,7 @@ from ..signal.spectrogram import (get_spectrograms_helper,
 from ..utils.checkpoint_io import save_model
 from ..utils.device import resolve_device, set_float32_precision
 from ..utils.metrics import MetricsWriter
+from ..utils.tracing import span
 from ..utils.weights import init_like_flax
 from .checkpoint import Checkpointer
 from .losses import (get_reconstruction_criterion,
@@ -173,9 +174,10 @@ def make_parser() -> argparse.ArgumentParser:
                         "the JAX trainer (the codebooks stay float32)")
     p.add_argument("--profile", action="store_true",
                    help="write a torch.profiler trace of the first epoch "
-                        "into <run>/profile: operators and kernels; this "
-                        "trainer marks none of the prior trainer's train.* "
-                        "spans")
+                        "into <run>/profile: operators, kernels and the "
+                        "trainer's spans, train.batch, train.spectrogram, "
+                        "train.forward, train.criterion, train.backward, "
+                        "train.optimizer and, at log steps, train.trio")
     p.add_argument("--pallas_vq", action="store_true",
                    help="nearest-code lookup and its EMA statistics through "
                         "the VQ-lookup kernel (the JAX package's flag name)")
@@ -272,7 +274,10 @@ def make_train_step(model: VQVAE, optimizer: Optimizer,
     runs in float32); the codebook buffers stay float32.
     ``reconstruction_metrics`` (see ``losses.make_reconstruction_metrics``)
     adds the metric trio, computed without gradient on the same
-    reconstruction."""
+    reconstruction. Spans (``utils/tracing.py``): ``train.spectrogram``,
+    ``train.forward``, ``train.criterion``, ``train.backward``,
+    ``train.optimizer`` and, with the trio, ``train.trio``, once a step
+    each."""
     casts = ((lambda: bfloat16_parameters(model, promote=True))
              if bf16 else nullcontext)
     cfg = model.config
@@ -280,31 +285,59 @@ def make_train_step(model: VQVAE, optimizer: Optimizer,
 
     def step(audio: torch.Tensor, generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
-        spec = _spectrogram(spectrograms_helper, input_transform, audio)
-        optimizer.zero_grad()
-        with casts():
-            spec_in = spec.to(torch.bfloat16) if bf16 else spec
-            dec, diff, perp_t, perp_b, _, _ = model(spec_in, train=True,
-                                                    generator=generator)
-            recon = reconstruction_criterion(dec.float(), spec)
-            diff = diff.float()
-            loss = recon + latent_loss_weight * diff
-            loss.backward()
-        mean_of_gradients(model.parameters(), data_group)
-        optimizer.step()
-        metrics = {"vqvae_loss": loss, "reconstruction_loss": recon,
-                   "latent_loss": diff, "perplexity_top": perp_t,
-                   "perplexity_bottom": perp_b,
-                   "perplexity_top_ratio": perp_t / cfg.n_embed_t,
-                   "perplexity_bottom_ratio": perp_b / cfg.n_embed_b}
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        with span("train.spectrogram"):
+            spec = _spectrogram(spectrograms_helper, input_transform, audio)
+        # the casts hold from the forward through the backward
+        with ExitStack() as cast:
+            with span("train.forward"):
+                optimizer.zero_grad()
+                cast.enter_context(casts())
+                spec_in = spec.to(torch.bfloat16) if bf16 else spec
+                dec, diff, perp_t, perp_b, _, _ = model(
+                    spec_in, train=True, generator=generator)
+            with span("train.criterion"):
+                recon = reconstruction_criterion(dec.float(), spec)
+                diff = diff.float()
+                loss = recon + latent_loss_weight * diff
+            with span("train.backward"):
+                loss.backward()
+        with span("train.optimizer"):
+            mean_of_gradients(model.parameters(), data_group)
+            optimizer.step()
+            metrics = {"vqvae_loss": loss, "reconstruction_loss": recon,
+                       "latent_loss": diff, "perplexity_top": perp_t,
+                       "perplexity_bottom": perp_b,
+                       "perplexity_top_ratio": perp_t / cfg.n_embed_t,
+                       "perplexity_bottom_ratio": perp_b / cfg.n_embed_b}
+            metrics = {k: v.detach() for k, v in metrics.items()}
         if reconstruction_metrics is not None:
-            with torch.no_grad():
+            with span("train.trio"), torch.no_grad():
                 metrics.update(reconstruction_metrics(dec.detach().float(),
                                                       spec))
         return mean_of_metrics(metrics, data_group)
 
     return step
+
+
+def train_batch(batches: Iterator, device: torch.device, global_step: int,
+                log_frequency: int, train_step, train_step_logged,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], bool]:
+    """One batch's work: the next batch of ``batches`` (the wait for the
+    loader) and its copy to ``device`` under the span ``train.batch``, then
+    ``train_step_logged`` at a log step (``global_step`` a multiple of
+    ``log_frequency``, ``--train_logs_frequency_batches``), else
+    ``train_step``; -> (audio on the device, the step's metrics, whether it
+    was a log step)."""
+    with span("train.batch"):
+        batch = next(batches)
+        audio = torch.as_tensor(
+            batch[0] if isinstance(batch, tuple) else batch
+        ).to(device, non_blocking=True)
+    is_log_step = global_step % log_frequency == 0
+    metrics = (train_step_logged if is_log_step else train_step)(audio,
+                                                                 generator)
+    return audio, metrics, is_log_step
 
 
 def make_eval_step(model: VQVAE, reconstruction_criterion,
@@ -528,14 +561,12 @@ def main(argv=None) -> VQVAE:
             t0 = time.perf_counter()
             t_warm, steps = None, 0
             with profiler:
-                for batch_index, batch in enumerate(train_loader):
-                    audio = torch.as_tensor(
-                        batch[0] if isinstance(batch, tuple) else batch
-                    ).to(device, non_blocking=True)
-                    is_log_step = (global_step
-                                   % args.train_logs_frequency_batches == 0)
-                    metrics = (train_step_logged if is_log_step
-                               else train_step)(audio, generator)
+                batches = iter(train_loader)
+                for batch_index in range(steps_per_epoch):
+                    audio, metrics, is_log_step = train_batch(
+                        batches, device, global_step,
+                        args.train_logs_frequency_batches, train_step,
+                        train_step_logged, generator)
                     steps += 1
                     if steps == 1:
                         # the steps after the first are the warm ones
